@@ -5,19 +5,32 @@
 
 Phases, in order; any failure raises and the exit code is non-zero:
   1. require CUDA; print the device, its name and power limit; set TF32;
-  2. build the CUDA kernels from ``iic_tpu_torch/csrc`` and print the time;
+  2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
+     source, all at once; print the times and ptxas' registers and spills;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
-     their plain PyTorch versions at the main path's shapes (n=120, 128^2,
-     T=21, k=15 and k=3), within the JAX package's own kernel contract
-     (rtol 5e-3, atol 5e-3 * max); print errors and CUDA-event times, and
-     both versions' errors against a float64 plain version;
-  4. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
-     on SyntheticSeg3x146x480) with --test_code; require finite losses, a
-     filled eval history and at least 4 K1 and 8 K2 launches;
-  5. profile steady head-A and head-B steps of the same path: step time,
-     device busy share and device time by kernel (chrome traces go to
-     --trace_dir when it is given);
-  6. print the kernel table as one JSON line, then the result line.
+     their plain PyTorch versions at the segmentation path's shapes (n=120,
+     128^2, T=21, k=15 and k=3), within the JAX package's own kernel
+     contract (rtol 5e-3, atol 5e-3 * max); print errors and CUDA-event
+     times, and both versions' errors against a float64 plain version;
+  4. hold K3 (fused clustering IID loss) against its plain version at the
+     clustering path's shapes (S=5 sub-heads; bn, k = 660, 70 / 660, 10 /
+     1000, 140): loss and loss_nl within rtol = atol = 1e-5, P within 1e-6
+     of max |P|, autograd gradients within rtol 1e-3, atol 1e-6; errors
+     against a float64 plain version; CUDA-event times, forward and
+     forward + backward;
+  5. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
+     on SyntheticSeg3x146x480) with --test_code, kernel counts set to 0
+     just before; require finite losses, a filled eval history and at
+     least 4 K1 and 8 K2 launches;
+  6. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
+     Synthetic10x32x3, --fused_loss) with --test_code, counts set to 0
+     just before; require finite losses for both heads, a pre-train and an
+     epoch eval with the double-eval lists, and at least one K3 launch per
+     step;
+  7. profile steady head-A and head-B steps of both paths: step time,
+     device busy share and device time by kernel, and the kernels' share
+     (chrome traces go to --trace_dir when it is given);
+  8. print the kernel table as one JSON line, then the result line.
 """
 
 import argparse
@@ -31,9 +44,21 @@ import time
 N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
 RTOL = 5e-3   # tests/test_pallas_kernels.py:95-96, :119-122
-SOURCE = "iic_tpu_torch/csrc/seg_joint.cu"
+LIBS = ("seg_joint", "iid_loss")
+SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
+           "seg_joint_dgrad": "iic_tpu_torch/csrc/seg_joint.cu",
+           "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu"}
 REPLACES = {"seg_joint_fwd": "iic_tpu/ops/pallas/seg_joint_kernel.py:83",
-            "seg_joint_dgrad": "iic_tpu/ops/pallas/seg_joint_kernel.py:191"}
+            "seg_joint_dgrad": "iic_tpu/ops/pallas/seg_joint_kernel.py:191",
+            "iid_loss_fwd": "iic_tpu/ops/pallas/iid_loss_kernel.py:34"}
+# K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
+# heads A and B, and the CIFAR20 overclustering head of model 579
+K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140))
+K3_LAMB = 1.0
+# tests/test_pallas_kernels.py:34-37 (values) and :54-55 (gradients)
+K3_RTOL = K3_ATOL = 1e-5
+K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-3, 1e-6
+K3_P_REL = 1e-6  # P against max |P|
 
 CLI_ARGS = [
     "--mode", "IID", "--dataset", "SyntheticSeg3x146x480",
@@ -44,6 +69,18 @@ CLI_ARGS = [
     "--half_T_side_sparse_min", "0", "--half_T_side_sparse_max", "0",
     "--half_T_side_dense", "10", "--include_rgb", "--use_uncollapsed_loss",
     "--batchnorm_track", "--test_code", "--num_epochs", "2"]
+
+# CIFAR10 model 640 (examples/commands.md:26-39) with --fused_loss, on the
+# synthetic set of CIFAR's image size and class count
+CLUSTER_CLI_ARGS = [
+    "--model_ind", "640", "--arch", "ClusterNet5gTwoHead", "--mode", "IID",
+    "--dataset", "Synthetic10x32x3", "--dataset_root", "", "--gt_k", "10",
+    "--output_k_A", "70", "--output_k_B", "10", "--lamb", "1.0",
+    "--lr", "0.0001", "--num_epochs", "2000", "--batch_sz", "660",
+    "--num_dataloaders", "3", "--num_sub_heads", "5", "--crop_orig",
+    "--rand_crop_sz", "20", "--input_sz", "32", "--head_A_first",
+    "--head_B_epochs", "2", "--double_eval", "--batchnorm_track",
+    "--fused_loss", "--test_code"]
 
 
 def _log(msg):
@@ -70,11 +107,16 @@ def phase_device():
 
 
 def phase_build():
+    """Build every kernel source at once, one nvcc each (ptxas prints each
+    kernel's registers, shared memory and spills)."""
+    from concurrent.futures import ThreadPoolExecutor
     from iic_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
-    _build.library("seg_joint")
-    _log(f"build: seg_joint in {time.perf_counter() - t0:.2f} s "
-         f"(nvcc {_build.BUILD_SECONDS['seg_joint']:.2f} s)")
+    with ThreadPoolExecutor(len(LIBS)) as pool:
+        list(pool.map(_build.library, LIBS))
+    _log(f"build: {', '.join(LIBS)} in {time.perf_counter() - t0:.2f} s "
+         + ", ".join(f"(nvcc {n} {_build.BUILD_SECONDS[n]:.2f} s)"
+                     for n in LIBS))
 
 
 def _time_ms(fn, reps=5):
@@ -91,16 +133,22 @@ def _time_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def _compare(tag, got, ref):
+def _check(tag, got, ref, rtol, atol):
+    """Max abs error of ``got``; raises unless |got - ref| <= atol + rtol
+    |ref| everywhere."""
     import torch
-    scale = float(ref.abs().max())
     err = float((got - ref).abs().max())
-    ok = bool(torch.all((got - ref).abs() <= RTOL * scale + RTOL * ref.abs()))
-    _log(f"  {tag}: max_abs_err {err:.3e} (atol {RTOL * scale:.3e}) "
+    ok = bool(torch.all((got - ref).abs() <= atol + rtol * ref.abs()))
+    _log(f"  {tag}: max_abs_err {err:.3e} (rtol {rtol:g}, atol {atol:.3e}) "
          f"{'ok' if ok else 'FAIL'}")
     if not ok or not math.isfinite(err):
         raise AssertionError(f"{tag} disagrees with its plain version")
     return err
+
+
+def _compare(tag, got, ref):
+    """The JAX package's K1/K2 contract: rtol 5e-3, atol 5e-3 * max |ref|."""
+    return _check(tag, got, ref, RTOL, RTOL * float(ref.abs().max()))
 
 
 def phase_kernels():
@@ -162,17 +210,95 @@ def phase_kernels():
     return stats
 
 
+def phase_k3():
+    """K3 against its plain version at the clustering path's shapes: loss,
+    loss_nl, P and the autograd gradients within the JAX package's kernel
+    contract; errors against a float64 plain version; CUDA-event times of
+    the kernel and the plain version, forward and forward + backward.
+    Returns {"max_abs_err", "ms", "plain_ms"} (ms: forward at head A's
+    shape; every time is printed)."""
+    import torch
+    from iic_tpu_torch.ops.kernels import iid_loss as k3
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    stats = {"max_abs_err": 0.0}
+    for s, bn, k in K3_SHAPES:
+        def softmax():
+            return torch.softmax(torch.randn((s, bn, k), device="cuda",
+                                             generator=gen), dim=-1)
+        z, zt = softmax(), softmax()
+        _log(f"K3 S={s}, bn={bn}, k={k}:")
+        got = k3.iid_loss_fwd(z, zt, K3_LAMB)
+        ref = k3.iid_loss_fused_plain(z, zt, K3_LAMB)
+        errs = [_check("loss", got[0], ref[0], K3_RTOL, K3_ATOL),
+                _check("loss_nl", got[1], ref[1], K3_RTOL, K3_ATOL),
+                _check("P", got[2], ref[2], 0.0,
+                          K3_P_REL * float(ref[2].abs().max())),
+                _check("total", got[3], ref[3], K3_RTOL, 0.0)]
+        stats["max_abs_err"] = max(stats["max_abs_err"], *errs[:3])
+        ref64 = k3.iid_loss_fused_plain(z.double(), zt.double(), K3_LAMB)
+        for name, i in (("loss", 0), ("P", 2)):
+            scale = float(ref64[i].abs().max())
+            e_k, e_p = (float((v[i].double() - ref64[i]).abs().max()) / scale
+                        for v in (got, ref))
+            _log(f"  {name} vs float64: max err / max|ref| kernel {e_k:.3e}"
+                 f", plain f32 {e_p:.3e}")
+
+        zr = z.clone().requires_grad_()
+        ztr = zt.clone().requires_grad_()
+        weights = torch.linspace(0.5, 1.5, s, device="cuda")
+
+        def fwd_bwd(fn):
+            loss, nl = fn(zr, ztr, K3_LAMB)[:2]
+            return torch.autograd.grad((weights * loss).sum() - 0.3 * nl.sum(),
+                                       (zr, ztr))
+
+        g_kernel = fwd_bwd(k3.iid_loss_fused)
+        g_plain = fwd_bwd(k3.iid_loss_fused_plain)
+        for name, a, b in zip(("dz", "dzt"), g_kernel, g_plain):
+            _check(f"grad {name}", a, b, K3_GRAD_RTOL, K3_GRAD_ATOL)
+
+        times = (
+            _time_ms(lambda: k3.iid_loss_fwd(z, zt, K3_LAMB), reps=50),
+            _time_ms(lambda: k3.iid_loss_fused_plain(z, zt, K3_LAMB),
+                     reps=50),
+            _time_ms(lambda: fwd_bwd(k3.iid_loss_fused), reps=50),
+            _time_ms(lambda: fwd_bwd(k3.iid_loss_fused_plain), reps=50))
+        _log(f"  iid_loss_fwd S={s} bn={bn} k={k}: forward kernel "
+             f"{times[0]:.4f} ms, plain {times[1]:.4f} ms; forward+backward "
+             f"kernel {times[2]:.4f} ms, plain {times[3]:.4f} ms (CUDA "
+             f"events, mean of 50)")
+        if (s, bn, k) == K3_SHAPES[0]:
+            stats.update(ms=times[0], plain_ms=times[1])
+    return stats
+
+
+def _launch_counts():
+    from iic_tpu_torch.ops.kernels import iid_loss as k3
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+    return sj, k3
+
+
+def _reset_counts():
+    for mod in _launch_counts():
+        mod.reset_launch_counts()
+
+
+def _read_counts():
+    return {k: v for mod in _launch_counts() for k, v in mod.LAUNCHES.items()}
+
+
 def phase_trainer():
-    """The CLI slice in-process. Returns {kernel: launches in the run}."""
+    """The segmentation CLI in-process. Returns {kernel: launches in the
+    run}."""
     import numpy as np
     from iic_tpu_torch.cli import segmentation_twohead
-    from iic_tpu_torch.ops.kernels import seg_joint as sj
 
     with tempfile.TemporaryDirectory() as out_root:
-        sj.reset_launch_counts()
+        _reset_counts()
         _, history = segmentation_twohead.main(
             CLI_ARGS + ["--out_root", out_root])
-        launches = dict(sj.LAUNCHES)
+        launches = _read_counts()
     for head in ("A", "B"):
         losses = history[f"epoch_loss_head_{head}"]
         steps = history[f"step_seconds_head_{head}"]
@@ -184,9 +310,44 @@ def phase_trainer():
     _log(f"eval acc per epoch (pre-train first): {acc}")
     if len(acc) < 2 or not np.all(np.isfinite(acc)):
         raise AssertionError(f"eval history not filled: {acc}")
-    _log(f"launches in the trainer run: {launches}")
+    _log(f"launches in the segmentation run: {launches}")
     if launches["seg_joint_fwd"] < 4 or launches["seg_joint_dgrad"] < 8:
         raise AssertionError(f"main path missed the kernels: {launches}")
+    return launches
+
+
+def phase_cluster_trainer():
+    """The clustering CLI in-process. Returns {kernel: launches in the
+    run}."""
+    import numpy as np
+    from iic_tpu_torch.cli import cluster_sobel_twohead
+
+    with tempfile.TemporaryDirectory() as out_root:
+        _reset_counts()
+        _, history = cluster_sobel_twohead.main(
+            CLUSTER_CLI_ARGS + ["--out_root", out_root])
+        launches = _read_counts()
+    n_steps = 0
+    for head in ("A", "B"):
+        losses = history[f"epoch_loss_head_{head}"]
+        steps = history[f"step_seconds_head_{head}"]
+        n_steps += len(steps)
+        _log(f"cluster head {head}: epoch loss {losses}, step seconds "
+             f"{[round(s, 4) for s in steps]}")
+        if not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"head {head} loss not finite: {losses}")
+    ev = history["eval"]
+    _log(f"eval acc per epoch (pre-train first): {ev.epoch_acc}, double "
+         f"eval {ev.double_eval_acc}")
+    for name, acc in (("eval", ev.epoch_acc),
+                      ("double eval", ev.double_eval_acc)):
+        if len(acc) < 2 or not np.all(np.isfinite(acc)):
+            raise AssertionError(f"{name} history not filled: {acc}")
+    _log(f"launches in the clustering run: {launches}; {n_steps} steps, so "
+         f"{n_steps} K3 launches expected (one per step for all 5 "
+         f"sub-heads; {5 * n_steps} if launched per sub-head)")
+    if launches["iid_loss_fwd"] < n_steps:
+        raise AssertionError(f"clustering path missed K3: {launches}")
     return launches
 
 
@@ -208,14 +369,73 @@ def _f64_errors(k, x1, x2, g2d):
              f" plain f32 {errs[1]:.3e}")
 
 
-def phase_profile(trace_dir, steps=3):
-    """Steady head-A and head-B steps of the main path under
-    torch.profiler: step time (host clock, synchronised), device busy share
-    and device time by kernel. Launches here are not counted: the counts
-    were read after the trainer run."""
+# Device-time families of a step, matched on kernel names in this order;
+# the hand-written kernels come first, from each path's ``focus``
+FAMILIES = (
+    ("cuDNN convolutions", ("implicit_gemm", "xmma", "cask")),
+    ("BatchNorm", ("batchnorm", "bn_fw", "bn_bw")),
+    ("NCHW/NHWC layout transforms", ("nchwToNhwc", "nhwcToNchw")),
+    ("max-pool", ("max_pool",)),
+    ("Adam", ("multi_tensor_apply", "Adam")),
+)
+
+
+def _profile(tag, step, batches, trace_dir, focus, steps=3):
+    """Two warm-up steps, ``steps`` timed steps (host clock, synchronised),
+    then ``steps`` more under torch.profiler: device busy share, device time
+    by kernel and by family, and the share of the kernels named in
+    ``focus``. Launches here are not counted: the counts were read after
+    the trainer runs."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    def run(first):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            float(step(*batches[(first + i) % len(batches)])[0])
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    for batch in batches[:2]:
+        float(step(*batch)[0])
+    wall = run(2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_prof = run(2 + steps)
+    # user annotations (e.g. Optimizer.step) span their kernels: skip them
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    busy = sum(e.self_device_time_total for e in events) / steps / 1e3
+    share = 100 * busy / wall
+    _log(f"profile {tag}: {wall:.2f} ms/step wall ({wall_prof:.2f} under "
+         f"the profiler), device busy {busy:.2f} ms/step ({share:.1f}% of "
+         f"the unprofiled wall), mean of {steps} steps")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    for e in events[:12]:
+        _log(f"    {e.self_device_time_total / steps / 1e3:9.3f} ms "
+             f"x{e.count // steps:<4d} {e.key[:90]}")
+    families = (("kernels " + "/".join(focus), focus),) + FAMILIES
+    fams = {}
+    for e in events:
+        name = next((n for n, keys in families
+                     if any(k in e.key for k in keys)),
+                    "other elementwise / reductions")
+        fams[name] = (fams.get(name, 0.0)
+                      + e.self_device_time_total / steps / 1e3)
+    for name, ms in sorted(fams.items(), key=lambda f: -f[1]):
+        _log(f"    family {name}: {ms:.3f} ms/step ({100 * ms / busy:.2f}% "
+             f"of device busy)")
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            trace_dir, f"trace_{tag.replace(' ', '_')}.json"))
+
+
+def phase_profile(trace_dir):
+    """Steady head-A and head-B steps of the segmentation path."""
+    import torch
     from iic_tpu_torch import models
     from iic_tpu_torch.cli._args import parse_seg_args
     from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
@@ -227,36 +447,41 @@ def phase_profile(trace_dir, steps=3):
     pipe = SegTrainPipeline(cfg, ["train"], seed=0, device="cuda")
     net = models.build(cfg.arch, cfg).cuda()
     opt = make_optimizer(net, cfg)
-    batches = list(pipe.epoch(1))
+    batches = [((imgs, masks), gen) for imgs, masks, gen in pipe.epoch(1)]
     for head, lamb in (("A", cfg.lamb_A), ("B", cfg.lamb_B)):
         step = make_seg_train_step(
             net, opt, lamb=lamb, head=head, half_T_side_dense=HALF_T,
             half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
             include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment)
-        for imgs, masks, gen in batches[:2]:  # warm-up
-            float(step((imgs, masks), gen)[0])
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(steps):
-                imgs, masks, gen = batches[i % len(batches)]
-                float(step((imgs, masks), gen)[0])
-            wall = (time.perf_counter() - t0) / steps
-        events = [e for e in prof.key_averages()
-                  if e.device_type.name == "CUDA"]
-        busy = sum(e.self_device_time_total for e in events) / steps / 1e3
-        _log(f"profile head {head}: {wall * 1e3:.2f} ms/step wall, device "
-             f"busy {busy:.2f} ms/step ({100 * busy / (wall * 1e3):.1f}%), "
-             f"mean of {steps} steps")
-        events.sort(key=lambda e: -e.self_device_time_total)
-        for e in events[:12]:
-            _log(f"    {e.self_device_time_total / steps / 1e3:9.3f} ms "
-                 f"x{e.count // steps:<4d} {e.key[:90]}")
-        if trace_dir:
-            os.makedirs(trace_dir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(trace_dir,
-                                                  f"trace_head_{head}.json"))
+        _profile(f"seg head {head}", step, batches, trace_dir,
+                 ("joint_partial_kernel", "joint_reduce_kernel",
+                  "dgrad_kernel"))
+
+
+def phase_cluster_profile(trace_dir):
+    """Steady head-A and head-B steps of the clustering path (K3 on)."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_cluster_args
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
+                                                   make_optimizer)
+
+    cfg = parse_cluster_args(CLUSTER_CLI_ARGS)
+    cfg.lamb_A = cfg.lamb_B = cfg.lamb
+    cfg.finalize(twohead=True, sobel=True)
+    torch.manual_seed(0)
+    pipe_a, pipe_b, _, _ = cluster_twohead_create_dataloaders(
+        cfg, seed=0, device="cuda")
+    net = models.build(cfg.arch, cfg).cuda()
+    opt = make_optimizer(net, cfg)
+    for head, pipe in (("A", pipe_a), ("B", pipe_b)):
+        step = make_cluster_train_step(
+            net, opt, pipe.augment_pair, lamb=cfg.lamb, head=head, sobel=True,
+            include_rgb=cfg.include_rgb, loss_impl="fused")
+        batches = [b for _, b in zip(range(8), pipe.epoch(1))]
+        _profile(f"cluster head {head}", step, batches, trace_dir,
+                 ("iid_loss_kernel",))
 
 
 def main(argv=None):
@@ -268,9 +493,14 @@ def main(argv=None):
     name, _ = phase_device()
     phase_build()
     stats = phase_kernels()
-    launches = phase_trainer()
+    stats["iid_loss_fwd"] = phase_k3()
+    launches = {k: v for k, v in phase_trainer().items()
+                if k.startswith("seg_joint")}
+    launches.update({k: v for k, v in phase_cluster_trainer().items()
+                     if k == "iid_loss_fwd"})
     phase_profile(args.trace_dir)
-    table = [{"name": k, "route": "cuda", "source": SOURCE,
+    phase_cluster_profile(args.trace_dir)
+    table = [{"name": k, "route": "cuda", "source": SOURCES[k],
               "replaces": REPLACES[k], "launches": launches[k],
               **stats[k]} for k in REPLACES]
     import torch

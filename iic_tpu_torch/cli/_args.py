@@ -1,10 +1,11 @@
 """argparse -> config for the CLI entry points, with the reference's flag
-names (``iic_tpu/cli/_args.py``: ``parse_seg_args``)."""
+names (``iic_tpu/cli/_args.py``: ``parse_cluster_args``,
+``parse_seg_args``)."""
 
 import argparse
 import dataclasses
 
-from iic_tpu_torch.train.config import SegConfig
+from iic_tpu_torch.train.config import ClusterConfig, SegConfig
 
 _DERIVED = ("twohead", "sobel", "in_channels", "dataloader_batch_sz",
             "eval_mode", "bn_axis_name", "using_IR")
@@ -34,12 +35,12 @@ def _add_dataclass_args(parser, cls, skip=()):
     return parser
 
 
-def parse_seg_args(argv=None, defaults=None):
+def _parse(cls, argv, defaults):
     parser = argparse.ArgumentParser()
-    _add_dataclass_args(parser, SegConfig, skip=_DERIVED)
+    _add_dataclass_args(parser, cls, skip=_DERIVED)
     args = parser.parse_args(argv)
-    cfg = SegConfig()
-    for f in dataclasses.fields(SegConfig):
+    cfg = cls()
+    for f in dataclasses.fields(cls):
         if f.name in _DERIVED:
             continue
         v = getattr(args, f.name)
@@ -47,3 +48,11 @@ def parse_seg_args(argv=None, defaults=None):
     for k, v in (defaults or {}).items():
         setattr(cfg, k, v)
     return cfg
+
+
+def parse_cluster_args(argv=None, defaults=None):
+    return _parse(ClusterConfig, argv, defaults)
+
+
+def parse_seg_args(argv=None, defaults=None):
+    return _parse(SegConfig, argv, defaults)

@@ -7,11 +7,15 @@ the JAX tree), so this module needs no JAX. Mapping:
   - flax ``BatchNorm`` scale / bias / mean / var -> weight / bias /
     running_mean / running_var;
   - ``MultiConvSoftmaxHead`` kernel (1, 1, C, S*K) -> S 1x1 convs (K, C, 1, 1)
-    (the flax head reshapes its kernel to (C, S, K)).
+    (the flax head reshapes its kernel to (C, S, K));
+  - ``MultiDenseHead`` kernel (S, D, K) and bias (S, K) -> S Linear layers,
+    weight (K, D) and bias (K,).
 
-Convs and BatchNorms are matched by their flax index (``Conv_<i>``,
-``BatchNorm_<i>``), which counts them in execution order, against the order
-of the torch modules. Every copy is shape-checked.
+Convs and BatchNorms are matched by their flax path and index (``Conv_<i>``,
+``BatchNorm_<i>`` inside ``ResNetLayer_<l>/BasicBlock_<b>``), which count
+them in creation order, against the order of the torch modules. Paths sort
+by their numbers, so ``BasicBlock_10`` comes after ``BasicBlock_2``. Every
+copy is shape-checked.
 """
 
 import re
@@ -21,6 +25,16 @@ import torch
 import torch.nn as nn
 
 _TRUNK_KEY = "SegmentationNet10aTrunk_0"
+_CLUSTER_TRUNK_KEY = "ClusterNet5gTrunk_0"
+
+
+def _path_key(path):
+    """Sort key of a flax path: each ``<name>_<i>`` by name, then number."""
+    key = []
+    for part in path:
+        m = re.fullmatch(r"(.*)_(\d+)", part)
+        key.append((m.group(1), int(m.group(2))) if m else (part, -1))
+    return tuple(key)
 
 
 def _numbered(tree, prefix):
@@ -39,7 +53,7 @@ def _numbered(tree, prefix):
                 walk(val, path + (key,))
 
     walk(tree, ())
-    found.sort(key=lambda f: (f[0], f[1]))
+    found.sort(key=lambda f: (_path_key(f[0]), f[1]))
     return [(full, val) for _, _, val, full in found]
 
 
@@ -61,7 +75,8 @@ def _copy(dst, src, what):
 
 
 def load_trunk(params, stats, trunk):
-    """Copy a flax VGG trunk's params (and batch stats) into ``trunk``."""
+    """Copy a flax VGG or ResNet trunk's params (and batch stats) into
+    ``trunk``."""
     t_convs = [m for m in trunk.modules() if isinstance(m, nn.Conv2d)]
     t_bns = [m for m in trunk.modules() if isinstance(m, nn.BatchNorm2d)]
     f_convs = _numbered(params, "Conv")
@@ -95,6 +110,35 @@ def load_conv_heads(flax_head, head):
     for i, sub in enumerate(head.heads):
         w = per_head[:, i, :].T.reshape(sk // s, c, 1, 1)
         _copy(sub[0].weight, w, f"head sub-head {i}")
+
+
+def load_dense_heads(flax_head, head):
+    """``MultiDenseHead`` kernel (S, D, K) and bias (S, K) -> the S Linear
+    layers of ``head.heads``."""
+    kernel = np.asarray(flax_head["kernel"])
+    bias = np.asarray(flax_head["bias"])
+    if kernel.shape[0] != len(head.heads):
+        raise ValueError(f"head has {len(head.heads)} sub-heads, flax "
+                         f"kernel {kernel.shape}")
+    for i, sub in enumerate(head.heads):
+        _copy(sub[0].weight, kernel[i].T, f"head sub-head {i} kernel")
+        _copy(sub[0].bias, bias[i], f"head sub-head {i} bias")
+
+
+def load_cluster_net(variables, net):
+    """Fill a ``ClusterNet5g[TwoHead]`` from flax ``variables``: the ResNet
+    trunk's convs and BNs (stem first, then ``ResNetLayer_<l>/BasicBlock_<b>``
+    in order), then the dense heads."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    load_trunk(params[_CLUSTER_TRUNK_KEY], stats.get(_CLUSTER_TRUNK_KEY),
+               net.trunk)
+    if hasattr(net, "head_A"):
+        load_dense_heads(params["head_A"], net.head_A)
+        load_dense_heads(params["head_B"], net.head_B)
+    else:
+        load_dense_heads(params["MultiDenseHead_0"], net.head)
+    return net
 
 
 def load_seg_net(variables, net):

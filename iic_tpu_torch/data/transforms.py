@@ -1,13 +1,15 @@
-"""Device-side image transforms for the segmentation pipeline
-(``iic_tpu/data/transforms.py``: grey conversion and colour jitter).
+"""Device-side image transforms (``iic_tpu/data/transforms.py``): grey
+conversion, colour jitter, crops, resize, flip, and the clustering sobel
+path's tf1 / tf2 / tf3.
 
-Images are float32 (B, H, W, C) in [0, 1], the JAX layout, batched. The
-adjust functions take their factors as per-sample tensors (B,), so the
-tests can feed both packages the same draws; ``color_jitter`` draws them
-from an explicit ``torch.Generator``.
+Images are float32 (B, H, W, C) in [0, 1], the JAX layout, batched. Random
+transforms draw per-sample parameters from an explicit ``torch.Generator``
+and apply them in a separate, deterministic step, so the tests can feed
+both packages the same draws.
 """
 
 import torch
+import torch.nn.functional as F
 
 # PIL ``to_grayscale`` / cv2 COLOR_RGB2GRAY weights.
 _GREY_W = (0.299, 0.587, 0.114)
@@ -118,3 +120,134 @@ def color_jitter(img, generator, brightness=0.4, contrast=0.4,
     factors, order = draw_jitter(img.shape[0], generator, img.device,
                                  brightness, contrast, saturation, hue)
     return color_jitter_with(img, factors, order)
+
+
+# --------------------------------------------------- crops, resize, flip
+
+def center_crop(img, crop_sz):
+    """torchvision CenterCrop: the offset rounds half UP (py2
+    ``round(3.5) = 4``), so an odd size difference shifts by +1."""
+    h, w = img.shape[-3:-1]
+    top = (h - crop_sz + 1) // 2
+    left = (w - crop_sz + 1) // 2
+    return img[..., top:top + crop_sz, left:left + crop_sz, :]
+
+
+def draw_crop(b, h, w, crop_sz, generator, device):
+    """torchvision RandomCrop's draw: top-left corners (B,), uniform over
+    the valid positions."""
+    top = torch.randint(0, h - crop_sz + 1, (b,), generator=generator,
+                        device=device)
+    left = torch.randint(0, w - crop_sz + 1, (b,), generator=generator,
+                         device=device)
+    return top, left
+
+
+def crop_at(img, top, left, crop_sz):
+    """Per-sample crops of (B, H, W, C) at corners top, left (B,)."""
+    ar = torch.arange(crop_sz, device=img.device)
+    rows = (top[:, None] + ar)[:, :, None]
+    cols = (left[:, None] + ar)[:, None, :]
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None]
+    return img[b, rows, cols]
+
+
+def random_crop(img, crop_sz, generator):
+    top, left = draw_crop(img.shape[0], img.shape[1], img.shape[2], crop_sz,
+                          generator, img.device)
+    return crop_at(img, top, left, crop_sz)
+
+
+def resize(img, out_sz):
+    """Bilinear with half-pixel centres, antialiased on downscale (PIL, and
+    ``jax.image.resize(method="bilinear")``)."""
+    x = img.permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(out_sz, out_sz), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def flip_where(img, flip):
+    """Horizontal flip of the samples where ``flip`` (B,) is true."""
+    return torch.where(flip[:, None, None, None], img.flip(2), img)
+
+
+def per_img_demean(img):
+    """Subtract each image's per-channel spatial mean."""
+    return img - img.mean(dim=(1, 2), keepdim=True)
+
+
+# ------------------------------------------------------- composed pipelines
+
+def make_sobel_pair_transforms(config):
+    """tf1 / tf2 / tf3 of the colour (sobel) clustering path, batched. The
+    sobel filtering itself happens later, in the training step.
+
+    Each maps (B, H, W, 3) float32 in [0, 1] -> (B, input_sz, input_sz, C')
+    with C' = 4 if include_rgb else 1:
+
+      tf1(img, generator): random crop -> resize; tf2(img, generator):
+        random crop -> resize -> random flip -> colour jitter; tf3(img):
+        centre crop -> resize. Each ends in ``append_grey`` (and the
+        optional demeaning). Without ``crop_orig``, tf1 and tf3 do not crop
+        or resize.
+
+    ``tf2.draw(b, h, w, generator, device)`` returns the per-sample draws
+    and ``tf2.apply(img, draws)`` applies them. The flags the path does not
+    take raise ``NotImplementedError``.
+    """
+    for flag in ("fluid_warp", "cutout", "use_random_affine", "rot_val",
+                 "rand_crop_szs_tf"):
+        if getattr(config, flag, None):  # each is off when falsy
+            raise NotImplementedError(f"--{flag} is not ported")
+    include_rgb = config.include_rgb
+    crop_orig = getattr(config, "crop_orig", True)
+    crop_sz = config.rand_crop_sz
+    input_sz = config.input_sz
+    demean = getattr(config, "demean", False)
+    data_mean = tuple(getattr(config, "data_mean", ()) or ())
+    data_std = tuple(getattr(config, "data_std", ()) or ())
+    do_per_img_demean = getattr(config, "per_img_demean", False)
+
+    def finish(img):
+        out = append_grey(img, include_rgb)
+        if demean and data_mean:
+            mean = torch.tensor(data_mean, dtype=out.dtype, device=out.device)
+            std = torch.tensor(data_std, dtype=out.dtype, device=out.device)
+            out = (out - mean) / std
+        if do_per_img_demean:
+            out = per_img_demean(out)
+        return out
+
+    def tf1(img, generator):
+        if crop_orig:
+            img = resize(random_crop(img, crop_sz, generator), input_sz)
+        return finish(img)
+
+    def draw_tf2(b, h, w, generator, device):
+        top, left = draw_crop(b, h, w, crop_sz, generator, device)
+        flip_u = torch.rand((b,), generator=generator, device=device)
+        # the reference's ColorJitter(0.4, 0.4, 0.4, 0.125): the defaults
+        factors, order = draw_jitter(b, generator, device)
+        # RandomHorizontalFlip, p = 0.5
+        return dict(top=top, left=left, flip=flip_u < 0.5,
+                    jitter_factors=factors, jitter_order=order)
+
+    def apply_tf2(img, draws):
+        img = resize(crop_at(img, draws["top"], draws["left"], crop_sz),
+                     input_sz)
+        img = flip_where(img, draws["flip"])
+        img = color_jitter_with(img, draws["jitter_factors"],
+                                draws["jitter_order"])
+        return finish(img)
+
+    def tf2(img, generator):
+        return apply_tf2(img, draw_tf2(*img.shape[:3], generator, img.device))
+
+    def tf3(img):
+        if crop_orig:
+            img = resize(center_crop(img, crop_sz), input_sz)
+        return finish(img)
+
+    tf2.draw, tf2.apply = draw_tf2, apply_tf2
+    return tf1, tf2, tf3

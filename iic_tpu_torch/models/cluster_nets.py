@@ -1,0 +1,75 @@
+"""Clustering networks (``iic_tpu/models/cluster_nets.py``): the ResNet-34
+``ClusterNet5g`` family.
+
+Input NCHW; output (num_sub_heads, B, K) softmax probabilities. Two-head
+nets dispatch on ``head="A"|"B"``. Module names follow the reference
+(``trunk.conv1``, ``trunk.layer1.0.conv1``, ``head_A.heads.<s>.0``), so its
+state_dicts load with ``load_state_dict``.
+"""
+
+import torch.nn as nn
+
+from iic_tpu_torch.models.layers import (
+    MultiDenseHead, batch_norm, kaiming_normal_fan_out_, max_pool_2x2_pad1)
+from iic_tpu_torch.models.residual import BasicBlock, ResNetLayer
+
+# (planes, blocks, stride) of ResNet-34's four layers
+LAYERS = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+
+
+class ClusterNet5gTrunk(nn.Module):
+    """3x3 stem at stride 1, BN, relu, max-pool 2 with padding 1, layers
+    [3, 4, 6, 3], then the spatial mean (the reference's AvgPool2d sized to
+    the final feature map) -> (B, 512)."""
+
+    def __init__(self, in_channels, batchnorm_track=True):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, 64, kernel_size=3, stride=1,
+                               padding=1, bias=False)
+        kaiming_normal_fan_out_(self.conv1.weight)
+        self.bn1 = batch_norm(64, batchnorm_track)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = max_pool_2x2_pad1()
+        inplanes = 64
+        for i, (planes, blocks, stride) in enumerate(LAYERS):
+            self.add_module(f"layer{i + 1}", ResNetLayer(
+                inplanes, planes, blocks, stride, batchnorm_track))
+            inplanes = planes * BasicBlock.expansion
+        self.out_channels = inplanes
+
+    def forward(self, x):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        return x.mean(dim=(2, 3))
+
+
+class ClusterNet5g(nn.Module):
+    """Single-head ResNet-34 cluster net."""
+
+    def __init__(self, in_channels, output_k, num_sub_heads,
+                 batchnorm_track=True):
+        super().__init__()
+        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track)
+        self.head = MultiDenseHead(self.trunk.out_channels, output_k,
+                                   num_sub_heads)
+
+    def forward(self, x):
+        return self.head(self.trunk(x))
+
+
+class ClusterNet5gTwoHead(nn.Module):
+    """Two-head ResNet-34 cluster net; ``head`` picks "A" or "B"."""
+
+    def __init__(self, in_channels, output_k_A, output_k_B, num_sub_heads,
+                 batchnorm_track=True):
+        super().__init__()
+        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track)
+        c = self.trunk.out_channels
+        self.head_A = MultiDenseHead(c, output_k_A, num_sub_heads)
+        self.head_B = MultiDenseHead(c, output_k_B, num_sub_heads)
+
+    def forward(self, x, head="B"):
+        if head not in ("A", "B"):
+            raise ValueError(f"unknown head {head!r}")
+        feats = self.trunk(x)
+        return (self.head_A if head == "A" else self.head_B)(feats)

@@ -3,8 +3,9 @@
 BatchNorm is ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``: batch statistics
 in training (with the unbiased running-variance update), running statistics
 in eval when ``track_running_stats``, batch statistics always otherwise --
-the JAX ``BatchNorm`` semantics. Convs get the Kaiming-normal fan-in init
-with relu gain.
+the JAX ``BatchNorm`` semantics. Convs get the Kaiming-normal init with
+relu gain, fan-in for the VGG nets and fan-out for the ResNets; Linear
+layers N(0, 0.01) with zero bias.
 """
 
 import torch
@@ -18,6 +19,25 @@ def kaiming_normal_fan_in_(weight):
     """Kaiming-normal, fan-in, relu gain, untruncated."""
     return nn.init.kaiming_normal_(weight, mode="fan_in",
                                    nonlinearity="relu")
+
+
+def kaiming_normal_fan_out_(weight):
+    """Kaiming-normal, fan-out, relu gain, untruncated (the ResNets)."""
+    return nn.init.kaiming_normal_(weight, mode="fan_out",
+                                   nonlinearity="relu")
+
+
+def linear_init_(linear, std=0.01):
+    """The reference's ``weight.data.normal_(0, 0.01)``, zero bias."""
+    nn.init.normal_(linear.weight, 0.0, std)
+    nn.init.zeros_(linear.bias)
+    return linear
+
+
+def max_pool_2x2_pad1():
+    """``MaxPool2d(2, stride 2, padding 1)``; torch pads with -inf, so the
+    padding never wins the max."""
+    return nn.MaxPool2d(kernel_size=2, stride=2, padding=1)
 
 
 def batch_norm(features, track_running_stats=True):
@@ -55,3 +75,23 @@ class MultiConvSoftmaxHead(nn.Module):
             F.interpolate(o, size=(self.input_sz, self.input_sz),
                           mode="bilinear", align_corners=False)
             for o in outs])
+
+
+class MultiDenseHead(nn.Module):
+    """``num_sub_heads`` parallel Linear + softmax heads, the reference's
+    ``heads`` ModuleList of ``Sequential(Linear, Softmax)``; the JAX
+    package's one einsum with a leading sub-head axis.
+
+    Input (B, D) -> output (num_sub_heads, B, K). The trainers keep
+    cuBLAS out of TF32, so the heads run in full f32 as in the JAX package.
+    """
+
+    def __init__(self, in_features, output_k, num_sub_heads):
+        super().__init__()
+        self.heads = nn.ModuleList([
+            nn.Sequential(linear_init_(nn.Linear(in_features, output_k)),
+                          nn.Softmax(dim=1))
+            for _ in range(num_sub_heads)])
+
+    def forward(self, x):
+        return torch.stack([head(x) for head in self.heads])

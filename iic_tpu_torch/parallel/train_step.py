@@ -1,5 +1,6 @@
-"""Segmentation training step and eval forward on one GPU
-(``iic_tpu/parallel/train_step.py``: ``make_seg_train_step``,
+"""Training steps and eval forwards on one GPU
+(``iic_tpu/parallel/train_step.py``: ``make_cluster_train_step``,
+``make_seg_train_step``, ``make_apply_fn``, whose ``using_IR`` covers
 ``make_seg_apply_fn``).
 
 The network and its optimiser are updated in place. One step: optional
@@ -10,8 +11,11 @@ parameters get zero gradients, as ``jax.grad`` gives them, so Adam decays
 their moments and counts the step exactly as optax does.
 """
 
+from contextlib import contextmanager
+
 import torch
 
+from iic_tpu_torch.ops.iid_loss import IID_loss
 from iic_tpu_torch.ops.iid_seg_loss import (
     IID_segmentation_loss, IID_segmentation_loss_uncollapsed)
 from iic_tpu_torch.ops.sobel import sobel_process
@@ -30,6 +34,50 @@ def set_lr_mult(optimizer, lr_mult):
     """Multiply the learning rate in place, keeping Adam's moments."""
     for group in optimizer.param_groups:
         group["lr"] *= lr_mult
+
+
+def _optimizer_step(optimizer, params, loss):
+    """Backward and Adam, with zero gradients for parameters the loss does
+    not reach (the other head), as ``jax.grad`` gives them."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    optimizer.step()
+
+
+def make_cluster_train_step(net, optimizer, augment_pair, lamb, head,
+                            sobel=False, include_rgb=False, loss_impl="xla"):
+    """Returns ``step(batch, generator=None) -> (loss, loss_no_lamb)``
+    (detached 0-d tensors), the hot loop of cluster_sobel_twohead.py.
+
+    With ``augment_pair``: batch = base uint8 (b, H, W, C) and the pair
+    augmentation draws from ``generator``. Without (``augment_pair=None``):
+    batch = (imgs, imgs_tf), NCHW, already augmented. ``loss_impl="fused"``
+    runs every sub-head's loss through K3 in one launch; ``"xla"`` is the
+    plain torch loss."""
+    head_kw = {} if head is None else {"head": head}
+    params = list(net.parameters())
+
+    def step(batch, generator=None):
+        if augment_pair is not None:
+            imgs, imgs_tf = augment_pair(batch, generator)
+        else:
+            imgs, imgs_tf = batch
+        if sobel:
+            imgs = sobel_process(imgs, include_rgb)
+            imgs_tf = sobel_process(imgs_tf, include_rgb)
+
+        net.train()
+        out = net(imgs, **head_kw)  # (num_sub_heads, bn, k)
+        out_tf = net(imgs_tf, **head_kw)
+        losses, losses_nl = IID_loss(out, out_tf, lamb=lamb, impl=loss_impl)
+        loss, loss_nl = losses.mean(), losses_nl.mean()
+        _optimizer_step(optimizer, params, loss)
+        return loss.detach(), loss_nl.detach()
+
+    return step
 
 
 def make_seg_train_step(net, optimizer, lamb, head, half_T_side_dense,
@@ -76,27 +124,46 @@ def make_seg_train_step(net, optimizer, lamb, head, half_T_side_dense,
         loss = torch.stack([p[0] for p in pairs]).mean()
         loss_nl = torch.stack([p[1] for p in pairs]).mean()
 
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        optimizer.step()
+        _optimizer_step(optimizer, params, loss)
         return loss.detach(), loss_nl.detach()
 
     return step
 
 
-def make_seg_apply_fn(net, head=None, sobel=False, include_rgb=False,
-                      using_IR=False):
-    """Eval forward: ``apply(imgs) -> (num_sub_heads, b, k, h, w)`` with BN
-    in eval mode (batch statistics when it tracks none), no gradients."""
+@contextmanager
+def frozen_batch_stats(net):
+    """Run ``net`` in train mode (BatchNorm on batch statistics) inside the
+    block, and put its running statistics and batch counts back after it:
+    the JAX package's train-mode apply with the updated ``batch_stats``
+    thrown away. A train-mode torch forward updates them in place, even
+    under ``no_grad``."""
+    saved = [(b, b.clone()) for b in net.buffers()]
+    was_training = net.training
+    net.train()
+    try:
+        yield
+    finally:
+        net.train(was_training)
+        with torch.no_grad():
+            for b, copy in saved:
+                b.copy_(copy)
+
+
+def make_apply_fn(net, head=None, sobel=False, include_rgb=False,
+                  using_IR=False, train_mode=False):
+    """Eval forward: ``apply(imgs) -> (num_sub_heads, bn, k[, h, w])``, no
+    gradients. BN runs in eval mode (batch statistics when it tracks none),
+    or with ``train_mode`` (the reference's "double eval") on the batch's
+    statistics, leaving the running statistics as they were."""
     head_kw = {} if head is None else {"head": head}
 
     @torch.no_grad()
     def apply(imgs):
         if sobel:
             imgs = sobel_process(imgs, include_rgb, using_IR=using_IR)
+        if train_mode:
+            with frozen_batch_stats(net):
+                return net(imgs, **head_kw)
         was_training = net.training
         net.eval()
         try:

@@ -1,14 +1,121 @@
-"""Experiment configuration of the segmentation scripts
-(``iic_tpu/train/config.py``: ``SegConfig``, ``config_to_str``).
+"""Experiment configuration (``iic_tpu/train/config.py``:
+``ClusterConfig``, ``SegConfig``, ``config_to_str``).
 
 The same flag names and defaults as the JAX package, so its command lines
 carry over. Flags the port does not implement yet are refused by the
-trainer with ``NotImplementedError`` (``train/seg_trainer.py``); derived
-fields are computed in ``finalize()``.
+trainers with ``NotImplementedError`` (``train/cluster_trainer.py``,
+``train/seg_trainer.py``); derived fields are computed in ``finalize()``.
 """
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass
+class ClusterConfig:
+    # reference flags (cluster scripts, cluster_sobel_twohead.py:32-133)
+    model_ind: int = 0
+    arch: str = "ClusterNet6cTwoHead"
+    opt: str = "Adam"
+    mode: str = "IID"  # IID | IID+
+    dataset: str = "MNIST"
+    dataset_root: str = ""
+    gt_k: int = 10
+    output_k: Optional[int] = None  # single-head scripts
+    output_k_A: int = 50
+    output_k_B: int = 10
+    lamb: float = 1.0
+    lamb_A: float = 1.0
+    lamb_B: float = 1.0
+    lr: float = 1e-4
+    lr_schedule: Tuple[int, ...] = ()
+    lr_mult: float = 0.1
+    num_epochs: int = 1000
+    batch_sz: int = 240
+    num_dataloaders: int = 3
+    num_sub_heads: int = 5
+    out_root: str = "out"
+    restart: bool = False
+    restart_from_best: bool = False
+    test_code: bool = False
+    save_freq: int = 10
+    double_eval: bool = False
+    head_A_first: bool = False
+    head_A_epochs: int = 1
+    head_B_epochs: int = 1
+    batchnorm_track: bool = False
+    select_sub_head_on_loss: bool = False
+    save_progression: bool = False
+    # transforms (sobel path)
+    include_rgb: bool = False
+    demean: bool = False
+    per_img_demean: bool = False
+    data_mean: Tuple[float, ...] = ()
+    data_std: Tuple[float, ...] = ()
+    crop_orig: bool = False
+    rand_crop_sz: int = 84
+    input_sz: int = 96
+    fluid_warp: bool = False
+    rand_crop_szs_tf: Tuple[int, ...] = ()
+    rot_val: float = 0.0
+    cutout: bool = False
+    cutout_p: float = 0.5
+    cutout_max_box: float = 0.5
+    # transforms (greyscale path, not ported)
+    crop_other: bool = False
+    tf1_crop: str = "random"
+    tf1_crop_sz: int = 20
+    tf2_crop: str = "random"
+    tf2_crop_szs: Tuple[int, ...] = (16, 20, 24)
+    tf3_crop_diff: bool = False
+    tf3_crop_sz: int = 0
+    always_rot: bool = False
+    no_jitter: bool = False
+    no_flip: bool = False
+    # STL10 (not ported)
+    mix_train: bool = False
+    stl_leave_out_unlabelled: bool = False
+    # additions of the JAX package (most are refused by the port's trainer)
+    n_devices: Optional[int] = None
+    joint_mode: str = "global"  # global | parity
+    model_dtype: str = "float32"
+    bn_sync: bool = False
+    seed: int = 0
+    eval_batch_sz: Optional[int] = None
+    profile_dir: str = ""
+    no_compile_cache: bool = False  # no compile cache in the port
+    use_orbax: bool = False
+    fused_loss: bool = False  # K3, the fused IID-loss CUDA kernel
+    fused_pair_forward: bool = False
+    resident_data: bool = False
+    lazy_images: bool = False
+    epoch_scan: bool = False
+    no_host_prefetch: bool = False
+    prefetch_depth: int = 8
+    kmeans_on_features: bool = False
+
+    # derived (finalize)
+    twohead: bool = True
+    sobel: bool = True
+    in_channels: int = 0
+    dataloader_batch_sz: int = 0
+    eval_mode: str = "hung"
+    bn_axis_name: Optional[str] = None
+
+    def finalize(self, twohead=True, sobel=True):
+        """Derived fields (reference cluster_sobel_twohead.py:113-133)."""
+        self.twohead = twohead
+        self.sobel = sobel
+        if self.output_k is None:
+            self.output_k = self.output_k_B
+        if sobel:
+            self.in_channels = 5 if self.include_rgb else 2
+        else:
+            self.in_channels = 1
+        self.dataloader_batch_sz = self.batch_sz // self.num_dataloaders
+        self.eval_mode = "hung" if self.mode == "IID" else "orig"
+        self.bn_axis_name = "data" if self.bn_sync else None
+        return self
 
 
 @dataclasses.dataclass

@@ -24,7 +24,7 @@ from iic_tpu_torch.data.seg_pipeline import segmentation_create_dataloaders
 from iic_tpu_torch.evals.cluster_eval import EvalHistory
 from iic_tpu_torch.evals.segmentation_eval import segmentation_eval
 from iic_tpu_torch.parallel.train_step import (
-    make_optimizer, make_seg_apply_fn, make_seg_train_step, set_lr_mult)
+    make_apply_fn, make_optimizer, make_seg_train_step, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import SegConfig, config_to_str
 
@@ -79,7 +79,7 @@ def head_order(config):
     return ["B", "A"] if config.head_B_first else ["A", "B"]
 
 
-def _make_history():
+def make_history():
     history = {"eval": EvalHistory()}
     for head in ("A", "B"):
         for key in ("epoch_loss_head_", "epoch_loss_no_lamb_head_",
@@ -115,9 +115,9 @@ def train_segmentation_twohead(config, device=None):
     lambs = {"A": config.lamb_A, "B": config.lamb_B}
     steps = {h: make_seg_train_step(net, optimizer, lamb=lambs[h], head=h,
                                     **common) for h in ("A", "B")}
-    apply_fn = make_seg_apply_fn(net, head="B", sobel=config.sobel,
-                                 include_rgb=config.include_rgb,
-                                 using_IR=config.using_IR)
+    apply_fn = make_apply_fn(net, head="B", sobel=config.sobel,
+                             include_rgb=config.include_rgb,
+                             using_IR=config.using_IR)
 
     def evaluate():
         return segmentation_eval(config, apply_fn, map_assign, map_test,
@@ -125,7 +125,7 @@ def train_segmentation_twohead(config, device=None):
 
     heads = head_order(config)
     head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
-    history = _make_history()
+    history = make_history()
     if not config.no_pre_eval:
         evaluate()
         _log(f"Pre: {history['eval'].epoch_stats[-1]}")

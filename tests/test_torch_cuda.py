@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1 / K2 on the card, against their plain
-PyTorch versions. Every test here needs an NVIDIA GPU and skips without
-one. The file imports no JAX, so it also runs on a machine without it:
+"""The port's CUDA kernels K1 / K2 (displacement joint) and K3 (fused
+clustering IID loss) on the card, against their plain PyTorch versions.
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports no JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from iic_tpu_torch.ops import iid_seg_loss
+from iic_tpu_torch.ops import iid_loss, iid_seg_loss
+from iic_tpu_torch.ops.kernels import iid_loss as k3
 from iic_tpu_torch.ops.kernels import seg_joint as sj
 
 
@@ -111,3 +113,110 @@ def test_wrappers_raise_on_bad_input(gpu):
         sj.joint_dgrad(torch.rand(8, 8, device=gpu), x, 1)
     with pytest.raises(ValueError):
         sj.joint_fwd(x, x.cpu(), 1)
+
+
+def _softmax_pair(rng, *shape):
+    def one():
+        z = rng.standard_normal(shape).astype(np.float32)
+        e = np.exp(z - z.max(axis=-1, keepdims=True))
+        return e / e.sum(axis=-1, keepdims=True)
+    return one(), one()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,bn,k", [
+    (1, 1, 1), (1, 7, 3), (5, 33, 10), (5, 257, 70), (1, 660, 140),
+    (5, 660, 70), (5, 660, 10), (5, 1000, 140), (2, 99, 180), (1, 31, 1)])
+def test_k3_matches_plain(gpu, s, bn, k):
+    """K3 vs its plain version at small and ragged shapes: loss and loss_nl
+    within rtol 1e-5, atol 1e-5 (the JAX package's kernel contract), P
+    within 1e-6 of max |P|, total within rtol 1e-5."""
+    z, zt = (torch.from_numpy(a).to(gpu)
+             for a in _softmax_pair(np.random.default_rng(k), s, bn, k))
+    got = k3.iid_loss_fwd(z, zt, 1.3)
+    ref = k3.iid_loss_fused_plain(z, zt, 1.3)
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+    p_ref = ref[2].cpu().numpy()
+    np.testing.assert_allclose(got[2].cpu().numpy(), p_ref, rtol=0,
+                               atol=1e-6 * np.abs(p_ref).max())
+    np.testing.assert_allclose(got[3].cpu().numpy(), ref[3].cpu().numpy(),
+                               rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k3_sub_heads_are_independent(gpu):
+    """One launch over (S, bn, k) gives each sub-head exactly the numbers
+    of a launch on that sub-head alone."""
+    z, zt = (torch.from_numpy(a).to(gpu)
+             for a in _softmax_pair(np.random.default_rng(0), 5, 130, 70))
+    together = k3.iid_loss_fwd(z, zt, 1.0)
+    for i in range(5):
+        alone = k3.iid_loss_fwd(z[i], zt[i], 1.0)
+        for a, b in zip(alone, together):
+            assert torch.equal(a, b[i])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,bn,k", [(1, 64, 10), (5, 660, 70),
+                                    (5, 1000, 140)])
+def test_k3_backward_matches_float64_autograd(gpu, s, bn, k):
+    """Gradients through K3 (kernel forward, analytic backward) against
+    autograd of the plain loss in float64, for a cotangent on both
+    outputs: rtol 1e-3, atol 1e-6 (``tests/test_pallas_kernels.py:54-55``).
+    """
+    z, zt = _softmax_pair(np.random.default_rng(1), s, bn, k)
+    w = torch.linspace(0.5, 1.5, s, device=gpu)
+
+    def grads(fn, dtype):
+        a = torch.from_numpy(z).to(gpu, dtype).requires_grad_()
+        b = torch.from_numpy(zt).to(gpu, dtype).requires_grad_()
+        loss, nl = fn(a, b)[:2]
+        obj = (w.to(dtype) * loss).sum() - 0.3 * nl.sum()
+        return torch.autograd.grad(obj, (a, b))
+
+    got = grads(lambda a, b: k3.iid_loss_fused(a, b, 1.0), torch.float32)
+    ref = grads(lambda a, b: k3.iid_loss_fused_plain(a, b, 1.0),
+                torch.float64)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_k3_counts_launches_and_serves_iid_loss(gpu):
+    """``IID_loss(impl="fused")`` on CUDA launches K3 once for all sub-heads
+    and agrees with the xla path within 1e-5."""
+    z, zt = (torch.from_numpy(a).to(gpu)
+             for a in _softmax_pair(np.random.default_rng(2), 5, 66, 10))
+    k3.reset_launch_counts()
+    fused = iid_loss.IID_loss(z, zt, impl="fused")
+    assert k3.LAUNCHES == {"iid_loss_fwd": 1}
+    plain = iid_loss.IID_loss(z, zt)
+    for f, p in zip(fused, plain):
+        np.testing.assert_allclose(f.cpu().numpy(), p.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k3_refuses_what_it_cannot_launch(gpu):
+    """Bad input raises before a launch; a launch the C entry point refuses
+    (k over its maximum) returns a CUDA error code."""
+    z = torch.rand(4, 10, device=gpu)
+    with pytest.raises(TypeError):
+        k3.iid_loss_fwd(z.double(), z.double())
+    with pytest.raises(ValueError):
+        k3.iid_loss_fwd(z.t(), z.t())
+    with pytest.raises(ValueError):
+        k3.iid_loss_fwd(z, z.cpu())
+    big = torch.rand(4, 200, device=gpu)
+    with pytest.raises(ValueError, match="k <="):
+        k3.iid_loss_fwd(big, big)
+    lib = k3._lib()
+    out = torch.empty(200 * 200 + 3, device=gpu)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.iid_loss_fwd(big.data_ptr(), big.data_ptr(), out.data_ptr(),
+                           out.data_ptr(), out.data_ptr(), out.data_ptr(), 1,
+                           4, 200, 1.0, stream)
+    assert err != 0
