@@ -18,19 +18,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
      of max |P|, autograd gradients within rtol 1e-3, atol 1e-6; errors
      against a float64 plain version; CUDA-event times, forward and
      forward + backward;
-  5. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
+  5. hold X2 (the experiment tool's bf16 joint forward) against its plain
+     version at the segmentation shapes in every mode: full, rank3 and
+     aligned-copies within the JAX contract (aligned-copies also exactly
+     broadcast over (u, v)), mm-only and copies-only exactly; full's error
+     against float64; hold X1 (the stack-product probe) at the same shapes
+     in both forms to its plain version (tiles of ones: every entry the
+     count of terms issued), exactly; CUDA-event times of each kernel, its
+     plain version and the library call that computes the same function;
+  6. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
      on SyntheticSeg3x146x480) with --test_code, kernel counts set to 0
      just before; require finite losses, a filled eval history and at
      least 4 K1 and 8 K2 launches;
-  6. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
+  7. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
      Synthetic10x32x3, --fused_loss) with --test_code, counts set to 0
      just before; require finite losses for both heads, a pre-train and an
      epoch eval with the double-eval lists, and at least one K3 launch per
      step;
-  7. profile steady head-A and head-B steps of both paths: step time,
+  8. run the port's experiment tool in-process at its default size (120 15
+     128 10): the default run, ``ablate`` and ``mmprobe``, counts set to 0
+     just before; from the records the tool returns, require every variant
+     to report, none FAILED, finite times and errors, the exact ablations
+     exact, and at least one X1 and one X2 launch;
+  9. profile steady head-A and head-B steps of both paths: step time,
      device busy share and device time by kernel, and the kernels' share
      (chrome traces go to --trace_dir when it is given);
-  8. print the kernel table as one JSON line, then the result line.
+ 10. print the kernel table as one JSON line (each kernel's launches on
+     its path, max error against its plain version, its time, the plain
+     version's, the library call's and the bound), then the result line.
 """
 
 import argparse
@@ -44,13 +59,24 @@ import time
 N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
 RTOL = 5e-3   # tests/test_pallas_kernels.py:95-96, :119-122
-LIBS = ("seg_joint", "iid_loss")
+LIBS = ("seg_joint", "iid_loss", "joint_exp")
 SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "seg_joint_dgrad": "iic_tpu_torch/csrc/seg_joint.cu",
-           "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu"}
+           "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu",
+           "mm_probe": "iic_tpu_torch/csrc/joint_exp.cu",
+           "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu"}
 REPLACES = {"seg_joint_fwd": "iic_tpu/ops/pallas/seg_joint_kernel.py:83",
             "seg_joint_dgrad": "iic_tpu/ops/pallas/seg_joint_kernel.py:191",
-            "iid_loss_fwd": "iic_tpu/ops/pallas/iid_loss_kernel.py:34"}
+            "iid_loss_fwd": "iic_tpu/ops/pallas/iid_loss_kernel.py:34",
+            "mm_probe": "tools/joint_kernel_exp.py:90",
+            "joint_fwd_v2": "tools/joint_kernel_exp.py:140"}
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense): bf16 tensor
+# cores, f32 on the CUDA cores, HBM3. K1, K2, X1 and X2 are bounded at the
+# bf16 rate: the TPU kernels round their operands to bf16 and the kernels'
+# contract (rtol 5e-3) admits it; the f32 figure is printed beside.
+PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
+X_RB = 16  # X1 / X2 pass rows in the kernel table (the TPU tool's default)
+TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4}  # run -> variants
 # K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
 # heads A and B, and the CIFAR20 overclustering head of model 579
 K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140))
@@ -146,6 +172,16 @@ def _check(tag, got, ref, rtol, atol):
     return err
 
 
+def _joint_flop(n, k, h, w, half_t):
+    """FLOP the displacement joint needs (K1, X2; each K2 call the same):
+    2 n k^2 S_h S_w, S_h = sum over the T shifts d of the h - |d| rows in
+    the frame (S_w the same for columns). The kernels also multiply the
+    zeros outside the frame; those products are not counted."""
+    def in_frame(size):
+        return sum(max(size - abs(d), 0) for d in range(-half_t, half_t + 1))
+    return 2.0 * n * k * k * in_frame(h) * in_frame(w)
+
+
 def _compare(tag, got, ref):
     """The JAX package's K1/K2 contract: rtol 5e-3, atol 5e-3 * max |ref|."""
     return _check(tag, got, ref, RTOL, RTOL * float(ref.abs().max()))
@@ -203,8 +239,14 @@ def phase_kernels():
         stats["seg_joint_dgrad"]["max_abs_err"] = max(
             stats["seg_joint_dgrad"]["max_abs_err"], e_bwd)
         if k == KS[0]:
+            flop = _joint_flop(N, k, HW, HW, HALF_T)
+            in_bytes = 2 * x1.numel() * 4
             for name, (ms, plain_ms) in times.items():
-                stats[name].update(ms=ms, plain_ms=plain_ms)
+                # the plain version is one F.conv2d: the library call
+                stats[name].update(ms=ms, plain_ms=plain_ms,
+                                   library_ms=plain_ms)
+                stats[name].update(_bound(name, flop, in_bytes
+                                          + (k * t) ** 2 * 4, PEAK_BF16))
         del x1, x2
         torch.cuda.empty_cache()
     return stats
@@ -269,14 +311,151 @@ def phase_k3():
              f"kernel {times[2]:.4f} ms, plain {times[3]:.4f} ms (CUDA "
              f"events, mean of 50)")
         if (s, bn, k) == K3_SHAPES[0]:
-            stats.update(ms=times[0], plain_ms=times[1])
+            # the zT z' product; the k x k epilogue adds about 2% to it
+            stats.update(ms=times[0], plain_ms=times[1], library_ms=None)
+            stats.update(_bound("iid_loss_fwd", 2.0 * s * bn * k * k,
+                                (2 * s * bn * k + s * k * k + 3 * s) * 4,
+                                PEAK_F32))
+    return stats
+
+
+def _bound(name, flop, nbytes, peak):
+    """bound_ms: the larger of ``flop`` at ``peak`` and ``nbytes`` at the
+    HBM rate; printed with the f32 CUDA-core figure beside."""
+    ops_ms, bytes_ms = flop / peak * 1e3, nbytes / HBM * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    _log(f"  bound {name}: {flop:.3e} FLOP, {nbytes:.3e} bytes -> "
+         f"{max(ops_ms, bytes_ms):.4f} ms ({by}; at the f32 CUDA-core peak "
+         f"{max(flop / PEAK_F32 * 1e3, bytes_ms):.4f} ms)")
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": by}
+
+
+def phase_x2():
+    """X2 against its plain version in every mode at the segmentation
+    shapes, its error against float64, and the times of the kernel, the
+    plain version and a bf16 cuDNN conv of the same activations-as-filters
+    joint. Returns the table stats (at head A's k=15, mode full)."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    stats = {"max_abs_err": 0.0}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        def softmax_maps():
+            z = torch.randn((N, k, HW, HW), device="cuda", generator=gen)
+            return torch.softmax(z, dim=1).contiguous()
+        x1, x2 = softmax_maps(), softmax_maps()
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        _log(f"X2 k={k}: n={N}, {HW}x{HW}, T={t}, rb={X_RB}, bf16 inputs")
+        for mode in jx.MODES:
+            got = jx.joint_fwd_v2(x1b, x2b, HALF_T, mode=mode, rb=X_RB)
+            ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T, mode, X_RB)
+            torch.cuda.synchronize()
+            if mode in ("mm-only", "copies-only"):
+                err = float((got - ref).abs().max())
+                _log(f"  {mode}: max_abs_err {err:.3e} (exact) "
+                     f"{'ok' if err == 0 else 'FAIL'}")
+                if err != 0:
+                    raise AssertionError(f"X2 {mode} disagrees with its "
+                                         f"plain version")
+                continue
+            err = _compare(mode, got, ref)
+            if mode == "full":
+                stats["max_abs_err"] = max(stats["max_abs_err"], err)
+            if mode == "aligned-copies" and not torch.equal(
+                    got, got[:, :, :1, :1].expand_as(got)):
+                raise AssertionError("X2 aligned-copies is not one joint "
+                                     "broadcast over (u, v)")
+        p = jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB).double()
+        for tag, a, b in (("bf16-rounded inputs", x1b, x2b),
+                          ("the f32 inputs", x1, x2)):
+            ref = sj.displacement_joint_dense(a.double(), b.double(), HALF_T)
+            _log(f"  full vs float64 of {tag}: max err / max|ref| "
+                 f"{float((p - ref).abs().max() / ref.abs().max()):.3e}")
+        del p, ref
+
+        def library():
+            return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
+                            padding=HALF_T)
+        lib_err = float((library().float()
+                         - jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)).abs().max())
+        times = {mode: _time_ms(lambda m=mode: jx.joint_fwd_v2(
+                     x1b, x2b, HALF_T, mode=m, rb=X_RB))
+                 for mode in ("full", "mm-only", "copies-only",
+                              "aligned-copies")}
+        plain_ms = _time_ms(lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T))
+        library_ms = _time_ms(library)
+        _log(f"  joint_fwd_v2 k={k}: kernel "
+             + ", ".join(f"{m} {ms:.3f}" for m, ms in times.items())
+             + f" ms; plain {plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f}"
+             f" ms (its max abs err vs plain {lib_err:.3e}) (CUDA events, "
+             f"mean of 5)")
+        if k == KS[0]:
+            stats.update(ms=times["full"], plain_ms=plain_ms,
+                         library_ms=library_ms)
+            stats.update(_bound("joint_fwd_v2",
+                                _joint_flop(N, k, HW, HW, HALF_T),
+                                2 * x1b.numel() * 2 + (k * t) ** 2 * 4,
+                                PEAK_BF16))
+        del x1, x2, x1b, x2b
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_x1():
+    """X1 at the segmentation shapes, both forms, against its plain version
+    (every entry the count of terms issued, under 2^24 here, so exact);
+    times of the kernel, its plain version and one bf16 torch.matmul of the
+    same (kT x K) @ (K x kT) product. Returns the table stats (k=15,
+    mk-nk)."""
+    import torch
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+
+    stats = {"max_abs_err": 0.0}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        tk = k * t
+        depth = jx.probe_passes(N, HW, HALF_T, X_RB) * 8 * X_RB
+        a = torch.randn((tk, depth), device="cuda", dtype=torch.bfloat16)
+        b = {"mk-nk": torch.randn((tk, depth), device="cuda",
+                                  dtype=torch.bfloat16)}
+        b["mk-kn"] = b["mk-nk"].t().contiguous()
+        ref = jx.mm_probe_plain(N, k, HW, HALF_T, X_RB, "cuda")
+        for form in jx.FORMS:
+            out = jx.mm_probe(N, k, HW, HALF_T, X_RB, form, "cuda")
+            err = float((out - ref).abs().max())
+            _log(f"X1 k={k} {form}: ({tk}, {tk}) over K={depth}, every entry "
+                 f"{float(ref[0, 0]):.0f} terms; max_abs_err {err:.1e} "
+                 f"(exact) {'ok' if err == 0 else 'FAIL'}")
+            if out.shape != (tk, tk) or err != 0:
+                raise AssertionError(f"X1 {form} disagrees with its plain "
+                                     f"version")
+            bb = b[form].t() if form == "mk-nk" else b[form]
+            ms = _time_ms(lambda f=form: jx.mm_probe(N, k, HW, HALF_T, X_RB,
+                                                     f, "cuda"))
+            plain_ms = _time_ms(lambda: jx.mm_probe_plain(
+                N, k, HW, HALF_T, X_RB, "cuda"))
+            library_ms = _time_ms(lambda: torch.matmul(a, bb))
+            _log(f"  mm_probe k={k} {form}: kernel {ms:.3f} ms, plain "
+                 f"{plain_ms:.4f} ms, bf16 torch.matmul {library_ms:.3f} ms "
+                 f"(CUDA events, mean of 5)")
+            if k == KS[0] and form == "mk-nk":
+                stats.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+                stats.update(_bound("mm_probe", 2.0 * tk * tk * depth,
+                                    tk * tk * 4, PEAK_BF16))
+        del a, b
+        torch.cuda.empty_cache()
     return stats
 
 
 def _launch_counts():
     from iic_tpu_torch.ops.kernels import iid_loss as k3
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
     from iic_tpu_torch.ops.kernels import seg_joint as sj
-    return sj, k3
+    return sj, k3, jx
 
 
 def _reset_counts():
@@ -348,6 +527,34 @@ def phase_cluster_trainer():
          f"sub-heads; {5 * n_steps} if launched per sub-head)")
     if launches["iid_loss_fwd"] < n_steps:
         raise AssertionError(f"clustering path missed K3: {launches}")
+    return launches
+
+
+def phase_tool():
+    """The port's experiment tool in-process at its default size: the
+    default run, ablate and mmprobe. Returns {kernel: launches in the
+    three runs}."""
+    from iic_tpu_torch.tools import joint_kernel_exp as tool
+
+    _reset_counts()
+    for run, variants in TOOL_RUNS.items():
+        records = tool.main([run] if run else [])
+        sys.stdout.flush()
+        if len(records) != variants:
+            raise AssertionError(f"tool run {run or 'default'}: "
+                                 f"{len(records)} variants, not {variants}")
+        for rec in records:
+            errs = rec["errs"]
+            if (rec["failed"] or not math.isfinite(rec["ms"]) or not errs
+                    or not all(math.isfinite(v) for v in errs.values())
+                    or errs.get("max |P - plain|", 0.0) != 0.0):
+                raise AssertionError(f"tool variant failed, or its time or "
+                                     f"error is not finite or not exact: "
+                                     f"{rec}")
+    launches = _read_counts()
+    _log(f"launches in the three tool runs: {launches}")
+    if launches["joint_fwd_v2"] < 1 or launches["mm_probe"] < 1:
+        raise AssertionError(f"tool runs missed X1 / X2: {launches}")
     return launches
 
 
@@ -494,10 +701,14 @@ def main(argv=None):
     phase_build()
     stats = phase_kernels()
     stats["iid_loss_fwd"] = phase_k3()
+    stats["joint_fwd_v2"] = phase_x2()
+    stats["mm_probe"] = phase_x1()
     launches = {k: v for k, v in phase_trainer().items()
                 if k.startswith("seg_joint")}
     launches.update({k: v for k, v in phase_cluster_trainer().items()
                      if k == "iid_loss_fwd"})
+    launches.update({k: v for k, v in phase_tool().items()
+                     if k in ("mm_probe", "joint_fwd_v2")})
     phase_profile(args.trace_dir)
     phase_cluster_profile(args.trace_dir)
     table = [{"name": k, "route": "cuda", "source": SOURCES[k],

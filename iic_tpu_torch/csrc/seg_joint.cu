@@ -12,11 +12,13 @@
 // over (n, y, q) = n*H*W: A is the column-shifted x1 stack, B the row-shifted
 // x2 stack. Only the H real x1 rows contribute, so there is no padded-row work.
 //
-// Bound: at the main path's shapes (n=120, 128^2, T=21, k=15) K1 is
-// 2 * 120*128*128 * 315^2 ~ 3.9e11 FLOP on 2 x 118 MB of input, and each K2
-// call is the same count of multiply-adds: far above the H100's ridge, so
-// both are compute-bound. This first version runs f32 FMAs on the CUDA
-// cores (67 TFLOP/s peak), keeps the operands f32 (the TPU kernel rounds
+// Bound: at the main path's shapes (n=120, 128^2, T=21, k=15) K1 needs
+// 2 * n * k^2 * S_h * S_w ~ 3.6e11 FLOP, S = sum_{|d|<=h} (128 - |d|) = 2578
+// the in-frame rows (columns) over the shifts, on 2 x 118 MB of input, and
+// each K2 call the same count of multiply-adds: far above the H100's ridge,
+// so both are compute-bound. (K1 also multiplies the zeros outside the
+// frame: it issues 2 * n*h*w * (kT)^2 ~ 3.9e11.) This first version runs
+// f32 FMAs on the CUDA cores (67 TFLOP/s peak), keeps the operands f32 (the TPU kernel rounds
 // them to bf16 for its MXU; without tensor cores bf16 buys nothing here and
 // f32 keeps the kernel within f32 rounding of the conv oracle), and builds
 // both shifted stacks in shared memory straight from the unpadded inputs,
@@ -29,7 +31,7 @@
 // block (bx, by, s) owns a 64x64 output tile and the s-th chunk of
 // (n, y) rows, and writes its partial sum to part[s]. A second kernel adds
 // the partials in a fixed order (deterministic; no atomics) and writes the
-// (k, k, T, T) layout. Inside a block it is a plain shared-memory SGEMM:
+// (k, k, T, T) layout (joint_common.cuh, shared with joint_exp.cu). Inside a block it is a plain shared-memory SGEMM:
 // 16-wide k-steps along q, 256 threads, 4x4 register micro-tiles.
 //
 // K2 design. Output-stationary: block (bx, by, z) owns a 32-row x (8*PX)-col
@@ -48,9 +50,9 @@
 
 #include <cuda_runtime.h>
 
-namespace {
+#include "joint_common.cuh"
 
-constexpr int kThreads = 256;
+namespace {
 
 // ------------------------------------------------------------------- K1
 
@@ -86,14 +88,14 @@ joint_partial_kernel(const float* __restrict__ x1,
   bool a_ok[4], b_ok[4];
 #pragma unroll
   for (int l = 0; l < 4; ++l) {
-    const int m = m0 + lr + 16 * l;   // (v, i), v-major
+    const int m = m0 + lr + 16 * l;
     a_ok[l] = m < tk;
-    a_off[l] = static_cast<size_t>(a_ok[l] ? m % k : 0) * plane;
-    a_shift[l] = (a_ok[l] ? m / k : 0) - half_t;
-    const int nn = n0 + lr + 16 * l;  // (u, j), u-major
+    a_off[l] = static_cast<size_t>(stack_chan(m, tk, k)) * plane;
+    a_shift[l] = a_shift_of(m, tk, k, half_t);
+    const int nn = n0 + lr + 16 * l;
     b_ok[l] = nn < tk;
-    b_off[l] = static_cast<size_t>(b_ok[l] ? nn % k : 0) * plane;
-    b_shift[l] = half_t - (b_ok[l] ? nn / k : 0);
+    b_off[l] = static_cast<size_t>(stack_chan(nn, tk, k)) * plane;
+    b_shift[l] = b_shift_of(nn, tk, k, half_t);
   }
 
   // Compute role: a 4x4 micro-tile, rows tr*4.., cols tc*4..
@@ -142,34 +144,7 @@ joint_partial_kernel(const float* __restrict__ x1,
     }
   }
 
-  float* p = part + static_cast<size_t>(blockIdx.z) * tk * tk;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int m = m0 + tr * 4 + a;
-    if (m >= tk) continue;
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int nn = n0 + tc * 4 + b;
-      if (nn < tk) p[static_cast<size_t>(m) * tk + nn] = acc[a][b];
-    }
-  }
-}
-
-// Sums the split-K partials in chunk order and scatters P[(v,i),(u,j)] into
-// the (k, k, T, T) output.
-__global__ void __launch_bounds__(kThreads)
-joint_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                    int splits, int k, int t) {
-  const int tk = k * t;
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= tk * tk) return;
-  const size_t stride = static_cast<size_t>(tk) * tk;
-  float s = 0.f;
-  for (int c = 0; c < splits; ++c) s += part[c * stride + e];
-  const int m = e / tk, nn = e - (e / tk) * tk;
-  const int v = m / k, i = m - v * k;
-  const int u = nn / k, j = nn - u * k;
-  out[((static_cast<size_t>(i) * k + j) * t + u) * t + v] = s;
+  store_partial(part, tk, m0 + tr * 4, n0 + tc * 4, 1, acc);
 }
 
 // ------------------------------------------------------------------- K2
@@ -300,7 +275,7 @@ int seg_joint_fwd(const float* x1, const float* x2, float* part, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int outs = tk * tk;
   joint_reduce_kernel<<<(outs + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(part, out, splits, k, t);
+                        stream>>>(part, out, splits, k, t, 1);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,9 +2,9 @@
 
 Each ``iic_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/lib<name>-<hash>.so`` at the repository
-root, on first use, and loaded with ``ctypes``. The hash covers the source
-and the flags, so an edited source is rebuilt and a stale library is never
-loaded. The sources have a plain C interface and include no PyTorch header,
+root, on first use, and loaded with ``ctypes``. The hash covers the source,
+the headers it may include (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. The sources have a plain C interface and include no PyTorch header,
 so a build takes seconds.
 """
 
@@ -42,7 +42,8 @@ def library(name):
     if name in _LIBS:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     t0 = time.perf_counter()

@@ -22,13 +22,14 @@ import torch
 
 from iic_tpu_torch import models
 from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import (
     cluster_eval, get_subhead_using_loss)
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_cluster_train_step, make_optimizer, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import ClusterConfig, config_to_str
-from iic_tpu_torch.train.seg_trainer import make_history, resolve_device
+from iic_tpu_torch.train.seg_trainer import make_history
 
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.

@@ -21,6 +21,7 @@ import torch
 
 from iic_tpu_torch import models
 from iic_tpu_torch.data.seg_pipeline import segmentation_create_dataloaders
+from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import EvalHistory
 from iic_tpu_torch.evals.segmentation_eval import segmentation_eval
 from iic_tpu_torch.parallel.train_step import (
@@ -63,15 +64,6 @@ def check_supported(config):
     if not config.twohead:
         raise NotImplementedError("the single-head segmentation script is "
                                   "not ported")
-
-
-def resolve_device(device=None):
-    """``cuda:0`` unless a device is given; no GPU is an error."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("the trainer runs on cuda:0 and found no GPU")
-    return torch.device("cuda:0")
 
 
 def head_order(config):

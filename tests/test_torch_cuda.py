@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1 / K2 (displacement joint) and K3 (fused
-clustering IID loss) on the card, against their plain PyTorch versions.
+"""The port's CUDA kernels K1 / K2 (displacement joint), K3 (fused
+clustering IID loss) and X1 / X2 (the experiment tool's stack-product probe
+and bf16 joint forward) on the card, against their plain PyTorch versions.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -13,6 +14,7 @@ import torch
 
 from iic_tpu_torch.ops import iid_loss, iid_seg_loss
 from iic_tpu_torch.ops.kernels import iid_loss as k3
+from iic_tpu_torch.ops.kernels import joint_exp as jx
 from iic_tpu_torch.ops.kernels import seg_joint as sj
 
 
@@ -220,3 +222,106 @@ def test_k3_refuses_what_it_cannot_launch(gpu):
                            out.data_ptr(), out.data_ptr(), out.data_ptr(), 1,
                            4, 200, 1.0, stream)
     assert err != 0
+
+
+X2_SHAPES = [(2, 3, 3, 8, 8), (3, 2, 5, 16, 16), (2, 2, 3, 10, 7),
+             (10, 4, 15, 128, 128), (10, 3, 3, 128, 96), (4, 1, 17, 40, 33)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
+def test_x2_matches_plain(gpu, half_t, n, k, h, w):
+    """X2 in every mode vs its plain version. full, rank3 and
+    aligned-copies: the same bf16 operands and exact products, so only the
+    f32 summation order differs: rtol 1e-4, atol 1e-5 * max (inside the JAX
+    package's rtol 5e-3 contract). mm-only and copies-only are exact."""
+    rng = np.random.default_rng(half_t + k)
+    x1 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    x2 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    for mode in jx.MODES:
+        got = jx.joint_fwd_v2(x1, x2, half_t, mode=mode).cpu().numpy()
+        ref = jx.joint_fwd_v2_plain(x1, x2, half_t, mode).cpu().numpy()
+        assert got.shape == ref.shape
+        if mode in ("mm-only", "copies-only"):
+            np.testing.assert_array_equal(got, ref, err_msg=mode)
+        else:
+            np.testing.assert_allclose(got, ref, rtol=1e-4,
+                                       atol=1e-5 * np.abs(ref).max(),
+                                       err_msg=mode)
+    t = 2 * half_t + 1
+    aligned = jx.joint_fwd_v2(x1, x2, half_t, mode="aligned-copies")
+    assert torch.equal(aligned, aligned[:, :, :1, :1].expand(k, k, t, t))
+
+
+@pytest.mark.cuda
+def test_x2_rb_and_input_type(gpu):
+    """rb changes the passes, not the joint (within f32 summation order);
+    bf16 inputs give exactly what their f32 originals give; one launch is
+    counted per call."""
+    rng = np.random.default_rng(9)
+    x1 = torch.from_numpy(_maps(rng, 3, 7, 64, 64)).to(gpu)
+    x2 = torch.from_numpy(_maps(rng, 3, 7, 64, 64)).to(gpu)
+    jx.reset_launch_counts()
+    outs = [jx.joint_fwd_v2(x1, x2, 10, rb=rb) for rb in (16, 32, 64)]
+    assert jx.LAUNCHES == {"joint_fwd_v2": 3, "mm_probe": 0}
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=1e-5,
+                                   atol=1e-6 * float(outs[0].abs().max()))
+    same = jx.joint_fwd_v2(x1.bfloat16(), x2.bfloat16(), 10, rb=16)
+    assert torch.equal(same, outs[0])
+    assert torch.equal(jx.joint_fwd_v2(x1, x2, 10, mode="copies-only", rb=16),
+                       jx.joint_fwd_v2(x1, x2, 10, mode="copies-only", rb=64))
+    for rb in (16, 32, 64):  # the count of terms issued, per rb
+        assert torch.equal(
+            jx.joint_fwd_v2(x1[:1], x2[:1], 10, mode="mm-only", rb=rb),
+            jx.joint_fwd_v2_plain(x1[:1], x2[:1], 10, "mm-only", rb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", jx.FORMS)
+@pytest.mark.parametrize("n,k,h,half_t,rb", [(2, 7, 16, 10, 16),
+                                             (3, 15, 128, 10, 32),
+                                             (1, 3, 20, 4, 64)])
+def test_x1_counts_the_terms(gpu, form, n, k, h, half_t, rb):
+    """X1 multiplies tiles of ones: every entry is the count of terms it
+    issued, exactly its plain version's (integers under 2^24)."""
+    jx.reset_launch_counts()
+    out = jx.mm_probe(n, k, h, half_t, rb, form, gpu)
+    tk = k * (2 * half_t + 1)
+    assert out.shape == (tk, tk) and out.device.type == "cuda"
+    want = jx.mm_probe_plain(n, k, h, half_t, rb, gpu)
+    assert float(want[0, 0]) == n * (jx.row_window(h, half_t, rb)[1]
+                                     - jx.row_window(h, half_t, rb)[0]) \
+        * rb * 128
+    assert torch.equal(out, want)
+    assert jx.LAUNCHES == {"joint_fwd_v2": 0, "mm_probe": 1}
+
+
+@pytest.mark.cuda
+def test_x1_x2_refuse_what_they_cannot_launch(gpu):
+    """Bad input raises before a launch; a launch the C entry points refuse
+    (an unknown mode, a pass over the shared memory) returns a CUDA error
+    code."""
+    x = torch.rand(2, 3, 8, 8, device=gpu)
+    with pytest.raises(TypeError):
+        jx.joint_fwd_v2(x.double(), x.double(), 2)
+    with pytest.raises(ValueError):
+        jx.joint_fwd_v2(x.transpose(2, 3), x, 2)
+    with pytest.raises(ValueError):
+        jx.joint_fwd_v2(x, x.cpu(), 2)
+    with pytest.raises(ValueError):
+        jx.joint_fwd_v2(x, x[:1].contiguous(), 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.joint_fwd_v2(x, x, 2, rb=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.mm_probe(2, 3, 8, 2, 128, "mk-nk", gpu)
+    lib = jx._lib()
+    xb = x.bfloat16()
+    part = torch.empty(64 * 64 * 64, device=gpu)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (xb.data_ptr(), xb.data_ptr(), part.data_ptr(), part.data_ptr(),
+            part.data_ptr(), 2, 3, 8, 8, 2)
+    assert lib.joint_exp_fwd_v2(*args, 16, 7, 1, 16, stream) != 0
+    assert lib.joint_exp_fwd_v2(*args, 128, 0, 1, 16, stream) != 0
+    assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 128,
+                                  0, 1, 1, 1, stream) != 0

@@ -1,0 +1,225 @@
+"""The port's experiment-tool kernels X1 and X2 (iic_tpu_torch/ops/kernels/
+joint_exp.py) and its tool (iic_tpu_torch/tools/joint_kernel_exp.py) against
+the JAX package's ``tools/joint_kernel_exp.py``, whose Pallas kernels run in
+interpret mode on the CPU. Inputs are made from a numpy seed and fed to
+both. The CUDA kernels themselves are tested on the card by
+tests/test_torch_cuda.py."""
+
+import importlib.util
+import math
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iic_tpu_torch.ops.kernels import joint_exp as jx
+from iic_tpu_torch.ops.kernels import seg_joint as sj
+from iic_tpu_torch.tools import joint_kernel_exp as tool
+
+_TOOL = Path(__file__).resolve().parents[1] / "tools" / "joint_kernel_exp.py"
+_spec = importlib.util.spec_from_file_location("jax_joint_kernel_exp", _TOOL)
+jax_tool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jax_tool)
+
+TINY = (2, 7, 16, 10)  # n, k, h, half_t
+
+
+def _softmax_maps(rng, n, k, h, w):
+    z = rng.standard_normal((n, k, h, w)).astype(np.float32)
+    e = np.exp(z - z.max(axis=1, keepdims=True))
+    return e / e.sum(axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("mode,n,k,h,half_t", [
+    ("full", *TINY), ("rank3", *TINY), ("full", 3, 4, 12, 3)])
+def test_plain_v2_matches_jax_tool(mode, n, k, h, half_t):
+    """Plain X2 vs the TPU tool's ``joint_fwd_v2`` (interpret mode). Both
+    round x1 and x2 to bf16 with round-to-nearest-even, and a product of
+    two bf16 values is exact in f32, so the two differ only in the f32
+    summation order: atol 1e-5 * max |P| (measured 6e-7)."""
+    rng = np.random.default_rng(n + 10 * k)
+    x1, x2 = _softmax_maps(rng, n, k, h, h), _softmax_maps(rng, n, k, h, h)
+    ref = np.asarray(jax_tool.joint_fwd_v2(jnp.asarray(x1), jnp.asarray(x2),
+                                           half_t, mode=mode))
+    got = jx.joint_fwd_v2(torch.from_numpy(x1), torch.from_numpy(x2), half_t,
+                          mode=mode).numpy()
+    t = 2 * half_t + 1
+    assert got.shape == ref.shape == (k, k, t, t)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_plain_v2_is_the_joint_of_bf16_inputs():
+    """Plain X2 ``full`` vs the f32 joint (plain K1): the bf16 rounding of
+    the inputs, within the JAX package's kernel contract (rtol 5e-3, atol
+    5e-3 * max; tests/test_pallas_kernels.py:84-96)."""
+    rng = np.random.default_rng(4)
+    x1, x2 = (torch.from_numpy(_softmax_maps(rng, 2, 5, 16, 16))
+              for _ in range(2))
+    got = jx.joint_fwd_v2_plain(x1, x2, 3).numpy()
+    ref = sj.displacement_joint_dense(x1, x2, 3).numpy()
+    np.testing.assert_allclose(got, ref, rtol=5e-3, atol=5e-3 * ref.max())
+    assert np.abs(got - ref).max() > 0  # the rounding is there
+
+
+# The TPU tool leaves these outputs to uninitialised scratch (mm-only,
+# mm_probe: NaN in interpret mode) or to the TPU's tiling (copies-only adds
+# one row of each stack, and fails to broadcast for kT < 128; aligned-copies
+# builds at the 16-row tile offset). The port defines them; these tests hold
+# its plain versions to those definitions.
+
+def test_aligned_copies_is_the_zero_displacement_joint_broadcast():
+    rng = np.random.default_rng(5)
+    x1, x2 = (torch.from_numpy(_softmax_maps(rng, 2, 4, 12, 12))
+              for _ in range(2))
+    half_t = 3
+    got = jx.joint_fwd_v2_plain(x1, x2, half_t, "aligned-copies").numpy()
+    p0 = jx.joint_fwd_v2_plain(x1, x2, half_t, "full")[:, :, half_t, half_t]
+    assert got.shape == (4, 4, 7, 7)
+    for u in range(7):
+        for v in range(7):
+            np.testing.assert_allclose(got[:, :, u, v], p0.numpy(),
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t", [(2, 3, 6, 7, 2), (1, 2, 5, 4, 4)])
+def test_copies_only_is_the_bit_checksum(n, k, h, w, half_t):
+    """copies-only against its definition written as loops: (S_A[v,i] +
+    S_B[u,j]) mod 2^32 of the bf16 bit patterns; integers, so exact."""
+    rng = np.random.default_rng(6)
+    x1 = torch.from_numpy(rng.standard_normal((n, k, h, w)).astype(np.float32))
+    x2 = torch.from_numpy(rng.random((n, k, h, w)).astype(np.float32))
+    b1, b2 = (x.to(torch.bfloat16).view(torch.int16).numpy().astype(np.int64)
+              & 0xFFFF for x in (x1, x2))
+    t = 2 * half_t + 1
+    s_a = np.zeros((t, k), np.int64)
+    s_b = np.zeros((t, k), np.int64)
+    for d in range(t):
+        for q in range(w):
+            col = q + d - half_t
+            if 0 <= col < w:
+                s_a[d] += b1[:, :, :, col].sum(axis=(0, 2))
+        for y in range(h):
+            row = y + half_t - d
+            if 0 <= row < h:
+                s_b[d] += b2[:, :, row, :].sum(axis=(0, 2))
+    want = np.zeros((k, k, t, t), np.float32)
+    for i in range(k):
+        for j in range(k):
+            for u in range(t):
+                for v in range(t):
+                    want[i, j, u, v] = float((s_a[v, i] + s_b[u, j]) % 2 ** 32)
+    got = jx.joint_fwd_v2(x1, x2, half_t, "copies-only", rb=half_t + 1)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_mm_only_and_mm_probe_count_the_terms():
+    """Both multiply tiles of bf16 ones: every entry is the count of
+    contraction terms issued. mm-only: one pass per rb rows (whole passes
+    per chunk) and per 8 columns, of depth 8*rb; the probe: the TPU probe's
+    n * (t_hi - t_lo) tiles of rb * 128."""
+    x = torch.rand(2, 3, 8, 8)
+    p = jx.joint_fwd_v2(x, x, 2, "mm-only", rb=3)
+    assert p.shape == (3, 3, 5, 5)
+    assert torch.all(p == 6 * 1 * 8 * 3)  # ceil(16/3) row passes, 1 column
+    assert jx.mm_only_terms(120, 128, 128, 16) == 120 * 128 * 128
+    assert jx.mm_only_terms(1, 10, 9, 4) == 3 * 2 * 8 * 4
+    for form in jx.FORMS:
+        out = jx.mm_probe(2, 7, 16, 10, 16, form, "cpu")
+        assert out.shape == (147, 147) and out.dtype == torch.float32
+        assert torch.all(out == 2 * 2 * 16 * 128)  # row tiles (0, 2)
+    assert jx.row_window(16, 10, 16) == (0, 2)
+    assert jx.row_window(128, 10, 16) == (0, 9)
+    assert jx.probe_passes(120, 128, 10, 16) * 8 * 16 == 120 * 9 * 16 * 128
+    # 2,211,840 at the tool's default: under 2^24, so exact in f32
+    assert float(jx.mm_probe_plain(120, 1, 128, 10, 16, "cpu")[0, 0]) \
+        == 120 * 9 * 16 * 128 < 2 ** 24
+
+
+@pytest.mark.parametrize("half_t,rb", [(10, 8), (65, 80), (3, 2)])
+def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
+    """2*half_t <= 128 and 2*half_t <= 2*rb, as the TPU tool asserts."""
+    x = np.ones((1, 2, 8, 8), np.float32)
+    with pytest.raises(AssertionError):
+        jax_tool.joint_fwd_v2(jnp.asarray(x), jnp.asarray(x), half_t, rb=rb)
+    with pytest.raises(ValueError, match="2\\*half_t"):
+        jx.joint_fwd_v2(torch.from_numpy(x), torch.from_numpy(x), half_t,
+                        rb=rb)
+    with pytest.raises(ValueError, match="2\\*half_t"):
+        jx.mm_probe(1, 2, 8, half_t, rb, "mk-nk", "cpu")
+
+
+def test_wrappers_refuse_what_shared_memory_cannot_hold():
+    """A pass of rb rows must fit a block's 227 KB: rb=64 does (132 KB),
+    rb=128 does not; refused before any launch, on every device."""
+    assert jx.stage_bytes(16) == 2 * 64 * 130 * 2
+    assert jx.stage_bytes(64) < 232448 - 1536 < jx.stage_bytes(128)
+    x = torch.rand(1, 2, 8, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.joint_fwd_v2(x, x, 2, rb=128)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.mm_probe(1, 2, 8, 2, 128, "mk-kn", "cpu")
+    with pytest.raises(ValueError, match="mode"):
+        jx.joint_fwd_v2(x, x, 2, mode="v3")
+    with pytest.raises(ValueError, match="form"):
+        jx.mm_probe(1, 2, 8, 2, 16, "nk-mk", "cpu")
+    with pytest.raises(ValueError):
+        jx.joint_fwd_v2(x, x.to("meta"), 2)
+
+
+def test_cpu_wrappers_use_plain_and_count_no_launch():
+    jx.reset_launch_counts()
+    x = torch.rand(2, 3, 8, 8)
+    for mode in jx.MODES:
+        jx.joint_fwd_v2(x, x, 2, mode=mode)
+    jx.mm_probe(2, 3, 8, 2, 16, "mk-kn", torch.device("cpu"))
+    assert jx.LAUNCHES == {"joint_fwd_v2": 0, "mm_probe": 0}
+
+
+@pytest.mark.parametrize("run,variants", [(None, 8), ("ablate", 12),
+                                          ("mmprobe", 4)])
+def test_tool_runs_on_cpu(capsys, run, variants):
+    """The port's tool end to end at a tiny size on the plain versions:
+    every variant reports, none FAILED, every time and error is finite; the
+    bf16 variants are within bf16 rounding of the float64 reference, the
+    f32 ones within f32 rounding, and the exact ablations are exact."""
+    argv = ([run] if run else []) + [str(a) for a in TINY]
+    records = tool.main(argv, device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("joint_kernel_exp ") and out[0].endswith("cpu")
+    assert len(out) == 1 + len(records) == 1 + variants, out
+    for rec, line in zip(records, out[1:]):
+        assert rec["failed"] is None and line.startswith(rec["name"]), line
+        assert math.isfinite(rec["ms"]) and rec["errs"], rec
+        for label, err in rec["errs"].items():
+            assert math.isfinite(err), rec
+            if label == "max |P - plain|":
+                assert err == 0.0, rec
+            elif "bf16" in rec["name"] or "full" in rec["name"] \
+                    or "rank3" in rec["name"]:
+                assert err < 1e-2, rec  # bf16 rounding (about 5e-4)
+            else:
+                assert err < 1e-5, rec  # f32 rounding
+
+
+@pytest.mark.parametrize("run", sorted(tool.WAITING))
+def test_tool_runs_that_need_unported_kernels_raise(run):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
+        tool.main([run, *map(str, TINY)], device="cpu")
+
+
+def test_tool_bwd_conv_is_the_joint_vjp():
+    """The tool's E1 conv backward (f32) vs autograd of the plain joint:
+    rtol 1e-4, atol 1e-5 * max (summation order)."""
+    rng = np.random.default_rng(8)
+    half_t = 2
+    x1, x2 = (torch.from_numpy(_softmax_maps(rng, 2, 3, 10, 10))
+              .requires_grad_() for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((3, 3, 5, 5)).astype(np.float32))
+    ref = torch.autograd.grad((sj.displacement_joint_dense(x1, x2, half_t)
+                               * g).sum(), (x1, x2))
+    got = tool.bwd_conv(x1.detach(), x2.detach(), g, half_t)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
