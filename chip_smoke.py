@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--trace_dir DIR]
 
 Phases, in order; any failure raises and the exit code is non-zero:
-  1. require CUDA; print the device, its name and power limit; set TF32;
+  1. require CUDA; print the device, its name and power limit; set TF32
+     (before each timed phase below, the SM clock, its maximum, the power
+     draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
@@ -26,24 +28,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in both forms to its plain version (tiles of ones: every entry the
      count of terms issued), exactly; CUDA-event times of each kernel, its
      plain version and the library call that computes the same function;
-  6. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
+  6. hold X7 (the tool's v8 joint forward: K1's kernel on bf16 inputs) and
+     X8 (its v8 input gradient with bf16 operands, dx1 and dx2) against
+     their plain versions at the same shapes for rb = 16, 32, 64, within
+     the JAX contract; their errors against float64; X7's time beside K1's
+     and X2's in the same phase; kernel, plain and library times;
+  7. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
+     each per-displacement partial rounded to bf16) against its plain
+     version by mean |d| / mean |ref| <= 1e-5 and max |d| <= 2e-3 max |ref|,
+     and require X8's unrounded pair to fail that criterion (so the check
+     sees a lost rounding); errors against float64; times;
+  8. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
      on SyntheticSeg3x146x480) with --test_code, kernel counts set to 0
      just before; require finite losses, a filled eval history and at
      least 4 K1 and 8 K2 launches;
-  7. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
+  9. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
      Synthetic10x32x3, --fused_loss) with --test_code, counts set to 0
      just before; require finite losses for both heads, a pre-train and an
      epoch eval with the double-eval lists, and at least one K3 launch per
      step;
-  8. run the port's experiment tool in-process at its default size (120 15
-     128 10): the default run, ``ablate`` and ``mmprobe``, counts set to 0
-     just before; from the records the tool returns, require every variant
-     to report, none FAILED, finite times and errors, the exact ablations
-     exact, and at least one X1 and one X2 launch;
-  9. profile steady head-A and head-B steps of both paths: step time,
+ 10. run the port's experiment tool in-process at its default size (120 15
+     128 10): the default run, ``ablate``, ``mmprobe``, ``v8`` and ``v7``,
+     counts set to 0 just before; from the records the tool returns,
+     require every variant to report, none FAILED, finite times and errors,
+     the exact ablations exact, X9 within 1e-5 mean of its float64 plain
+     version, and at least one launch of X1, X2, X7, X8 and X9;
+ 11. profile steady head-A and head-B steps of both paths: step time,
      device busy share and device time by kernel, and the kernels' share
      (chrome traces go to --trace_dir when it is given);
- 10. print the kernel table as one JSON line (each kernel's launches on
+ 12. print the kernel table as one JSON line (each kernel's launches on
      its path, max error against its plain version, its time, the plain
      version's, the library call's and the bound), then the result line.
 """
@@ -59,24 +72,40 @@ import time
 N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
 RTOL = 5e-3   # tests/test_pallas_kernels.py:95-96, :119-122
-LIBS = ("seg_joint", "iid_loss", "joint_exp")
+LIBS = ("seg_joint", "iid_loss", "joint_exp", "joint_exp_bwd")
 SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "seg_joint_dgrad": "iic_tpu_torch/csrc/seg_joint.cu",
            "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu",
            "mm_probe": "iic_tpu_torch/csrc/joint_exp.cu",
-           "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu"}
+           "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu",
+           "joint_fwd_v8": "iic_tpu_torch/csrc/joint_exp.cu",
+           "dgrad_v8": "iic_tpu_torch/csrc/joint_exp_bwd.cu",
+           "dgrad_fused_v7": "iic_tpu_torch/csrc/joint_exp_bwd.cu"}
 REPLACES = {"seg_joint_fwd": "iic_tpu/ops/pallas/seg_joint_kernel.py:83",
             "seg_joint_dgrad": "iic_tpu/ops/pallas/seg_joint_kernel.py:191",
             "iid_loss_fwd": "iic_tpu/ops/pallas/iid_loss_kernel.py:34",
             "mm_probe": "tools/joint_kernel_exp.py:90",
-            "joint_fwd_v2": "tools/joint_kernel_exp.py:140"}
+            "joint_fwd_v2": "tools/joint_kernel_exp.py:140",
+            "joint_fwd_v8": "tools/joint_kernel_exp.py:646",
+            "dgrad_v8": "tools/joint_kernel_exp.py:729",
+            "dgrad_fused_v7": "tools/joint_kernel_exp.py:929"}
+TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", "joint_fwd_v8", "dgrad_v8",
+                "dgrad_fused_v7")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): bf16 tensor
-# cores, f32 on the CUDA cores, HBM3. K1, K2, X1 and X2 are bounded at the
-# bf16 rate: the TPU kernels round their operands to bf16 and the kernels'
-# contract (rtol 5e-3) admits it; the f32 figure is printed beside.
+# cores, f32 on the CUDA cores, HBM3. The joint kernels (K1, K2, X1, X2,
+# X7, X8, X9) are bounded at the bf16 rate: the TPU kernels round their
+# operands to bf16 and the kernels' contract (rtol 5e-3) admits it; the f32
+# figure is printed beside.
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
-X_RB = 16  # X1 / X2 pass rows in the kernel table (the TPU tool's default)
-TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4}  # run -> variants
+X_RB = 16  # X1 / X2 / X7 / X8 rb in the kernel table (the TPU tool's default)
+X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
+# X9 against its plain version: each p_v is rounded to bf16, so a last-bit
+# difference in the f32 partial may move it across a rounding boundary:
+# mean |d| / mean |ref| and max |d| / max |ref| (X8's unrounded pair is
+# ~1.7e-3 off in the mean)
+X9_MEAN, X9_MAX = 1e-5, 2e-3
+TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v8": 6,
+             "v7": 2}  # run -> variants
 # K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
 # heads A and B, and the CIFAR20 overclustering head of model 579
 K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140))
@@ -130,6 +159,17 @@ def phase_device():
          f"torch {torch.__version__}, cuda {torch.version.cuda}")
     _log(smi)
     return name, smi
+
+
+def _clocks(tag):
+    """Logs the card's SM clock, its maximum, power draw and temperature
+    before a phase: a card held below its clock reads slower in every
+    later time."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True)
+    _log(f"clocks before {tag}: {(smi.stdout or smi.stderr).strip()}")
 
 
 def phase_build():
@@ -187,6 +227,15 @@ def _compare(tag, got, ref):
     return _check(tag, got, ref, RTOL, RTOL * float(ref.abs().max()))
 
 
+def _softmax_pair(gen, k):
+    import torch
+
+    def one():
+        z = torch.randn((N, k, HW, HW), device="cuda", generator=gen)
+        return torch.softmax(z, dim=1).contiguous()
+    return one(), one()
+
+
 def phase_kernels():
     """K1 and K2 against their plain versions at the main path's shapes.
     Returns {kernel: {"max_abs_err", "ms", "plain_ms"}} (ms at head A's
@@ -199,11 +248,7 @@ def phase_kernels():
     for k in KS:
         t = 2 * HALF_T + 1
 
-        def softmax_maps():
-            z = torch.randn((N, k, HW, HW), device="cuda", generator=gen)
-            return torch.softmax(z, dim=1).contiguous()
-
-        x1, x2 = softmax_maps(), softmax_maps()
+        x1, x2 = _softmax_pair(gen, k)
         g = torch.randn((k, k, t, t), device="cuda", generator=gen)
         g2d, g2d_swap = sj.adjoints(g)
         _log(f"k={k}: n={N}, {HW}x{HW}, T={t}")
@@ -344,10 +389,7 @@ def phase_x2():
     stats = {"max_abs_err": 0.0}
     t = 2 * HALF_T + 1
     for k in KS:
-        def softmax_maps():
-            z = torch.randn((N, k, HW, HW), device="cuda", generator=gen)
-            return torch.softmax(z, dim=1).contiguous()
-        x1, x2 = softmax_maps(), softmax_maps()
+        x1, x2 = _softmax_pair(gen, k)
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
         _log(f"X2 k={k}: n={N}, {HW}x{HW}, T={t}, rb={X_RB}, bf16 inputs")
         for mode in jx.MODES:
@@ -451,6 +493,212 @@ def phase_x1():
     return stats
 
 
+def phase_x7():
+    """X7 against its plain version at the segmentation shapes for each rb,
+    its errors against float64, and its time beside K1's and X2's and the
+    bf16 cuDNN conv of the same joint. Returns the table stats (k=15,
+    rb=16)."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    stats = {"max_abs_err": 0.0}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        x1, x2 = _softmax_pair(gen, k)
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        _log(f"X7 k={k}: n={N}, {HW}x{HW}, T={t}, bf16 inputs")
+        ref = jx.joint_fwd_v8_plain(x1b, x2b, HALF_T)
+        for rb in X_RBS:
+            got = jx.joint_fwd_v8(x1b, x2b, HALF_T, rb)
+            torch.cuda.synchronize()
+            stats["max_abs_err"] = max(stats["max_abs_err"],
+                                       _compare(f"rb={rb}", got, ref))
+        p = jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB).double()
+        ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
+                                            HALF_T)
+        for tag, f in (("kernel", p), ("plain f32", ref.double())):
+            _log(f"  {tag} vs float64 of its bf16 inputs: max err / max|ref|"
+                 f" {float((f - ref64).abs().max() / ref64.abs().max()):.3e}")
+        del p, ref, ref64
+
+        def library():
+            return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
+                            padding=HALF_T)
+        times = {rb: _time_ms(lambda r=rb: jx.joint_fwd_v8(x1b, x2b, HALF_T,
+                                                           r))
+                 for rb in X_RBS}
+        k1_ms = _time_ms(lambda: sj.joint_fwd(x1, x2, HALF_T))
+        x2_ms = _time_ms(lambda: jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB))
+        plain_ms = _time_ms(lambda: jx.joint_fwd_v8_plain(x1b, x2b, HALF_T))
+        library_ms = _time_ms(library)
+        _log(f"  joint_fwd_v8 k={k}: kernel "
+             + ", ".join(f"rb={rb} {ms:.3f}" for rb, ms in times.items())
+             + f" ms; in the same phase K1 (f32) {k1_ms:.3f} ms, X2 (bf16 "
+             f"tiles, widened in the inner loop) {x2_ms:.3f} ms; plain "
+             f"{plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f} ms (CUDA "
+             f"events, mean of 5)")
+        if k == KS[0]:
+            stats.update(ms=times[X_RB], plain_ms=plain_ms,
+                         library_ms=library_ms)
+            stats.update(_bound("joint_fwd_v8",
+                                _joint_flop(N, k, HW, HW, HALF_T),
+                                2 * x1b.numel() * 2 + (k * t) ** 2 * 4,
+                                PEAK_BF16))
+        del x1, x2, x1b, x2b
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_x8():
+    """X8 (dx1 and dx2, the tool's ``bwd_v8``) against its plain version at
+    the segmentation shapes for each rb, its errors against float64, and
+    the times of the kernel (one call), its plain version and one bf16
+    cuDNN conv computing the same gradient. Returns the table stats (k=15,
+    rb=16, the dx1 call)."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stats = {"max_abs_err": 0.0}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        x1, x2 = _softmax_pair(gen, k)
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        del x1, x2
+        g = torch.randn((k, k, t, t), device="cuda", generator=gen)
+        g2d, g2d_swap = sj.adjoints(g)
+        _log(f"X8 k={k}: n={N}, {HW}x{HW}, T={t}, bf16 inputs and adjoint")
+        refs = (jx.dgrad_v8_plain(g2d, x2b, HALF_T),
+                jx.dgrad_v8_plain(g2d_swap, x1b, HALF_T))
+        for rb in X_RBS:
+            got = jx.bwd_v8(g, x1b, x2b, HALF_T, rb)
+            torch.cuda.synchronize()
+            for tag, a, r in zip(("dx1", "dx2"), got, refs):
+                stats["max_abs_err"] = max(stats["max_abs_err"],
+                                           _compare(f"rb={rb} {tag}", a, r))
+        ref64 = jx.dgrad_v8_plain(g2d.double(), x2b.double(), HALF_T)
+        scale = float(ref64.abs().max())
+        for tag, f in (("kernel", jx.dgrad_v8(g2d, x2b, HALF_T, X_RB)),
+                       ("plain f32", refs[0])):
+            _log(f"  dx1 {tag} vs float64: max err / max|ref| "
+                 f"{float((f.double() - ref64).abs().max()) / scale:.3e}")
+        del refs, ref64, got
+        gf = g.flip(2, 3).bfloat16().contiguous()
+
+        def library():
+            return F.conv2d(x2b, gf, padding=HALF_T)
+        times = {rb: _time_ms(lambda r=rb: jx.dgrad_v8(g2d, x2b, HALF_T, r))
+                 for rb in X_RBS}
+        x2f = x2b.float()
+        k2_ms = _time_ms(lambda: sj.joint_dgrad(g2d, x2f, HALF_T))
+        plain_ms = _time_ms(lambda: jx.dgrad_v8_plain(g2d, x2b, HALF_T))
+        library_ms = _time_ms(library)
+        _log(f"  dgrad_v8 k={k} (one call, dx1): kernel "
+             + ", ".join(f"rb={rb} {ms:.3f}" for rb, ms in times.items())
+             + f" ms; in the same phase K2 (f32) {k2_ms:.3f} ms; plain "
+             f"{plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f} ms (CUDA "
+             f"events, mean of 5)")
+        if k == KS[0]:
+            stats.update(ms=times[X_RB], plain_ms=plain_ms,
+                         library_ms=library_ms)
+            stats.update(_bound("dgrad_v8",
+                                _joint_flop(N, k, HW, HW, HALF_T),
+                                (k * t) ** 2 * 4 + x2b.numel() * (2 + 4),
+                                PEAK_BF16))
+        del x1b, x2b, x2f
+        torch.cuda.empty_cache()
+    return stats
+
+
+def _mean_max(got, ref):
+    """(mean |d| / mean |ref|, max |d| / max |ref|, max |d|)."""
+    d = (got.double() - ref.double()).abs()
+    r = ref.double().abs()
+    return (float(d.mean() / r.mean()), float(d.max() / r.max()),
+            float(d.max()))
+
+
+def phase_x9():
+    """X9 against its plain version at the segmentation shapes by the
+    mean / max criterion, X8's unrounded pair required to fail it, errors
+    against float64, and the times of the kernel, its plain version and the
+    two bf16 cuDNN convs of the same gradients. Returns the table stats
+    (k=15)."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    stats = {"max_abs_err": 0.0}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        x1, x2 = _softmax_pair(gen, k)
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        del x1, x2
+        g = torch.randn((k, k, t, t), device="cuda", generator=gen)
+        _log(f"X9 k={k}: n={N}, {HW}x{HW}, T={t}, bf16 inputs and adjoint; "
+             f"criterion mean |d|/mean|ref| <= {X9_MEAN:g}, max |d|/max|ref|"
+             f" <= {X9_MAX:g}")
+        got = jx.dgrad_fused_v7(g, x1b, x2b, HALF_T)
+        ref = jx.dgrad_fused_v7_plain(g, x1b, x2b, HALF_T)
+        unrounded = jx.bwd_v8(g, x1b, x2b, HALF_T)
+        torch.cuda.synchronize()
+        for tag, a, r, u in zip(("dx1", "dx2"), got, ref, unrounded):
+            mean, mx, err = _mean_max(a, r)
+            ok = mean <= X9_MEAN and mx <= X9_MAX and math.isfinite(err)
+            u_mean, u_mx, _ = _mean_max(u, r)
+            caught = not (u_mean <= X9_MEAN and u_mx <= X9_MAX)
+            verdict = "fails the criterion, as it must" if caught else "PASSES"
+            _log(f"  {tag}: mean {mean:.3e}, max {mx:.3e} (max_abs_err "
+                 f"{err:.3e}) {'ok' if ok else 'FAIL'}; X8's unrounded pair "
+                 f"mean {u_mean:.3e}, max {u_mx:.3e}: {verdict}")
+            if not ok:
+                raise AssertionError(f"X9 {tag} disagrees with its plain "
+                                     f"version")
+            if not caught:
+                raise AssertionError("the X9 criterion does not tell the "
+                                     "rounded partials from unrounded ones")
+            stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        ref64 = jx.dgrad_fused_v7_plain(g.double(), x1b.double(),
+                                        x2b.double(), HALF_T)
+        for tag, pair in (("kernel", got), ("plain f32", ref)):
+            _log(f"  {tag} vs float64 (partials rounded from float64): "
+                 + ", ".join(f"{n} mean {m[0]:.3e} max {m[1]:.3e}"
+                             for n, m in zip(("dx1", "dx2"), (
+                                 _mean_max(a, r)
+                                 for a, r in zip(pair, ref64)))))
+        del got, ref, unrounded, ref64
+        gb = g.bfloat16()
+        filters = (gb.flip(2, 3).contiguous(), gb.transpose(0, 1).contiguous())
+
+        def library():
+            return (F.conv2d(x2b, filters[0], padding=HALF_T),
+                    F.conv2d(x1b, filters[1], padding=HALF_T))
+        ms = _time_ms(lambda: jx.dgrad_fused_v7(g, x1b, x2b, HALF_T))
+        x8_ms = _time_ms(lambda: jx.bwd_v8(g, x1b, x2b, HALF_T))
+        plain_ms = _time_ms(lambda: jx.dgrad_fused_v7_plain(g, x1b, x2b,
+                                                            HALF_T))
+        library_ms = _time_ms(library)
+        _log(f"  dgrad_fused_v7 k={k}: kernel {ms:.3f} ms (dx1 and dx2); in "
+             f"the same phase two X8 calls {x8_ms:.3f} ms; plain "
+             f"{plain_ms:.3f} ms; two bf16 F.conv2d {library_ms:.3f} ms "
+             f"(CUDA events, mean of 5)")
+        if k == KS[0]:
+            stats.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+            stats.update(_bound("dgrad_fused_v7",
+                                2 * _joint_flop(N, k, HW, HW, HALF_T),
+                                g.numel() * 4 + 2 * x1b.numel() * (2 + 4),
+                                PEAK_BF16))
+        del x1b, x2b
+        torch.cuda.empty_cache()
+    return stats
+
+
 def _launch_counts():
     from iic_tpu_torch.ops.kernels import iid_loss as k3
     from iic_tpu_torch.ops.kernels import joint_exp as jx
@@ -532,8 +780,8 @@ def phase_cluster_trainer():
 
 def phase_tool():
     """The port's experiment tool in-process at its default size: the
-    default run, ablate and mmprobe. Returns {kernel: launches in the
-    three runs}."""
+    default run, ablate, mmprobe, v8 and v7. Returns {kernel: launches in
+    the five runs}."""
     from iic_tpu_torch.tools import joint_kernel_exp as tool
 
     _reset_counts()
@@ -547,14 +795,18 @@ def phase_tool():
             errs = rec["errs"]
             if (rec["failed"] or not math.isfinite(rec["ms"]) or not errs
                     or not all(math.isfinite(v) for v in errs.values())
-                    or errs.get("max |P - plain|", 0.0) != 0.0):
+                    or errs.get("max |P - plain|", 0.0) != 0.0
+                    or any(v > X9_MEAN for label, v in errs.items()
+                           if "mean err vs v7 plain" in label)):
                 raise AssertionError(f"tool variant failed, or its time or "
-                                     f"error is not finite or not exact: "
-                                     f"{rec}")
+                                     f"error is not finite, not exact or "
+                                     f"off its plain version: {rec}")
     launches = _read_counts()
-    _log(f"launches in the three tool runs: {launches}")
-    if launches["joint_fwd_v2"] < 1 or launches["mm_probe"] < 1:
-        raise AssertionError(f"tool runs missed X1 / X2: {launches}")
+    _log(f"launches in the five tool runs: {launches} (with a check, a "
+         f"warm-up and 20 timed calls per variant: 66 X7, 132 X8, 22 X9)")
+    if any(launches[name] < 1 for name in TOOL_KERNELS):
+        raise AssertionError(f"tool runs missed X1, X2, X7, X8 or X9: "
+                             f"{launches}")
     return launches
 
 
@@ -699,16 +951,24 @@ def main(argv=None):
 
     name, _ = phase_device()
     phase_build()
+    _clocks("K1/K2")
     stats = phase_kernels()
-    stats["iid_loss_fwd"] = phase_k3()
-    stats["joint_fwd_v2"] = phase_x2()
-    stats["mm_probe"] = phase_x1()
+    for kernel, tag, phase in (("iid_loss_fwd", "K3", phase_k3),
+                               ("joint_fwd_v2", "X2", phase_x2),
+                               ("mm_probe", "X1", phase_x1),
+                               ("joint_fwd_v8", "X7", phase_x7),
+                               ("dgrad_v8", "X8", phase_x8),
+                               ("dgrad_fused_v7", "X9", phase_x9)):
+        _clocks(tag)
+        stats[kernel] = phase()
     launches = {k: v for k, v in phase_trainer().items()
                 if k.startswith("seg_joint")}
     launches.update({k: v for k, v in phase_cluster_trainer().items()
                      if k == "iid_loss_fwd"})
+    _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
-                     if k in ("mm_probe", "joint_fwd_v2")})
+                     if k in TOOL_KERNELS})
+    _clocks("the profiles")
     phase_profile(args.trace_dir)
     phase_cluster_profile(args.trace_dir)
     table = [{"name": k, "route": "cuda", "source": SOURCES[k],

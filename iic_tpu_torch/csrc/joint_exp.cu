@@ -1,9 +1,11 @@
 // Forward probes of the displacement-joint experiment tool, hand-written for
 // Hopper (sm_90a): X2, the joint forward with bf16 operands and its
-// ablations, and X1, the stack-product probe.
+// ablations, X1, the stack-product probe, and X7, the joint forward with
+// bf16 operands on K1's split-K kernel.
 //
 // Replaces tools/joint_kernel_exp.py: `_joint_kernel_v2` (launched by
-// `joint_fwd_v2`) and `_mm_probe_kernel` (launched by `mm_probe`).
+// `joint_fwd_v2`), `_mm_probe_kernel` (launched by `mm_probe`) and
+// `_joint_kernel_v8` (launched by `joint_fwd_v8`).
 //
 //   P[i,j,u,v] = sum_{n,y,q} x1[n,i,y,q+v-h] * x2[n,j,y+h-u,q]         (X2)
 //
@@ -84,6 +86,19 @@
 // The row tables, the partial store and the ordered reduce are K1's
 // (joint_common.cuh).
 //
+// X7. The TPU tool's v8 is its production K1 with the row tile `rb` as a
+// parameter: bf16 stacks, f32 accumulation. Here it is K1's own split-K
+// kernel (joint_common.cuh) instantiated on bf16 inputs: each bf16 value is
+// widened once, when the loader stores it into K1's f32 shared tiles, and
+// K1's f32 FMA loop runs unchanged. Set against X2 (bf16 tiles, widened in
+// the inner loop) and K1 (f32 loads) it measures what the inner-loop
+// widening costs. `rb` is the (n, y) row quantum of a split-K chunk (the
+// wrapper cuts the n*h rows into chunks of a multiple of rb rows, as X2's
+// does): it changes only the order of the f32 sums, never the work, and no
+// shared memory depends on it (K1's two 16 x 68 f32 tiles, 8.7 KB).
+// Bound: as X2, 0.36 ms at the H100 SXM's published bf16 tensor-core peak
+// (2 * n * k^2 * S_h * S_w in-frame products), on 2 x 59 MB of bf16 input.
+//
 // Every entry point launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() after its launches.
 
@@ -139,13 +154,6 @@ __device__ __forceinline__ void product(const __nv_bfloat16* __restrict__ As,
         acc[p][q] = fmaf(a[p].y, b[q].y, acc[p][q]);
       }
   }
-}
-
-// A refused runtime call also sets the thread's last error; clear it so
-// that the next launch's cudaGetLastError() reports that launch alone.
-inline int refused(cudaError_t err) {
-  cudaGetLastError();
-  return static_cast<int>(err);
 }
 
 // Fills the staged tiles with bf16 1.0 (0x3F80): a product over them adds
@@ -407,6 +415,18 @@ int joint_exp_fwd_v2(const void* x1, const void* x2, float* part,
     joint_reduce_kernel<<<blocks, kThreads, 0, stream>>>(part, out, splits, k,
                                                          t, 1);
   return static_cast<int>(cudaGetLastError());
+}
+
+// X7: x1, x2 (n, k, h, w) bf16 contiguous; part (splits, kT, kT) f32
+// scratch; out (k, k, T, T) f32. The (n, y) rows are cut into `splits`
+// chunks of `rows_per_chunk` rows, a multiple of rb.
+int joint_exp_fwd_v8(const void* x1, const void* x2, float* part, float* out,
+                     int n, int k, int h, int w, int half_t, int splits,
+                     int rows_per_chunk, cudaStream_t stream) {
+  return launch_joint_fwd<__nv_bfloat16>(
+      static_cast<const __nv_bfloat16*>(x1),
+      static_cast<const __nv_bfloat16*>(x2), part, out, n, k, h, w, half_t,
+      splits, rows_per_chunk, stream);
 }
 
 // X1: part (splits, tk, tk) f32 scratch; out (tk, tk) f32. passes_total

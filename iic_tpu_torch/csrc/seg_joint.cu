@@ -31,8 +31,10 @@
 // block (bx, by, s) owns a 64x64 output tile and the s-th chunk of
 // (n, y) rows, and writes its partial sum to part[s]. A second kernel adds
 // the partials in a fixed order (deterministic; no atomics) and writes the
-// (k, k, T, T) layout (joint_common.cuh, shared with joint_exp.cu). Inside a block it is a plain shared-memory SGEMM:
-// 16-wide k-steps along q, 256 threads, 4x4 register micro-tiles.
+// (k, k, T, T) layout. Inside a block it is a plain shared-memory SGEMM:
+// 16-wide k-steps along q, 256 threads, 4x4 register micro-tiles. The
+// kernel lives in joint_common.cuh, templated on the input type: X7
+// (joint_exp.cu) is the same kernel on bf16 inputs.
 //
 // K2 design. Output-stationary: block (bx, by, z) owns a 32-row x (8*PX)-col
 // tile of one image and KM output channels, so no reduction crosses blocks
@@ -53,99 +55,6 @@
 #include "joint_common.cuh"
 
 namespace {
-
-// ------------------------------------------------------------------- K1
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;
-constexpr int PAD = 4;  // keeps float4 rows aligned; spreads store banks
-
-__global__ void __launch_bounds__(kThreads)
-joint_partial_kernel(const float* __restrict__ x1,
-                     const float* __restrict__ x2,
-                     float* __restrict__ part,
-                     int k, int h, int w, int half_t,
-                     int rows_total, int rows_per_chunk) {
-  const int t = 2 * half_t + 1;
-  const int tk = k * t;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int r_begin = blockIdx.z * rows_per_chunk;
-  const int r_end = min(r_begin + rows_per_chunk, rows_total);
-  const size_t plane = static_cast<size_t>(h) * w;
-
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
-
-  // Loader role: each thread fills 4 rows of each tile at one k-offset.
-  // Sixteen neighbouring threads read sixteen neighbouring columns.
-  const int kk = tid % BK;
-  const int lr = tid / BK;  // 0..15
-  size_t a_off[4], b_off[4];
-  int a_shift[4], b_shift[4];
-  bool a_ok[4], b_ok[4];
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const int m = m0 + lr + 16 * l;
-    a_ok[l] = m < tk;
-    a_off[l] = static_cast<size_t>(stack_chan(m, tk, k)) * plane;
-    a_shift[l] = a_shift_of(m, tk, k, half_t);
-    const int nn = n0 + lr + 16 * l;
-    b_ok[l] = nn < tk;
-    b_off[l] = static_cast<size_t>(stack_chan(nn, tk, k)) * plane;
-    b_shift[l] = b_shift_of(nn, tk, k, half_t);
-  }
-
-  // Compute role: a 4x4 micro-tile, rows tr*4.., cols tc*4..
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-  for (int r = r_begin; r < r_end; ++r) {
-    const int img = r / h;
-    const int y = r - img * h;
-    const float* x1n = x1 + static_cast<size_t>(img) * k * plane
-                       + static_cast<size_t>(y) * w;
-    const float* x2n = x2 + static_cast<size_t>(img) * k * plane;
-    for (int q0 = 0; q0 < w; q0 += BK) {
-      const int q = q0 + kk;
-      const bool q_ok = q < w;
-#pragma unroll
-      for (int l = 0; l < 4; ++l) {
-        const int col = q + a_shift[l];
-        float av = 0.f;
-        if (a_ok[l] && q_ok && col >= 0 && col < w) av = x1n[a_off[l] + col];
-        As[kk][lr + 16 * l] = av;
-        const int row = y + b_shift[l];
-        float bv = 0.f;
-        if (b_ok[l] && q_ok && row >= 0 && row < h)
-          bv = x2n[b_off[l] + static_cast<size_t>(row) * w + q];
-        Bs[kk][lr + 16 * l] = bv;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kq = 0; kq < BK; ++kq) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kq][tr * 4]);
-        const float4 b4 = *reinterpret_cast<const float4*>(&Bs[kq][tc * 4]);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
-      }
-      __syncthreads();
-    }
-  }
-
-  store_partial(part, tk, m0 + tr * 4, n0 + tc * 4, 1, acc);
-}
 
 // ------------------------------------------------------------------- K2
 
@@ -266,17 +175,8 @@ extern "C" {
 int seg_joint_fwd(const float* x1, const float* x2, float* part, float* out,
                   int n, int k, int h, int w, int half_t, int splits,
                   int rows_per_chunk, cudaStream_t stream) {
-  const int t = 2 * half_t + 1;
-  const int tk = k * t;
-  dim3 grid((tk + BN - 1) / BN, (tk + BM - 1) / BM, splits);
-  joint_partial_kernel<<<grid, kThreads, 0, stream>>>(
-      x1, x2, part, k, h, w, half_t, n * h, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int outs = tk * tk;
-  joint_reduce_kernel<<<(outs + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(part, out, splits, k, t, 1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_joint_fwd<float>(x1, x2, part, out, n, k, h, w, half_t,
+                                 splits, rows_per_chunk, stream);
 }
 
 // K2: g2d (kT, kT) f32 with g2d[(v,i),(u,j)] = g[i,j,u,v]; other and dx

@@ -1,12 +1,18 @@
-"""Forward probes of the displacement-joint experiment tool: the CUDA
-kernels X2 (joint forward with bf16 operands, and its ablations) and X1 (the
-stack-product probe), with their plain PyTorch versions.
+"""Kernels of the displacement-joint experiment tool, with their plain
+PyTorch versions: the forward probes X2 (joint forward with bf16 operands,
+and its ablations), X1 (the stack-product probe) and X7 (the joint forward
+with bf16 operands on K1's kernel), and the backward probes X8 (input
+gradient with bf16 operands) and X9 (both input gradients in one launch,
+each per-displacement partial rounded to bf16).
 
-Replaces two kernels of ``tools/joint_kernel_exp.py``: X2 replaces
+Replaces five kernels of ``tools/joint_kernel_exp.py``: X2 replaces
 ``_joint_kernel_v2`` (launched by ``joint_fwd_v2``), X1 ``_mm_probe_kernel``
-(launched by ``mm_probe``). The kernels' source, with the note on what bounds
-them on the H100, how their design answers it and the exact definition of
-each mode, is ``iic_tpu_torch/csrc/joint_exp.cu``.
+(``mm_probe``), X7 ``_joint_kernel_v8`` (``joint_fwd_v8``), X8
+``_dgrad_kernel_v8`` (``dgrad_v8``, called twice by ``bwd_v8``) and X9
+``_dgrad_kernel_v7`` (``dgrad_fused_v7``). The kernels' sources, with the
+note on what bounds them on the H100, how their design answers it and the
+exact definition of each mode, are ``iic_tpu_torch/csrc/joint_exp.cu``
+(X1, X2, X7) and ``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9).
 
 Where the TPU tool leaves an output undefined, the port defines it: the TPU
 ``mm-only`` and ``mm_probe`` multiply uninitialised scratch, ``copies-only``
@@ -24,12 +30,15 @@ tensors it launches its kernel or raises; it never falls back.
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from iic_tpu_torch.ops.kernels import _build
+from iic_tpu_torch.ops.kernels import seg_joint as sj
 from iic_tpu_torch.ops.kernels.seg_joint import displacement_joint_dense
 
 # Launches of each kernel, counted where the wrapper launches it.
-LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0}
+LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
+            "dgrad_v8": 0, "dgrad_fused_v7": 0}
 
 MODES = ("full", "rank3", "mm-only", "copies-only", "aligned-copies")
 FORMS = ("mk-nk", "mk-kn")
@@ -39,9 +48,10 @@ _MODE_IDS = {"full": 0, "rank3": 0, "mm-only": 1, "copies-only": 2,
 _WL = 128        # the TPU tool's lane width: X1's row tiles are rb x 128
 _TILE = 64       # output tile edge (csrc/joint_exp.cu TILE)
 _BQ = 8          # image columns per shared-memory pass (BQ)
-# Shared memory a block may use on the H100, less the kernel's 1.5 KB of
-# static tables
-_SMEM_LIMIT = 232448 - 1536
+_SMEM_BLOCK = 232448  # shared memory a block may use on the H100
+# X2's limit: less its kernel's 1.5 KB of static tables
+_SMEM_LIMIT = _SMEM_BLOCK - 1536
+_V7_ROWS = 16  # X9's tile rows (csrc/joint_exp_bwd.cu V7_ROWS; the TPU _RB)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
 
 
@@ -57,19 +67,73 @@ def stage_bytes(rb, form="mk-nk"):
     return a + (2 * _BQ * rb * (_TILE + 2) if form == "mk-kn" else a)
 
 
+def _check_shift(half_t, rb):
+    """The TPU tool's asserts: 2*half_t <= 128 and 2*half_t <= 2*rb."""
+    if rb < 1 or not (2 * half_t <= _WL and 2 * half_t <= 2 * rb):
+        raise ValueError(f"half_t={half_t}, rb={rb}: need rb >= 1, "
+                         f"2*half_t <= {_WL} and 2*half_t <= 2*rb")
+
+
 def check_args(half_t, rb, form="mk-nk"):
     """The TPU tool's asserts (2*half_t <= 128 and 2*half_t <= 2*rb) and
     this card's limit: one pass of rb rows must fit a block's shared
     memory."""
     if form not in FORMS:
         raise ValueError(f"form {form!r}: expected one of {FORMS}")
-    if rb < 1 or not (2 * half_t <= _WL and 2 * half_t <= 2 * rb):
-        raise ValueError(f"half_t={half_t}, rb={rb}: need rb >= 1, "
-                         f"2*half_t <= {_WL} and 2*half_t <= 2*rb")
+    _check_shift(half_t, rb)
     if stage_bytes(rb, form) > _SMEM_LIMIT:
         raise ValueError(f"rb={rb}: a pass needs {stage_bytes(rb, form)} "
                          f"bytes of shared memory, over the {_SMEM_LIMIT} a "
                          f"block can use")
+
+
+def _tiles(k):
+    """(KM, PX) of X8 and of X9 (csrc/joint_exp_bwd.cu): output channels
+    per block and pixels per thread."""
+    return ((4, 8), (4, 16)) if k <= 4 else ((16, 4), (16, 4))
+
+
+def dgrad_v8_smem(k, half_t, rb):
+    """X8's dynamic shared memory: the bf16 adjoint chunk (T, T, KM) and
+    the bf16 patch (rb + 2h) x (256/rb * PX + 2h)."""
+    (km, px), _ = _tiles(k)
+    t = 2 * half_t + 1
+    return 2 * (t * t * km + (rb + 2 * half_t) * (256 // rb * px
+                                                   + 2 * half_t))
+
+
+def fused_v7_smem(k, half_t):
+    """X9's dynamic shared memory: one adjoint column (k, T, KM) and all k
+    patches (16 + 2h) x (8 PX + 2h), bf16."""
+    _, (km, px) = _tiles(k)
+    t = 2 * half_t + 1
+    return 2 * k * (t * km + (_V7_ROWS + 2 * half_t) * (8 * px
+                                                        + 2 * half_t))
+
+
+def _check_smem(name, need):
+    if need > _SMEM_BLOCK:
+        raise ValueError(f"{name}: a block needs {need} bytes of shared "
+                         f"memory, over the {_SMEM_BLOCK} a block can use")
+
+
+def check_dgrad_v8(k, half_t, rb):
+    """X8's limits: the TPU tool's asserts, rb tile rows dividing the
+    block's 256 threads, and the block's shared memory."""
+    _check_shift(half_t, rb)
+    if 256 % rb:
+        raise ValueError(f"rb={rb}: X8's tile rows must divide 256")
+    _check_smem(f"dgrad_v8 k={k} half_t={half_t} rb={rb}",
+                dgrad_v8_smem(k, half_t, rb))
+
+
+def check_fused_v7(k, half_t):
+    """X9's limits: the TPU tool's assert (2*half_t <= 128; its rb is fixed
+    at 16) and the block's shared memory, which grows with k."""
+    if not 0 <= 2 * half_t <= _WL:
+        raise ValueError(f"half_t={half_t}: need 2*half_t <= {_WL}")
+    _check_smem(f"dgrad_fused_v7 k={k} half_t={half_t}",
+                fused_v7_smem(k, half_t))
 
 
 def row_window(h, half_t, rb):
@@ -148,6 +212,57 @@ def joint_fwd_v2_plain(x1, x2, half_t, mode="full", rb=16):
     return displacement_joint_dense(a, b, half_t)
 
 
+def joint_fwd_v8_plain(x1, x2, half_t, rb=16):
+    """Plain version of X7: the joint of x1, x2 rounded to bf16, f32
+    accumulation, X2 ``full``'s plain version; ``rb`` changes only the
+    kernel's summation order."""
+    return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
+
+
+def dgrad_v8_plain(g2d, other, half_t):
+    """Plain version of X8: K2's plain version on the bf16-rounded adjoint
+    and input, dx[n,i,y,x] = sum_{j,u,v} G[(v,i),(u,j)] *
+    other[n,j,y-u+h,x-v+h] in f32 (f64 for f64 ``other``)."""
+    o = _bf16_values(other)
+    return sj.dgrad_plain(_bf16_values(g2d).to(o.dtype), o, half_t)
+
+
+def _dgrad_rounded_partials(g2d, other, half_t):
+    """sum_v bf16(p_v), p_v[n,i,y,x] = sum_{u,j} G[(v,i),(u,j)] *
+    other[n,j,y-u+h,x-v+h] with G and ``other`` rounded to bf16, summed in
+    v order. p_v is one conv with column 2h - v of the flipped adjoint,
+    padded by (h, 0), shifted in x by h - v. With f64 input the partials
+    are f64 and are rounded to bf16 too."""
+    o = _bf16_values(other)
+    w = o.shape[3]
+    k = o.shape[1]
+    t = 2 * half_t + 1
+    gf = (_bf16_values(g2d).to(o.dtype).reshape(t, k, t, k)
+          .permute(1, 3, 2, 0).flip(2, 3))  # [i, j, 2h-u, 2h-v]
+    dx = torch.zeros_like(o)
+    with sj.full_f32():
+        for v in range(t):
+            col = gf[:, :, :, 2 * half_t - v:2 * half_t - v + 1].contiguous()
+            c = F.conv2d(o, col, padding=(half_t, 0))
+            d = half_t - v  # p_v[..., x] = c[..., x + d], zero outside
+            p = torch.zeros_like(c)
+            lo, hi = max(0, -d), min(w, w - d)
+            if lo < hi:
+                p[..., lo:hi] = c[..., lo + d:hi + d]
+            dx += _bf16_values(p)
+    return dx
+
+
+def dgrad_fused_v7_plain(g, x1, x2, half_t):
+    """Plain version of X9: (dx1, dx2) for the joint cotangent g (k,k,T,T),
+    each the sum over v of its bf16-rounded per-displacement partials (see
+    ``_dgrad_rounded_partials``), dx1 on x2 and the adjoint, dx2 on x1 and
+    the swapped adjoint (``seg_joint.adjoints``)."""
+    g2d, g2d_swap = sj.adjoints(g)
+    return (_dgrad_rounded_partials(g2d, x2, half_t),
+            _dgrad_rounded_partials(g2d_swap, x1, half_t))
+
+
 def mm_probe_plain(n, k, h, half_t, rb, device):
     """Plain version of X1: its (kT, kT) product of tiles of ones, every
     entry the count of terms issued, n * (t_hi - t_lo) * rb * 128 (exact in
@@ -167,6 +282,20 @@ def _lib():
         lib.joint_exp_fwd_v2.restype = i
         lib.joint_exp_mm_probe.argtypes = [p, p] + [i] * 6 + [p]
         lib.joint_exp_mm_probe.restype = i
+        lib.joint_exp_fwd_v8.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.joint_exp_fwd_v8.restype = i
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib():
+    lib = _build.library("joint_exp_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.joint_exp_dgrad_v8.argtypes = [p, p, p] + [i] * 6 + [p]
+        lib.joint_exp_dgrad_v8.restype = i
+        lib.joint_exp_dgrad_fused_v7.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.joint_exp_dgrad_fused_v7.restype = i
         lib._typed = True
     return lib
 
@@ -174,6 +303,18 @@ def _lib():
 def _stream(device):
     with torch.cuda.device(device):
         return torch.cuda.current_stream().cuda_stream
+
+
+def _on_cuda(name, *xs):
+    """False for tensors all on the CPU (the plain version's case), True
+    for tensors all on one CUDA device; raises for anything else."""
+    if all(x.device.type == "cpu" for x in xs):
+        return False
+    if xs[0].device.type != "cuda" or any(x.device != xs[0].device
+                                          for x in xs):
+        raise ValueError(f"{name}: inputs on "
+                         f"{', '.join(str(x.device) for x in xs)}")
+    return True
 
 
 def _as_bf16(name, x, shape=None):
@@ -196,11 +337,8 @@ def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     check_args(half_t, rb)
-    if x1.device.type == "cpu" and x2.device.type == "cpu":
+    if not _on_cuda("joint_fwd_v2", x1, x2):
         return joint_fwd_v2_plain(x1, x2, half_t, mode, rb)
-    if x1.device.type != "cuda" or x2.device != x1.device:
-        raise ValueError(f"joint_fwd_v2: inputs on {x1.device} and "
-                         f"{x2.device}")
     a = _as_bf16("x1", x1)
     b = _as_bf16("x2", x2, tuple(x1.shape))
     n, k, h, w = x1.shape
@@ -218,6 +356,96 @@ def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
         raise RuntimeError(f"joint_fwd_v2 launch failed: CUDA error {err}")
     LAUNCHES["joint_fwd_v2"] += 1
     return out
+
+
+def _adjoint_bf16(name, g2d, tk):
+    if g2d.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
+                        f"{g2d.dtype}")
+    if tuple(g2d.shape) != (tk, tk):
+        raise ValueError(f"{name}: expected shape {(tk, tk)}, got "
+                         f"{tuple(g2d.shape)}")
+    return g2d.to(torch.bfloat16).contiguous()
+
+
+def joint_fwd_v8(x1, x2, half_t, rb=16):
+    """X7: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w) with
+    both inputs rounded to bf16 and f32 accumulation, on K1's split-K
+    kernel; ``rb`` is the (n, y) row quantum of a split-K chunk."""
+    _check_shift(half_t, rb)
+    if not _on_cuda("joint_fwd_v8", x1, x2):
+        return joint_fwd_v8_plain(x1, x2, half_t, rb)
+    a = _as_bf16("x1", x1)
+    b = _as_bf16("x2", x2, tuple(x1.shape))
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    tk = k * t
+    splits, per = _split(n * h, (-(-tk // _TILE)) ** 2, rb)
+    part = torch.empty((splits, tk, tk), device=x1.device)
+    out = torch.empty((k, k, t, t), device=x1.device)
+    err = _lib().joint_exp_fwd_v8(
+        a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, h,
+        w, half_t, splits, per, _stream(x1.device))
+    if err != 0:
+        raise RuntimeError(f"joint_fwd_v8 launch failed: CUDA error {err}")
+    LAUNCHES["joint_fwd_v8"] += 1
+    return out
+
+
+def dgrad_v8(g2d, other, half_t, rb=16):
+    """X8: the gradient for the column-shifted operand with the adjoint
+    ``g2d`` (kT, kT) and ``other`` (n, k, h, w) rounded to bf16, f32
+    accumulation, in the unpadded frame (``seg_joint.dgrad_plain``'s
+    contract); ``rb`` is the tile rows of a block."""
+    check_dgrad_v8(other.shape[1], half_t, rb)
+    if not _on_cuda("dgrad_v8", g2d, other):
+        return dgrad_v8_plain(g2d, other, half_t)
+    o = _as_bf16("other", other)
+    n, k, h, w = other.shape
+    g = _adjoint_bf16("g2d", g2d, k * (2 * half_t + 1))
+    dx = torch.empty((n, k, h, w), device=other.device)
+    err = _bwd_lib().joint_exp_dgrad_v8(
+        g.data_ptr(), o.data_ptr(), dx.data_ptr(), n, k, h, w, half_t, rb,
+        _stream(other.device))
+    if err != 0:
+        raise RuntimeError(f"dgrad_v8 launch failed: CUDA error {err}")
+    LAUNCHES["dgrad_v8"] += 1
+    return dx
+
+
+def bwd_v8(g, x1, x2, half_t, rb=16):
+    """dx1, dx2 of the joint for the cotangent g (k, k, T, T): X8 on the two
+    reordered adjoints (the TPU tool's ``bwd_v8``)."""
+    g2d, g2d_swap = sj.adjoints(g)
+    return (dgrad_v8(g2d, x2, half_t, rb),
+            dgrad_v8(g2d_swap, x1, half_t, rb))
+
+
+def dgrad_fused_v7(g, x1, x2, half_t):
+    """X9: (dx1, dx2) of the joint for the cotangent g (k, k, T, T) in one
+    launch, with g, x1 and x2 rounded to bf16 and each per-displacement
+    partial rounded to bf16 before the f32 sum over v."""
+    check_fused_v7(x1.shape[1], half_t)
+    if not _on_cuda("dgrad_fused_v7", g, x1, x2):
+        return dgrad_fused_v7_plain(g, x1, x2, half_t)
+    a = _as_bf16("x1", x1)
+    b = _as_bf16("x2", x2, tuple(x1.shape))
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    if tuple(g.shape) != (k, k, t, t):
+        raise ValueError(f"g: expected shape {(k, k, t, t)}, got "
+                         f"{tuple(g.shape)}")
+    g1, g2 = (_adjoint_bf16("g", m, k * t) for m in sj.adjoints(g))
+    dx1 = torch.empty((n, k, h, w), device=x1.device)
+    dx2 = torch.empty_like(dx1)
+    err = _bwd_lib().joint_exp_dgrad_fused_v7(
+        g1.data_ptr(), g2.data_ptr(), a.data_ptr(), b.data_ptr(),
+        dx1.data_ptr(), dx2.data_ptr(), n, k, h, w, half_t,
+        _stream(x1.device))
+    if err != 0:
+        raise RuntimeError(f"dgrad_fused_v7 launch failed: CUDA error {err}")
+    LAUNCHES["dgrad_fused_v7"] += 1
+    return dx1, dx2
 
 
 def probe_passes(n, h, half_t, rb):

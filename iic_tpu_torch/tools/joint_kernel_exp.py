@@ -1,5 +1,6 @@
 """Experiments on the displacement-joint kernels (``tools/joint_kernel_exp.py``
-of the JAX package), for the runs whose kernels are ported: X1 and X2.
+of the JAX package), for the runs whose kernels are ported: X1, X2, X7, X8
+and X9.
 
     python -m iic_tpu_torch.tools.joint_kernel_exp [only] [n k h half_t] \\
         [--device cpu]
@@ -16,19 +17,27 @@ every kernel wrapper takes its plain version.
   ablate     X2 for rb in (16, 32, 64) x modes (full, mm-only, copies-only,
              rank3).
   mmprobe    X1 for rb in (16, 32) x forms (mk-nk, mk-kn).
+  v8         for rb in (16, 32, 64): X7 ("V8 fwd") and the backward as two
+             X8 launches ("V8 bwd", ``bwd_v8``).
+  v7         X9 ("V7 fused bwd": dx1 and dx2 in one launch, each
+             per-displacement partial rounded to bf16), then the backward
+             as two K2 launches ("E1 pallas-cur bwd(dx1+dx2)").
 
 Inputs are softmax maps from ``torch.randn`` under seed 0 on the device, and
 a normal cotangent g (k, k, T, T). The TPU tool's reference is the FFT joint
 and its vjp, which the port does not have (ROADMAP "Not ported"); the
 reference here is the plain conv (``seg_joint.displacement_joint_dense`` and
 ``dgrad_plain``) in float64. Errors are max |got - ref| / max |ref|, and
-max |P - plain| for the ablations that are exact. Times are CUDA events
+max |P - plain| for the ablations that are exact; V7 also reports
+mean |dx - ref| / mean |ref| against its own plain version in float64
+(the per-displacement partials rounded to bf16 from float64), the
+criterion that tells its rounding apart from X8's. Times are CUDA events
 around 20 calls after one warm-up, as the TPU tool's ``time_fn`` (the host
 clock with ``--device cpu``). As in the TPU tool, a variant that raises
 prints a ``FAILED`` line. ``main`` also returns each variant's record.
 
-The runs v3, v4, v5, v6, v7, v8 and kpad need kernels X3-X9, which are not
-ported yet: they raise ``NotImplementedError``.
+The runs v3, v4, v5, v6 and kpad need kernels X3-X6, which are not ported
+yet: they raise ``NotImplementedError``.
 """
 
 import sys
@@ -45,8 +54,6 @@ DEFAULT_SIZE = (120, 15, 128, 10)
 # run -> the kernels it needs (ROADMAP queue 2)
 WAITING = {"v3": "X3 (joint_fwd_v3)", "v4": "X4 (joint_fwd_v4)",
            "v5": "X5 (joint_fwd_v5)", "v6": "X6 (joint_fwd_v6)",
-           "v7": "X9 (dgrad_fused_v7)",
-           "v8": "X7 and X8 (joint_fwd_v8, dgrad_v8)",
            "kpad": "X5 (joint_fwd_v5)"}
 
 
@@ -148,6 +155,12 @@ def _variant(records, name, fn, args, check, cuda):
     records.append(rec)
 
 
+def mean_rel_err(got, ref):
+    """mean |got - ref| / mean |ref|."""
+    ref = ref.double()
+    return float((got.double() - ref).abs().mean() / ref.abs().mean())
+
+
 def _exact(got, ref):
     return {"max |P - plain|": float((got - ref).abs().max())}
 
@@ -189,18 +202,28 @@ def run_ablate(x1, x2, half_t, P_ref):
     return records
 
 
+def _grad_refs(x1, x2, g, half_t):
+    """dx1, dx2 of the joint in float64: K2's plain version on the two
+    reordered adjoints."""
+    g2d, g2d_swap = sj.adjoints(g)
+    return (sj.dgrad_plain(g2d.double(), x2.double(), half_t),
+            sj.dgrad_plain(g2d_swap.double(), x1.double(), half_t))
+
+
+def _grad_errs(dx1_ref, dx2_ref):
+    return lambda dx: {"dx1 rel err": rel_err(dx[0], dx1_ref),
+                       "dx2 rel err": rel_err(dx[1], dx2_ref)}
+
+
 def run_default(x1, x2, g, half_t, P_ref):
     cuda = x1.device.type == "cuda"
     records = []
-    g2d, g2d_swap = sj.adjoints(g)
-    dx1_ref = sj.dgrad_plain(g2d.double(), x2.double(), half_t)
-    dx2_ref = sj.dgrad_plain(g2d_swap.double(), x1.double(), half_t)
+    check = _grad_errs(*_grad_refs(x1, x2, g, half_t))
     for name, fn in (("conv-f32", bwd_conv), ("conv-bf16", bwd_conv_bf16),
                      ("pallas-cur", bwd_k2)):
         _variant(records, f"E1 {name} bwd(dx1+dx2)", fn, (x1, x2, g, half_t),
-                 lambda dx: {"dx1 rel err": rel_err(dx[0], dx1_ref),
-                             "dx2 rel err": rel_err(dx[1], dx2_ref)}, cuda)
-    del dx1_ref, dx2_ref
+                 check, cuda)
+    del check
     _variant(records, "E2 bf16 fwd (X2)", jx.joint_fwd_v2, (x1, x2, half_t),
              _rel(P_ref), cuda)
     _variant(records, "E0 pallas-cur fwd", sj.joint_fwd, (x1, x2, half_t),
@@ -212,16 +235,50 @@ def run_default(x1, x2, g, half_t, P_ref):
     return records
 
 
+def run_v8(x1, x2, g, half_t, P_ref):
+    cuda = x1.device.type == "cuda"
+    records = []
+    check = _grad_errs(*_grad_refs(x1, x2, g, half_t))
+    for rb in (16, 32, 64):
+        _variant(records, f"V8 fwd rb={rb:2d}", jx.joint_fwd_v8,
+                 (x1, x2, half_t, rb), _rel(P_ref), cuda)
+        _variant(records, f"V8 bwd rb={rb:2d}", jx.bwd_v8,
+                 (g, x1, x2, half_t, rb), check, cuda)
+    return records
+
+
+def run_v7(x1, x2, g, half_t):
+    cuda = x1.device.type == "cuda"
+    records = []
+    dx1_ref, dx2_ref = _grad_refs(x1, x2, g, half_t)
+    r1, r2 = jx.dgrad_fused_v7_plain(g.double(), x1.double(), x2.double(),
+                                     half_t)
+
+    def check_v7(dx):
+        return {"dx1 rel err": rel_err(dx[0], dx1_ref),
+                "dx2 rel err": rel_err(dx[1], dx2_ref),
+                "dx1 mean err vs v7 plain": mean_rel_err(dx[0], r1),
+                "dx2 mean err vs v7 plain": mean_rel_err(dx[1], r2)}
+
+    _variant(records, "V7 fused bwd", jx.dgrad_fused_v7, (g, x1, x2, half_t),
+             check_v7, cuda)
+    del r1, r2
+    _variant(records, "E1 pallas-cur bwd(dx1+dx2)", bwd_k2,
+             (x1, x2, g, half_t), _grad_errs(dx1_ref, dx2_ref), cuda)
+    return records
+
+
 def main(argv=None, device=None):
-    """Runs ``only`` (default, ablate or mmprobe) and returns its records,
-    one per variant: {"name", "ms", "errs": {label: value}, "failed"}."""
+    """Runs ``only`` (default, ablate, mmprobe, v8 or v7) and returns its
+    records, one per variant: {"name", "ms", "errs": {label: value},
+    "failed"}."""
     only, (n, k, h, half_t), dev_arg = _parse(
         sys.argv[1:] if argv is None else argv)
     if only in WAITING:
         raise NotImplementedError(
             f"the {only!r} run needs {WAITING[only]}, not ported yet "
             f"(ROADMAP queue 2)")
-    if only not in (None, "ablate", "mmprobe"):
+    if only not in (None, "ablate", "mmprobe", "v8", "v7"):
         raise ValueError(f"unknown run {only!r}")
     device = resolve_device(device or dev_arg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -232,9 +289,13 @@ def main(argv=None, device=None):
     if only == "mmprobe":
         return run_mmprobe(n, k, h, half_t, device)
     x1, x2, g = _inputs(n, k, h, half_t, device)
+    if only == "v7":
+        return run_v7(x1, x2, g, half_t)
     P_ref = sj.displacement_joint_dense(x1.double(), x2.double(), half_t)
     if only == "ablate":
         return run_ablate(x1, x2, half_t, P_ref)
+    if only == "v8":
+        return run_v8(x1, x2, g, half_t, P_ref)
     return run_default(x1, x2, g, half_t, P_ref)
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels K1 / K2 (displacement joint), K3 (fused
-clustering IID loss) and X1 / X2 (the experiment tool's stack-product probe
-and bf16 joint forward) on the card, against their plain PyTorch versions.
+clustering IID loss), X1 / X2 / X7 (the experiment tool's stack-product
+probe and bf16 joint forwards) and X8 / X9 (its bf16 input gradients) on
+the card, against their plain PyTorch versions.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -224,6 +225,7 @@ def test_k3_refuses_what_it_cannot_launch(gpu):
     assert err != 0
 
 
+_NO_LAUNCH = dict.fromkeys(jx.LAUNCHES, 0)
 X2_SHAPES = [(2, 3, 3, 8, 8), (3, 2, 5, 16, 16), (2, 2, 3, 10, 7),
              (10, 4, 15, 128, 128), (10, 3, 3, 128, 96), (4, 1, 17, 40, 33)]
 
@@ -263,7 +265,7 @@ def test_x2_rb_and_input_type(gpu):
     x2 = torch.from_numpy(_maps(rng, 3, 7, 64, 64)).to(gpu)
     jx.reset_launch_counts()
     outs = [jx.joint_fwd_v2(x1, x2, 10, rb=rb) for rb in (16, 32, 64)]
-    assert jx.LAUNCHES == {"joint_fwd_v2": 3, "mm_probe": 0}
+    assert jx.LAUNCHES == {**_NO_LAUNCH, "joint_fwd_v2": 3}
     for o in outs[1:]:
         torch.testing.assert_close(o, outs[0], rtol=1e-5,
                                    atol=1e-6 * float(outs[0].abs().max()))
@@ -294,7 +296,7 @@ def test_x1_counts_the_terms(gpu, form, n, k, h, half_t, rb):
                                      - jx.row_window(h, half_t, rb)[0]) \
         * rb * 128
     assert torch.equal(out, want)
-    assert jx.LAUNCHES == {"joint_fwd_v2": 0, "mm_probe": 1}
+    assert jx.LAUNCHES == {**_NO_LAUNCH, "mm_probe": 1}
 
 
 @pytest.mark.cuda
@@ -325,3 +327,111 @@ def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     assert lib.joint_exp_fwd_v2(*args, 128, 0, 1, 16, stream) != 0
     assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 128,
                                   0, 1, 1, 1, stream) != 0
+
+
+def _inputs(seed, half_t, n, k, h, w, gpu):
+    rng = np.random.default_rng(seed)
+    t = 2 * half_t + 1
+    x1 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    x2 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    g = torch.from_numpy(rng.standard_normal((k, k, t, t))
+                         .astype(np.float32)).to(gpu)
+    return x1, x2, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb", [16, 32, 64])
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
+def test_x7_x8_match_plain(gpu, half_t, n, k, h, w, rb):
+    """X7 (joint) and X8 (dx1, dx2 through ``bwd_v8``) vs their plain
+    versions at each rb: the same bf16 operands and exact products, so only
+    the f32 summation order differs: rtol 1e-4, atol 2e-5 * max."""
+    x1, x2, g = _inputs(half_t + k, half_t, n, k, h, w, gpu)
+    jx.reset_launch_counts()
+    pairs = [(jx.joint_fwd_v8(x1, x2, half_t, rb),
+              jx.joint_fwd_v8_plain(x1, x2, half_t, rb))]
+    g2d, g2d_swap = sj.adjoints(g)
+    dx1, dx2 = jx.bwd_v8(g, x1, x2, half_t, rb)
+    pairs += [(dx1, jx.dgrad_v8_plain(g2d, x2, half_t)),
+              (dx2, jx.dgrad_v8_plain(g2d_swap, x1, half_t))]
+    assert jx.LAUNCHES == {**_NO_LAUNCH, "joint_fwd_v8": 1, "dgrad_v8": 2}
+    for got, ref in pairs:
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        ref = ref.cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                                   atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+def test_x8_tile_rows_and_input_type(gpu):
+    """Every rb that divides 256 and holds the shifts gives X8 exactly the
+    same gradient: rb moves the tiles, and each pixel's sum runs over
+    (j, v, u) in the same order in every tile; bf16 inputs give exactly
+    what their f32 originals give."""
+    x1, x2, g = _inputs(3, 2, 2, 5, 40, 36, gpu)
+    g2d, _ = sj.adjoints(g)
+    outs = [jx.dgrad_v8(g2d, x2, 2, rb) for rb in (2, 4, 8, 16, 32, 64, 128)]
+    for o in outs[1:]:
+        assert torch.equal(o, outs[0])
+    assert torch.equal(jx.dgrad_v8(g2d.bfloat16(), x2.bfloat16(), 2, 16),
+                       outs[3])
+
+
+def _mean_max(got, ref):
+    d = (got.double() - ref.double()).abs()
+    return (float(d.mean() / ref.double().abs().mean()),
+            float(d.max() / ref.double().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
+def test_x9_matches_plain(gpu, half_t, n, k, h, w):
+    """X9 (one launch, dx1 and dx2) vs its plain version: each p_v is
+    rounded to bf16, and a last-bit difference in the f32 partial can move
+    it across a rounding boundary, so the criterion is mean |d| / mean |ref|
+    <= 1e-5 and max |d| <= 2e-3 * max |ref|. X8's unrounded pair fails the
+    mean criterion: the check sees a lost rounding."""
+    x1, x2, g = _inputs(half_t + 2 * k, half_t, n, k, h, w, gpu)
+    jx.reset_launch_counts()
+    got = jx.dgrad_fused_v7(g, x1, x2, half_t)
+    assert jx.LAUNCHES == {**_NO_LAUNCH, "dgrad_fused_v7": 1}
+    ref = jx.dgrad_fused_v7_plain(g, x1, x2, half_t)
+    unrounded = jx.bwd_v8(g, x1, x2, half_t)
+    for a, r, u in zip(got, ref, unrounded):
+        assert a.shape == r.shape == (n, k, h, w)
+        mean, mx = _mean_max(a, r)
+        assert mean <= 1e-5 and mx <= 2e-3, (mean, mx)
+        assert _mean_max(u, r)[0] > 1e-4
+
+
+@pytest.mark.cuda
+def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
+    """Bad input raises before a launch; rb that does not divide 256 and
+    shared memory over the block's limit are refused on every device; a
+    launch the C entry point refuses returns a CUDA error code."""
+    x = torch.rand(2, 3, 8, 8, device=gpu)
+    g = torch.rand(3, 3, 5, 5, device=gpu)
+    g2d, _ = sj.adjoints(g)
+    with pytest.raises(TypeError):
+        jx.joint_fwd_v8(x.double(), x.double(), 2)
+    with pytest.raises(ValueError):
+        jx.joint_fwd_v8(x, x.cpu(), 2)
+    with pytest.raises(ValueError):
+        jx.dgrad_v8(g2d[:4], x, 2)
+    with pytest.raises(TypeError):
+        jx.dgrad_v8(g2d.double(), x, 2)
+    with pytest.raises(ValueError, match="divide 256"):
+        jx.dgrad_v8(g2d, x, 2, rb=24)
+    with pytest.raises(ValueError):
+        jx.dgrad_fused_v7(g[:2], x, x, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.dgrad_fused_v7(torch.rand(64, 64, 21, 21, device=gpu),
+                          torch.rand(1, 64, 8, 8, device=gpu),
+                          torch.rand(1, 64, 8, 8, device=gpu), 10)
+    lib = jx._bwd_lib()
+    xb = x.bfloat16()
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.joint_exp_dgrad_v8(g2d.bfloat16().data_ptr(), xb.data_ptr(),
+                                  out.data_ptr(), 2, 3, 8, 8, 2, 24,
+                                  stream) != 0

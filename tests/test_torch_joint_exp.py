@@ -174,7 +174,7 @@ def test_cpu_wrappers_use_plain_and_count_no_launch():
     for mode in jx.MODES:
         jx.joint_fwd_v2(x, x, 2, mode=mode)
     jx.mm_probe(2, 3, 8, 2, 16, "mk-kn", torch.device("cpu"))
-    assert jx.LAUNCHES == {"joint_fwd_v2": 0, "mm_probe": 0}
+    assert set(jx.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("run,variants", [(None, 8), ("ablate", 12),

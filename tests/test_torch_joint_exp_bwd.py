@@ -1,0 +1,251 @@
+"""The port's experiment-tool kernels X7 (bf16 joint forward on K1's
+kernel), X8 (bf16 input gradient) and X9 (fused dx1 + dx2 with each
+per-displacement partial rounded to bf16), as their plain versions on the
+CPU, and the port's ``v8`` and ``v7`` tool runs, against the JAX package's
+``tools/joint_kernel_exp.py``, whose Pallas kernels run in interpret mode
+on the CPU. Inputs are numpy-seeded softmax maps fed to both. The CUDA
+kernels themselves are tested on the card by tests/test_torch_cuda.py."""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iic_tpu_torch.ops.kernels import joint_exp as jx
+from iic_tpu_torch.ops.kernels import seg_joint as sj
+from iic_tpu_torch.tools import joint_kernel_exp as tool
+from test_torch_joint_exp import _softmax_maps, jax_tool
+
+SIZES = [(2, 5, 16, 3), (2, 7, 16, 10)]  # n, k, h, half_t
+# (size, rb) with half_t <= rb, as the TPU tool asserts
+V8_CASES = [(SIZES[0], 4), (SIZES[0], 8), (SIZES[0], 16), (SIZES[1], 16)]
+# X9 against v7: mean |d| / mean |ref| and max |d| / max |ref|
+V7_MEAN, V7_MAX = 1e-5, 2e-3
+
+
+def _inputs(n, k, h, half_t, seed=0):
+    rng = np.random.default_rng(seed + 10 * k + half_t)
+    x1, x2 = _softmax_maps(rng, n, k, h, h), _softmax_maps(rng, n, k, h, h)
+    t = 2 * half_t + 1
+    g = rng.standard_normal((k, k, t, t)).astype(np.float32)
+    return x1, x2, g
+
+
+def _mean_max(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.abs(got - ref)
+    return d.mean() / np.abs(ref).mean(), d.max() / np.abs(ref).max()
+
+
+@pytest.mark.parametrize("size,rb", V8_CASES)
+def test_plain_v8_fwd_matches_jax_tool(size, rb):
+    """Plain X7 vs the TPU tool's ``joint_fwd_v8``: both round x1 and x2 to
+    bf16 and sum exact f32 products, only in another order: atol
+    1e-5 * max |P| (measured 6.5e-7)."""
+    n, k, h, half_t = size
+    x1, x2, _ = _inputs(*size)
+    ref = np.asarray(jax_tool.joint_fwd_v8(jnp.asarray(x1), jnp.asarray(x2),
+                                           half_t, rb=rb))
+    got = jx.joint_fwd_v8(torch.from_numpy(x1), torch.from_numpy(x2), half_t,
+                          rb).numpy()
+    t = 2 * half_t + 1
+    assert got.shape == ref.shape == (k, k, t, t)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("size,rb", V8_CASES)
+def test_plain_v8_bwd_matches_jax_tool(size, rb):
+    """The plain X8 pair (``bwd_v8`` on the CPU) vs the TPU tool's
+    ``bwd_v8``: the same bf16 adjoint and inputs, f32 sums in another
+    order: atol 1e-5 * max |dx| (measured 9e-7)."""
+    n, k, h, half_t = size
+    x1, x2, g = _inputs(*size)
+    refs = jax_tool.bwd_v8(jnp.asarray(g), jnp.asarray(x1), jnp.asarray(x2),
+                           half_t, rb=rb)
+    gots = jx.bwd_v8(*map(torch.from_numpy, (g, x1, x2)), half_t, rb)
+    for got, ref in zip(gots, refs):
+        ref = np.asarray(ref)
+        assert got.shape == ref.shape == (n, k, h, h)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.fixture(scope="module", params=SIZES, ids=str)
+def v7_case(request):
+    """Inputs and the TPU tool's ``dgrad_fused_v7`` (dx1, dx2) at one
+    size, computed once for the tests that hold against it."""
+    n, k, h, half_t = request.param
+    x1, x2, g = _inputs(*request.param, seed=1)
+    ref = jax_tool.dgrad_fused_v7(jnp.asarray(g), jnp.asarray(x1),
+                                  jnp.asarray(x2), half_t)
+    return (x1, x2, g, half_t), tuple(np.asarray(r) for r in ref)
+
+
+def test_plain_v7_matches_jax_tool(v7_case):
+    """Plain X9 vs the TPU tool's v7, which rounds each per-displacement
+    partial to bf16 before summing over v: the two sum the f32 partials in
+    another order, so a partial on a rounding boundary may round the other
+    way (one bf16 step): mean |d| / mean |ref| <= 1e-5 (measured 1.3e-6),
+    max |d| <= 2e-3 max |ref| (measured 7.6e-4)."""
+    (x1, x2, g, half_t), refs = v7_case
+    gots = jx.dgrad_fused_v7(*map(torch.from_numpy, (g, x1, x2)), half_t)
+    for got, ref in zip(gots, refs):
+        assert got.shape == ref.shape
+        mean, mx = _mean_max(got.numpy(), ref)
+        assert mean <= V7_MEAN and mx <= V7_MAX, (mean, mx)
+
+
+def test_unrounded_pair_fails_the_v7_criterion(v7_case):
+    """The X8 pair, which does not round the partials, fails the mean
+    criterion against v7 by two orders of magnitude (measured 1.7e-3): the
+    criterion sees a lost rounding."""
+    (x1, x2, g, half_t), refs = v7_case
+    gots = jx.bwd_v8(*map(torch.from_numpy, (g, x1, x2)), half_t)
+    for got, ref in zip(gots, refs):
+        assert _mean_max(got.numpy(), ref)[0] > 10 * V7_MEAN
+
+
+def test_plain_v7_is_its_definition():
+    """Plain X9 in float64 against its definition written as loops: p_v =
+    sum_{u,j} G[(v,i),(u,j)] other[j, y-u+h, x-v+h] (zero outside the
+    frame), rounded to bf16 from float64, summed over v. The products of
+    bf16 values and their few-term sums are exact in float64."""
+    rng = np.random.default_rng(7)
+    n, k, h, w, half_t = 1, 2, 5, 6, 2
+    t = 2 * half_t + 1
+    x1 = torch.from_numpy(rng.random((n, k, h, w)))
+    x2 = torch.from_numpy(rng.random((n, k, h, w)))
+    g = torch.from_numpy(rng.standard_normal((k, k, t, t)))
+
+    def bf16(a):
+        return torch.as_tensor(a).to(torch.bfloat16).double().numpy()
+
+    def rounded_dgrad(g2d, other):
+        G, o = bf16(g2d.double()), bf16(other)
+        dx = np.zeros((n, k, h, w))
+        for v in range(t):
+            p = np.zeros((n, k, h, w))
+            for i in range(k):
+                for y in range(h):
+                    for x in range(w):
+                        for u in range(t):
+                            for j in range(k):
+                                yy, xx = y - u + half_t, x - v + half_t
+                                if 0 <= yy < h and 0 <= xx < w:
+                                    p[0, i, y, x] += (G[v * k + i, u * k + j]
+                                                      * o[0, j, yy, xx])
+            dx += bf16(p)
+        return dx
+
+    g2d, g2d_swap = sj.adjoints(g)
+    got = jx.dgrad_fused_v7_plain(g, x1, x2, half_t)
+    assert all(d.dtype == torch.float64 for d in got)
+    for d, want in zip(got, (rounded_dgrad(g2d, x2),
+                             rounded_dgrad(g2d_swap, x1))):
+        np.testing.assert_allclose(d.numpy(), want, rtol=1e-12, atol=1e-15)
+    unrounded = jx.dgrad_v8_plain(g2d.double(), x2, half_t).numpy()
+    assert np.abs(got[0].numpy() - unrounded).max() > 0  # rounding is there
+
+
+def test_bwd_v8_is_the_vjp_of_the_bf16_joint():
+    """The plain X8 pair vs autograd of the plain joint of the bf16-rounded
+    inputs for the bf16-rounded cotangent: rtol 1e-4, atol 1e-5 * max
+    (summation order)."""
+    rng = np.random.default_rng(8)
+    half_t = 2
+    x1, x2 = (torch.from_numpy(_softmax_maps(rng, 2, 3, 10, 10))
+              .bfloat16().float().requires_grad_() for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((3, 3, 5, 5)).astype(np.float32))
+    g = g.bfloat16().float()
+    ref = torch.autograd.grad((sj.displacement_joint_dense(x1, x2, half_t)
+                               * g).sum(), (x1, x2))
+    got = jx.bwd_v8(g, x1.detach(), x2.detach(), half_t, 4)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("half_t,rb", [(10, 8), (65, 80), (3, 2)])
+def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
+    """2*half_t <= 128 and 2*half_t <= 2*rb for X7 and X8, as the TPU
+    tool's ``joint_fwd_v8`` and ``dgrad_v8`` assert; X9's rb is fixed, so it
+    refuses only 2*half_t > 128, as ``dgrad_fused_v7`` does."""
+    x = np.ones((1, 2, 8, 8), np.float32)
+    t = 2 * half_t + 1
+    g2d = np.ones((2 * t, 2 * t), np.float32)
+    with pytest.raises(AssertionError):
+        jax_tool.joint_fwd_v8(jnp.asarray(x), jnp.asarray(x), half_t, rb=rb)
+    with pytest.raises(AssertionError):
+        jax_tool.dgrad_v8(jnp.asarray(g2d), jnp.asarray(x), half_t, rb=rb)
+    xt = torch.from_numpy(x)
+    with pytest.raises(ValueError, match="2\\*half_t"):
+        jx.joint_fwd_v8(xt, xt, half_t, rb)
+    with pytest.raises(ValueError, match="2\\*half_t"):
+        jx.dgrad_v8(torch.from_numpy(g2d), xt, half_t, rb)
+    if 2 * half_t > 128:
+        g = np.ones((2, 2, t, t), np.float32)
+        with pytest.raises(AssertionError):
+            jax_tool.dgrad_fused_v7(jnp.asarray(g), jnp.asarray(x),
+                                    jnp.asarray(x), half_t)
+        with pytest.raises(ValueError, match="2\\*half_t"):
+            jx.dgrad_fused_v7(torch.from_numpy(g), xt, xt, half_t)
+
+
+def test_wrappers_refuse_what_the_card_cannot_hold():
+    """X8's tile rows must divide its 256 threads; X8's and X9's shared
+    memory must fit a block's 227 KB (the arithmetic of
+    csrc/joint_exp_bwd.cu's header). Refused before any launch, on every
+    device."""
+    assert jx.dgrad_v8_smem(15, 10, 16) == 2 * (21 * 21 * 16 + 36 * 84)
+    assert jx.fused_v7_smem(15, 10) == 15 * 36 * 52 * 2 + 21 * 15 * 16 * 2
+    assert jx.fused_v7_smem(15, 10) == 66240
+    x = torch.rand(1, 2, 8, 8)
+    g2d = torch.rand(10, 10)
+    with pytest.raises(ValueError, match="divide 256"):
+        jx.dgrad_v8(g2d, x, 2, rb=24)
+    with pytest.raises(ValueError, match="divide 256"):
+        jx.bwd_v8(torch.rand(2, 2, 5, 5), x, x, 2, rb=3)
+    wide = torch.rand(1, 64, 8, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.dgrad_fused_v7(torch.rand(64, 64, 21, 21), wide, wide, 10)
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.dgrad_v8(torch.rand(64 * 129, 64 * 129), wide, 64, 64)
+    with pytest.raises(ValueError):
+        jx.dgrad_fused_v7(torch.rand(2, 2, 5, 5), x, x.to("meta"), 2)
+
+
+def test_cpu_wrappers_use_plain_and_count_no_launch():
+    jx.reset_launch_counts()
+    x = torch.rand(2, 3, 8, 8)
+    g = torch.rand(3, 3, 5, 5)
+    jx.joint_fwd_v8(x, x, 2, 4)
+    jx.bwd_v8(g, x, x, 2, 8)
+    jx.dgrad_fused_v7(g, x, x, 2)
+    assert set(jx.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("run,variants", [("v8", 6), ("v7", 2)])
+def test_tool_backward_runs_on_cpu(capsys, run, variants):
+    """The port's ``v8`` and ``v7`` runs end to end at a tiny size on the
+    plain versions: every variant reports, none FAILED, every time and
+    error is finite; the bf16 variants are within bf16 rounding of the
+    float64 reference, K2 within f32 rounding, and X9 within 1e-5 in the
+    mean of its own plain version in float64."""
+    records = tool.main([run, *map(str, SIZES[1])], device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith(f"joint_kernel_exp {run}: ") \
+        and out[0].endswith("cpu")
+    assert len(out) == 1 + len(records) == 1 + variants, out
+    for rec, line in zip(records, out[1:]):
+        assert rec["failed"] is None and line.startswith(rec["name"]), line
+        assert math.isfinite(rec["ms"]) and rec["errs"], rec
+        for label, err in rec["errs"].items():
+            assert math.isfinite(err), rec
+            if "mean err vs v7 plain" in label:
+                assert err <= V7_MEAN, rec
+            elif rec["name"].startswith("V"):
+                assert err < 1e-2, rec  # bf16 rounding (about 2e-3)
+            else:
+                assert err < 1e-5, rec  # f32 rounding
