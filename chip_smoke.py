@@ -33,30 +33,37 @@ Phases, in order; any failure raises and the exit code is non-zero:
      their plain versions at the same shapes for rb = 16, 32, 64, within
      the JAX contract; their errors against float64; X7's time beside K1's
      and X2's in the same phase; kernel, plain and library times;
-  7. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
+  7. hold X3-X6 (the tool's pipelined v3, v4, v5 and v6 joint forwards)
+     against X2's plain version at the same shapes within the JAX contract:
+     X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb, X6 (f32 inputs,
+     rounded in the kernel) at both roll_build, which must agree bit for
+     bit; each kernel's error against float64; their times beside K1's,
+     X7's and X2's in the same phase; plain and library times;
+  8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
      each per-displacement partial rounded to bf16) against its plain
      version by mean |d| / mean |ref| <= 1e-5 and max |d| <= 2e-3 max |ref|,
      and require X8's unrounded pair to fail that criterion (so the check
      sees a lost rounding); errors against float64; times;
-  8. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
+  9. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
      on SyntheticSeg3x146x480) with --test_code, kernel counts set to 0
      just before; require finite losses, a filled eval history and at
      least 4 K1 and 8 K2 launches;
-  9. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
+ 10. run the two-head sobel clustering CLI (CIFAR10 model 640's flags on
      Synthetic10x32x3, --fused_loss) with --test_code, counts set to 0
      just before; require finite losses for both heads, a pre-train and an
      epoch eval with the double-eval lists, and at least one K3 launch per
      step;
- 10. run the port's experiment tool in-process at its default size (120 15
-     128 10): the default run, ``ablate``, ``mmprobe``, ``v8`` and ``v7``,
-     counts set to 0 just before; from the records the tool returns,
-     require every variant to report, none FAILED, finite times and errors,
-     the exact ablations exact, X9 within 1e-5 mean of its float64 plain
-     version, and at least one launch of X1, X2, X7, X8 and X9;
- 11. profile steady head-A and head-B steps of both paths: step time,
+ 11. run the port's experiment tool in-process at its default size (120 15
+     128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
+     ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
+     before; from the records the tool returns, require every variant to
+     report, none FAILED, finite times and errors, the exact ablations
+     exact, X9 within 1e-5 mean of its float64 plain version, and at least
+     one launch of X1-X9;
+ 12. profile steady head-A and head-B steps of both paths: step time,
      device busy share and device time by kernel, and the kernels' share
      (chrome traces go to --trace_dir when it is given);
- 12. print the kernel table as one JSON line (each kernel's launches on
+ 13. print the kernel table as one JSON line (each kernel's launches on
      its path, max error against its plain version, its time, the plain
      version's, the library call's and the bound), then the result line.
 """
@@ -72,12 +79,17 @@ import time
 N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
 RTOL = 5e-3   # tests/test_pallas_kernels.py:95-96, :119-122
-LIBS = ("seg_joint", "iid_loss", "joint_exp", "joint_exp_bwd")
+LIBS = ("seg_joint", "iid_loss", "joint_exp", "joint_exp_pipe",
+        "joint_exp_bwd")
 SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "seg_joint_dgrad": "iic_tpu_torch/csrc/seg_joint.cu",
            "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu",
            "mm_probe": "iic_tpu_torch/csrc/joint_exp.cu",
            "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu",
+           "joint_fwd_v3": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v4": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v5": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v6": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
            "joint_fwd_v8": "iic_tpu_torch/csrc/joint_exp.cu",
            "dgrad_v8": "iic_tpu_torch/csrc/joint_exp_bwd.cu",
            "dgrad_fused_v7": "iic_tpu_torch/csrc/joint_exp_bwd.cu"}
@@ -86,25 +98,31 @@ REPLACES = {"seg_joint_fwd": "iic_tpu/ops/pallas/seg_joint_kernel.py:83",
             "iid_loss_fwd": "iic_tpu/ops/pallas/iid_loss_kernel.py:34",
             "mm_probe": "tools/joint_kernel_exp.py:90",
             "joint_fwd_v2": "tools/joint_kernel_exp.py:140",
+            "joint_fwd_v3": "tools/joint_kernel_exp.py:518",
+            "joint_fwd_v4": "tools/joint_kernel_exp.py:253",
+            "joint_fwd_v5": "tools/joint_kernel_exp.py:387",
+            "joint_fwd_v6": "tools/joint_kernel_exp.py:810",
             "joint_fwd_v8": "tools/joint_kernel_exp.py:646",
             "dgrad_v8": "tools/joint_kernel_exp.py:729",
             "dgrad_fused_v7": "tools/joint_kernel_exp.py:929"}
-TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", "joint_fwd_v8", "dgrad_v8",
-                "dgrad_fused_v7")
+X_PIPE = ("joint_fwd_v3", "joint_fwd_v4", "joint_fwd_v5", "joint_fwd_v6")
+TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", *X_PIPE, "joint_fwd_v8",
+                "dgrad_v8", "dgrad_fused_v7")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): bf16 tensor
-# cores, f32 on the CUDA cores, HBM3. The joint kernels (K1, K2, X1, X2,
-# X7, X8, X9) are bounded at the bf16 rate: the TPU kernels round their
-# operands to bf16 and the kernels' contract (rtol 5e-3) admits it; the f32
-# figure is printed beside.
+# cores, f32 on the CUDA cores, HBM3. The joint kernels (K1, K2, X1-X9)
+# are bounded at the bf16 rate: the TPU kernels round their operands to
+# bf16 and the kernels' contract (rtol 5e-3) admits it; the f32 figure is
+# printed beside.
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
-X_RB = 16  # X1 / X2 / X7 / X8 rb in the kernel table (the TPU tool's default)
+X_RB = 16  # X1-X5, X7, X8 rb in the kernel table (the TPU tool's default)
 X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
 # X9 against its plain version: each p_v is rounded to bf16, so a last-bit
 # difference in the f32 partial may move it across a rounding boundary:
 # mean |d| / mean |ref| and max |d| / max |ref| (X8's unrounded pair is
 # ~1.7e-3 off in the mean)
 X9_MEAN, X9_MAX = 1e-5, 2e-3
-TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v8": 6,
+TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v3": 5, "v4": 1,
+             "v5": 1, "v6": 2, "kpad": 2, "v8": 6,
              "v7": 2}  # run -> variants
 # K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
 # heads A and B, and the CIFAR20 overclustering head of model 579
@@ -552,6 +570,93 @@ def phase_x7():
     return stats
 
 
+def phase_x3_x6():
+    """X3-X6 against X2's plain version at the segmentation shapes (X3 at
+    each rb and flat, X4 and X5 at each rb, X6 on the f32 inputs at both
+    roll_build, which must agree bit for bit), each call's error against
+    float64, and the times of X3-X6 at rb=16 beside K1's, X7's and X2's in
+    the same phase (X7 first and last, to show drift), of the plain version
+    and of X2's bf16 cuDNN conv. Returns {kernel: table stats} (k=15,
+    rb=16, X3 flat, X6 roll_build=False)."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    stats = {name: {"max_abs_err": 0.0} for name in X_PIPE}
+    t = 2 * HALF_T + 1
+    for k in KS:
+        x1, x2 = _softmax_pair(gen, k)
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        _log(f"X3-X6 k={k}: n={N}, {HW}x{HW}, T={t}; X3-X5 on bf16 inputs, "
+             f"X6 on their f32 originals")
+        ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)
+        ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
+                                            HALF_T)
+        scale = float(ref64.abs().max())
+        _log(f"  plain f32 vs float64 of the bf16 inputs: max err / max|ref| "
+             f"{float((ref.double() - ref64).abs().max()) / scale:.3e}")
+        calls = (
+            [("joint_fwd_v3", f"rb={rb} flat={flat}",
+              lambda rb=rb, flat=flat: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
+                                                       flat))
+             for rb in X_RBS for flat in (True, False)]
+            + [(name, f"rb={rb}", lambda name=name, rb=rb: getattr(jx, name)(
+                x1b, x2b, HALF_T, rb))
+               for name in ("joint_fwd_v4", "joint_fwd_v5") for rb in X_RBS]
+            + [("joint_fwd_v6", f"roll_build={roll}",
+                lambda roll=roll: jx.joint_fwd_v6(x1, x2, HALF_T, roll))
+               for roll in (False, True)])
+        x6 = {}
+        for name, tag, call in calls:
+            got = call()
+            torch.cuda.synchronize()
+            err = _compare(f"{name} {tag}", got, ref)
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+            _log(f"    vs float64: max err / max|ref| "
+                 f"{float((got.double() - ref64).abs().max()) / scale:.3e}")
+            if name == "joint_fwd_v6":
+                x6[tag] = got
+        if not torch.equal(x6["roll_build=True"], x6["roll_build=False"]):
+            raise AssertionError("X6 roll_build=True differs from False")
+        _log("  X6 roll_build=True equals roll_build=False bit for bit")
+        del ref, ref64, x6, got
+
+        def library():
+            return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
+                            padding=HALF_T)
+        timed = {
+            "X7": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB),
+            "K1 (f32)": lambda: sj.joint_fwd(x1, x2, HALF_T),
+            "X2": lambda: jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB),
+            "joint_fwd_v3": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB),
+            "joint_fwd_v4": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB),
+            "joint_fwd_v5": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB),
+            "joint_fwd_v6": lambda: jx.joint_fwd_v6(x1, x2, HALF_T),
+            "X6 roll_build": lambda: jx.joint_fwd_v6(x1, x2, HALF_T, True),
+            "X7 again": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB),
+            "plain": lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T),
+            "bf16 F.conv2d": library}
+        ms = {tag: _time_ms(fn) for tag, fn in timed.items()}
+        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5): "
+             + ", ".join(f"{tag.replace('joint_fwd_v', 'X')} {v:.3f}"
+                         for tag, v in ms.items()) + " ms")
+        if k == KS[0]:
+            flop = _joint_flop(N, k, HW, HW, HALF_T)
+            for name in X_PIPE:
+                stats[name].update(ms=ms[name], plain_ms=ms["plain"],
+                                   library_ms=ms["bf16 F.conv2d"])
+                in_bytes = 2 * x1.numel() * (4 if name == "joint_fwd_v6"
+                                             else 2)  # X6 reads f32
+                stats[name].update(_bound(name, flop,
+                                          in_bytes + (k * t) ** 2 * 4,
+                                          PEAK_BF16))
+        del x1, x2, x1b, x2b
+        torch.cuda.empty_cache()
+    return stats
+
+
 def phase_x8():
     """X8 (dx1 and dx2, the tool's ``bwd_v8``) against its plain version at
     the segmentation shapes for each rb, its errors against float64, and
@@ -780,8 +885,8 @@ def phase_cluster_trainer():
 
 def phase_tool():
     """The port's experiment tool in-process at its default size: the
-    default run, ablate, mmprobe, v8 and v7. Returns {kernel: launches in
-    the five runs}."""
+    default run and every run of ``TOOL_RUNS``. Returns {kernel: launches
+    in the ten runs}."""
     from iic_tpu_torch.tools import joint_kernel_exp as tool
 
     _reset_counts()
@@ -802,11 +907,11 @@ def phase_tool():
                                      f"error is not finite, not exact or "
                                      f"off its plain version: {rec}")
     launches = _read_counts()
-    _log(f"launches in the five tool runs: {launches} (with a check, a "
-         f"warm-up and 20 timed calls per variant: 66 X7, 132 X8, 22 X9)")
+    _log(f"launches in the ten tool runs: {launches} (with a check, a "
+         f"warm-up and 20 timed calls per variant: 88 X3, 22 X4, 44 X5, "
+         f"44 X6, 66 X7, 132 X8, 22 X9)")
     if any(launches[name] < 1 for name in TOOL_KERNELS):
-        raise AssertionError(f"tool runs missed X1, X2, X7, X8 or X9: "
-                             f"{launches}")
+        raise AssertionError(f"tool runs missed one of X1-X9: {launches}")
     return launches
 
 
@@ -957,10 +1062,14 @@ def main(argv=None):
                                ("joint_fwd_v2", "X2", phase_x2),
                                ("mm_probe", "X1", phase_x1),
                                ("joint_fwd_v8", "X7", phase_x7),
+                               (None, "X3-X6", phase_x3_x6),
                                ("dgrad_v8", "X8", phase_x8),
                                ("dgrad_fused_v7", "X9", phase_x9)):
         _clocks(tag)
-        stats[kernel] = phase()
+        if kernel:
+            stats[kernel] = phase()
+        else:
+            stats.update(phase())
     launches = {k: v for k, v in phase_trainer().items()
                 if k.startswith("seg_joint")}
     launches.update({k: v for k, v in phase_cluster_trainer().items()

@@ -1,18 +1,22 @@
 """Kernels of the displacement-joint experiment tool, with their plain
 PyTorch versions: the forward probes X2 (joint forward with bf16 operands,
-and its ablations), X1 (the stack-product probe) and X7 (the joint forward
-with bf16 operands on K1's kernel), and the backward probes X8 (input
-gradient with bf16 operands) and X9 (both input gradients in one launch,
-each per-displacement partial rounded to bf16).
+and its ablations), X1 (the stack-product probe), X7 (the joint forward
+with bf16 operands on K1's kernel) and X3-X6 (the same joint, with the next
+stage fetched while the current one is multiplied), and the backward probes
+X8 (input gradient with bf16 operands) and X9 (both input gradients in one
+launch, each per-displacement partial rounded to bf16).
 
-Replaces five kernels of ``tools/joint_kernel_exp.py``: X2 replaces
+Replaces the nine kernels of ``tools/joint_kernel_exp.py``: X2 replaces
 ``_joint_kernel_v2`` (launched by ``joint_fwd_v2``), X1 ``_mm_probe_kernel``
-(``mm_probe``), X7 ``_joint_kernel_v8`` (``joint_fwd_v8``), X8
-``_dgrad_kernel_v8`` (``dgrad_v8``, called twice by ``bwd_v8``) and X9
-``_dgrad_kernel_v7`` (``dgrad_fused_v7``). The kernels' sources, with the
-note on what bounds them on the H100, how their design answers it and the
-exact definition of each mode, are ``iic_tpu_torch/csrc/joint_exp.cu``
-(X1, X2, X7) and ``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9).
+(``mm_probe``), X7 ``_joint_kernel_v8`` (``joint_fwd_v8``), X3-X6
+``_joint_kernel_v3`` / ``_v4`` / ``_v5`` / ``_v6`` (``joint_fwd_v3`` ...
+``joint_fwd_v6``), X8 ``_dgrad_kernel_v8`` (``dgrad_v8``, called twice by
+``bwd_v8``) and X9 ``_dgrad_kernel_v7`` (``dgrad_fused_v7``). The kernels'
+sources, with the note on what bounds them on the H100, how their design
+answers it and the exact definition of each mode, are
+``iic_tpu_torch/csrc/joint_exp.cu`` (X1, X2, X7),
+``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (X3-X6) and
+``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9).
 
 Where the TPU tool leaves an output undefined, the port defines it: the TPU
 ``mm-only`` and ``mm_probe`` multiply uninitialised scratch, ``copies-only``
@@ -38,7 +42,8 @@ from iic_tpu_torch.ops.kernels.seg_joint import displacement_joint_dense
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
-            "dgrad_v8": 0, "dgrad_fused_v7": 0}
+            "joint_fwd_v3": 0, "joint_fwd_v4": 0, "joint_fwd_v5": 0,
+            "joint_fwd_v6": 0, "dgrad_v8": 0, "dgrad_fused_v7": 0}
 
 MODES = ("full", "rank3", "mm-only", "copies-only", "aligned-copies")
 FORMS = ("mk-nk", "mk-kn")
@@ -72,6 +77,12 @@ def _check_shift(half_t, rb):
     if rb < 1 or not (2 * half_t <= _WL and 2 * half_t <= 2 * rb):
         raise ValueError(f"half_t={half_t}, rb={rb}: need rb >= 1, "
                          f"2*half_t <= {_WL} and 2*half_t <= 2*rb")
+
+
+def _check_lanes(half_t):
+    """The TPU tool's assert where rb is fixed: 2*half_t <= 128."""
+    if not 0 <= 2 * half_t <= _WL:
+        raise ValueError(f"half_t={half_t}: need 2*half_t <= {_WL}")
 
 
 def check_args(half_t, rb, form="mk-nk"):
@@ -130,8 +141,7 @@ def check_dgrad_v8(k, half_t, rb):
 def check_fused_v7(k, half_t):
     """X9's limits: the TPU tool's assert (2*half_t <= 128; its rb is fixed
     at 16) and the block's shared memory, which grows with k."""
-    if not 0 <= 2 * half_t <= _WL:
-        raise ValueError(f"half_t={half_t}: need 2*half_t <= {_WL}")
+    _check_lanes(half_t)
     _check_smem(f"dgrad_fused_v7 k={k} half_t={half_t}",
                 fused_v7_smem(k, half_t))
 
@@ -219,6 +229,32 @@ def joint_fwd_v8_plain(x1, x2, half_t, rb=16):
     return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
 
 
+def joint_fwd_v3_plain(x1, x2, half_t, rb=16, flat=True):
+    """Plain version of X3: X2 ``full``'s plain version. X3 multiplies the
+    same bf16 operands into the same f32 joint; ``rb`` and ``flat`` change
+    only the kernel's summation order and the TPU's stack layout."""
+    return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
+
+
+def joint_fwd_v4_plain(x1, x2, half_t, rb=16):
+    """Plain version of X4: X2 ``full``'s plain version (X4 only stages
+    each stage's product in a second accumulator before adding it)."""
+    return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
+
+
+def joint_fwd_v5_plain(x1, x2, half_t, rb=16):
+    """Plain version of X5: X2 ``full``'s plain version (X5's priming and
+    padding products add zeros)."""
+    return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
+
+
+def joint_fwd_v6_plain(x1, x2, half_t, roll_build=False):
+    """Plain version of X6: X2 ``full``'s plain version. X6 rounds its f32
+    inputs to bf16 itself, nearest even as X2's wrapper does, and
+    ``roll_build`` builds the same stack values another way."""
+    return joint_fwd_v2_plain(x1, x2, half_t, "full")
+
+
 def dgrad_v8_plain(g2d, other, half_t):
     """Plain version of X8: K2's plain version on the bf16-rounded adjoint
     and input, dx[n,i,y,x] = sum_{j,u,v} G[(v,i),(u,j)] *
@@ -288,6 +324,20 @@ def _lib():
     return lib
 
 
+def _pipe_lib():
+    lib = _build.library("joint_exp_pipe")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for v in ("v3", "v4", "v5"):
+            fn = getattr(lib, f"joint_exp_fwd_{v}")
+            fn.argtypes = [p, p, p, p] + [i] * 7 + [p]
+            fn.restype = i
+        lib.joint_exp_fwd_v6.argtypes = [p, p, p, p] + [i] * 8 + [p]
+        lib.joint_exp_fwd_v6.restype = i
+        lib._typed = True
+    return lib
+
+
 def _bwd_lib():
     lib = _build.library("joint_exp_bwd")
     if not getattr(lib, "_typed", False):
@@ -317,7 +367,8 @@ def _on_cuda(name, *xs):
     return True
 
 
-def _as_bf16(name, x, shape=None):
+def _as_input(name, x, shape=None, to=torch.bfloat16):
+    """x checked for the kernel and converted to ``to``."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: kernel takes float32 or bfloat16, got "
                         f"{x.dtype}")
@@ -326,7 +377,7 @@ def _as_bf16(name, x, shape=None):
     if x.dim() != 4 or (shape is not None and tuple(x.shape) != shape):
         raise ValueError(f"{name}: expected shape {shape or '(n, k, h, w)'}, "
                          f"got {tuple(x.shape)}")
-    return x.to(torch.bfloat16)
+    return x.to(to)
 
 
 def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
@@ -339,8 +390,8 @@ def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
     check_args(half_t, rb)
     if not _on_cuda("joint_fwd_v2", x1, x2):
         return joint_fwd_v2_plain(x1, x2, half_t, mode, rb)
-    a = _as_bf16("x1", x1)
-    b = _as_bf16("x2", x2, tuple(x1.shape))
+    a = _as_input("x1", x1)
+    b = _as_input("x2", x2, tuple(x1.shape))
     n, k, h, w = x1.shape
     t = 2 * half_t + 1
     tk = k * t
@@ -368,6 +419,27 @@ def _adjoint_bf16(name, g2d, tk):
     return g2d.to(torch.bfloat16).contiguous()
 
 
+def _split_k_fwd(name, entry, x1, x2, half_t, rb, *flags,
+                 to=torch.bfloat16):
+    """Launches a split-K joint kernel (X7, X3-X6) on x1, x2 converted to
+    ``to``: the n*h rows cut into chunks of a multiple of ``rb`` rows, the
+    partials, their ordered reduce into (k, k, T, T)."""
+    a = _as_input("x1", x1, to=to)
+    b = _as_input("x2", x2, tuple(x1.shape), to=to)
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    tk = k * t
+    splits, per = _split(n * h, (-(-tk // _TILE)) ** 2, rb)
+    part = torch.empty((splits, tk, tk), device=x1.device)
+    out = torch.empty((k, k, t, t), device=x1.device)
+    err = entry(a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(),
+                n, k, h, w, half_t, *flags, splits, per, _stream(x1.device))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+    return out
+
+
 def joint_fwd_v8(x1, x2, half_t, rb=16):
     """X7: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w) with
     both inputs rounded to bf16 and f32 accumulation, on K1's split-K
@@ -375,21 +447,54 @@ def joint_fwd_v8(x1, x2, half_t, rb=16):
     _check_shift(half_t, rb)
     if not _on_cuda("joint_fwd_v8", x1, x2):
         return joint_fwd_v8_plain(x1, x2, half_t, rb)
-    a = _as_bf16("x1", x1)
-    b = _as_bf16("x2", x2, tuple(x1.shape))
-    n, k, h, w = x1.shape
-    t = 2 * half_t + 1
-    tk = k * t
-    splits, per = _split(n * h, (-(-tk // _TILE)) ** 2, rb)
-    part = torch.empty((splits, tk, tk), device=x1.device)
-    out = torch.empty((k, k, t, t), device=x1.device)
-    err = _lib().joint_exp_fwd_v8(
-        a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), n, k, h,
-        w, half_t, splits, per, _stream(x1.device))
-    if err != 0:
-        raise RuntimeError(f"joint_fwd_v8 launch failed: CUDA error {err}")
-    LAUNCHES["joint_fwd_v8"] += 1
-    return out
+    return _split_k_fwd("joint_fwd_v8", _lib().joint_exp_fwd_v8, x1, x2,
+                        half_t, rb)
+
+
+def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True):
+    """X3: X7's joint with the next stage fetched into the other slot of a
+    shared-memory double buffer, indexed by parity, while the current one
+    is multiplied. ``flat`` names the TPU's stack layout, one launch here
+    (csrc/joint_exp_pipe.cu); ``rb`` is the row quantum of a chunk."""
+    _check_shift(half_t, rb)
+    if not _on_cuda("joint_fwd_v3", x1, x2):
+        return joint_fwd_v3_plain(x1, x2, half_t, rb, flat)
+    return _split_k_fwd("joint_fwd_v3", _pipe_lib().joint_exp_fwd_v3, x1,
+                        x2, half_t, rb)
+
+
+def joint_fwd_v4(x1, x2, half_t, rb=16):
+    """X4: X3 with two separately declared slots chosen by a branch on the
+    parity, each stage's product staged in a second accumulator."""
+    _check_shift(half_t, rb)
+    if not _on_cuda("joint_fwd_v4", x1, x2):
+        return joint_fwd_v4_plain(x1, x2, half_t, rb)
+    return _split_k_fwd("joint_fwd_v4", _pipe_lib().joint_exp_fwd_v4, x1,
+                        x2, half_t, rb)
+
+
+def joint_fwd_v5(x1, x2, half_t, rb=16):
+    """X5: two stages per loop iteration in straight-line code with static
+    slots, an even stage count per chunk (an odd one padded with an
+    all-zero stage) and a zeroed odd slot priming the pipeline."""
+    _check_shift(half_t, rb)
+    if not _on_cuda("joint_fwd_v5", x1, x2):
+        return joint_fwd_v5_plain(x1, x2, half_t, rb)
+    return _split_k_fwd("joint_fwd_v5", _pipe_lib().joint_exp_fwd_v5, x1,
+                        x2, half_t, rb)
+
+
+def joint_fwd_v6(x1, x2, half_t, roll_build=False):
+    """X6: X5's pipeline on f32 inputs, rounded to bf16 in the kernel as
+    they are staged (bf16 inputs are widened to f32 first, exactly); rb is
+    fixed at 16. ``roll_build`` builds each column-shifted A row from the
+    one before by a lane shuffle, with the same result bit for bit."""
+    _check_lanes(half_t)
+    if not _on_cuda("joint_fwd_v6", x1, x2):
+        return joint_fwd_v6_plain(x1, x2, half_t, roll_build)
+    return _split_k_fwd("joint_fwd_v6", _pipe_lib().joint_exp_fwd_v6, x1,
+                        x2, half_t, 16, int(bool(roll_build)),
+                        to=torch.float32)
 
 
 def dgrad_v8(g2d, other, half_t, rb=16):
@@ -400,7 +505,7 @@ def dgrad_v8(g2d, other, half_t, rb=16):
     check_dgrad_v8(other.shape[1], half_t, rb)
     if not _on_cuda("dgrad_v8", g2d, other):
         return dgrad_v8_plain(g2d, other, half_t)
-    o = _as_bf16("other", other)
+    o = _as_input("other", other)
     n, k, h, w = other.shape
     g = _adjoint_bf16("g2d", g2d, k * (2 * half_t + 1))
     dx = torch.empty((n, k, h, w), device=other.device)
@@ -428,8 +533,8 @@ def dgrad_fused_v7(g, x1, x2, half_t):
     check_fused_v7(x1.shape[1], half_t)
     if not _on_cuda("dgrad_fused_v7", g, x1, x2):
         return dgrad_fused_v7_plain(g, x1, x2, half_t)
-    a = _as_bf16("x1", x1)
-    b = _as_bf16("x2", x2, tuple(x1.shape))
+    a = _as_input("x1", x1)
+    b = _as_input("x2", x2, tuple(x1.shape))
     n, k, h, w = x1.shape
     t = 2 * half_t + 1
     if tuple(g.shape) != (k, k, t, t):

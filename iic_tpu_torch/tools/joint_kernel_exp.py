@@ -1,6 +1,5 @@
 """Experiments on the displacement-joint kernels (``tools/joint_kernel_exp.py``
-of the JAX package), for the runs whose kernels are ported: X1, X2, X7, X8
-and X9.
+of the JAX package), with X1-X9 ported.
 
     python -m iic_tpu_torch.tools.joint_kernel_exp [only] [n k h half_t] \\
         [--device cpu]
@@ -17,6 +16,18 @@ every kernel wrapper takes its plain version.
   ablate     X2 for rb in (16, 32, 64) x modes (full, mm-only, copies-only,
              rank3).
   mmprobe    X1 for rb in (16, 32) x forms (mk-nk, mk-kn).
+  v3         X3 for rb in (16, 32) x flat (True, False), then K1 ("E0
+             pallas-cur fwd").
+  v4         X4 ("V4 slot-split").
+  v5         X5 ("V5 2-unroll straight-line").
+  v6         X6 for roll_build in (False, True). The TPU tool's
+             ``roll_build=True`` fails off the TPU (``pltpu.roll`` with a
+             negative shift) and prints FAILED there; the port computes
+             what that code states, the joint of the same stacks, and
+             reports it.
+  kpad       X5 and X2 ``full`` on x1, x2 zero-padded from k to 16
+             channels, the output sliced back to (k, k, T, T) ("v5+kpad16",
+             "v2+kpad16").
   v8         for rb in (16, 32, 64): X7 ("V8 fwd") and the backward as two
              X8 launches ("V8 bwd", ``bwd_v8``).
   v7         X9 ("V7 fused bwd": dx1 and dx2 in one launch, each
@@ -35,9 +46,6 @@ criterion that tells its rounding apart from X8's. Times are CUDA events
 around 20 calls after one warm-up, as the TPU tool's ``time_fn`` (the host
 clock with ``--device cpu``). As in the TPU tool, a variant that raises
 prints a ``FAILED`` line. ``main`` also returns each variant's record.
-
-The runs v3, v4, v5, v6 and kpad need kernels X3-X6, which are not ported
-yet: they raise ``NotImplementedError``.
 """
 
 import sys
@@ -51,10 +59,8 @@ from iic_tpu_torch.ops.kernels import joint_exp as jx
 from iic_tpu_torch.ops.kernels import seg_joint as sj
 
 DEFAULT_SIZE = (120, 15, 128, 10)
-# run -> the kernels it needs (ROADMAP queue 2)
-WAITING = {"v3": "X3 (joint_fwd_v3)", "v4": "X4 (joint_fwd_v4)",
-           "v5": "X5 (joint_fwd_v5)", "v6": "X6 (joint_fwd_v6)",
-           "kpad": "X5 (joint_fwd_v5)"}
+RUNS = ("ablate", "mmprobe", "v3", "v4", "v5", "v6", "kpad", "v8", "v7")
+KPAD = 16  # the kpad run's channel count
 
 
 def time_fn(fn, *args, iters=20, cuda=True):
@@ -235,6 +241,38 @@ def run_default(x1, x2, g, half_t, P_ref):
     return records
 
 
+def kpad16(x1, x2, half_t, fn):
+    """``fn``'s joint of x1, x2 zero-padded from k to 16 channels, sliced
+    back to (k, k, T, T) (the TPU tool's kpad ``padded``)."""
+    k = x1.shape[1]
+    if k > KPAD:
+        raise ValueError(f"kpad pads k={k} up to {KPAD} channels")
+    pad = (0, 0, 0, 0, 0, KPAD - k)
+    return fn(F.pad(x1, pad), F.pad(x2, pad), half_t)[:k, :k]
+
+
+def run_pipelined(only, x1, x2, half_t, P_ref):
+    """The v3, v4, v5, v6 and kpad runs: X3-X6 (and K1, X2) against the
+    float64 joint."""
+    cuda = x1.device.type == "cuda"
+    variants = {
+        "v3": [(f"V3 rb={rb:2d} flat={flat}", jx.joint_fwd_v3, (rb, flat))
+               for rb in (16, 32) for flat in (True, False)]
+        + [("E0 pallas-cur fwd", sj.joint_fwd, ())],
+        "v4": [("V4 slot-split", jx.joint_fwd_v4, ())],
+        "v5": [("V5 2-unroll straight-line", jx.joint_fwd_v5, ())],
+        "v6": [(f"V6 roll={roll}", jx.joint_fwd_v6, (roll,))
+               for roll in (False, True)],
+        "kpad": [(f"v{v}+kpad16", kpad16, (fn,))
+                 for v, fn in ((5, jx.joint_fwd_v5), (2, jx.joint_fwd_v2))],
+    }[only]
+    records = []
+    for name, fn, extra in variants:
+        _variant(records, name, fn, (x1, x2, half_t, *extra), _rel(P_ref),
+                 cuda)
+    return records
+
+
 def run_v8(x1, x2, g, half_t, P_ref):
     cuda = x1.device.type == "cuda"
     records = []
@@ -269,16 +307,11 @@ def run_v7(x1, x2, g, half_t):
 
 
 def main(argv=None, device=None):
-    """Runs ``only`` (default, ablate, mmprobe, v8 or v7) and returns its
-    records, one per variant: {"name", "ms", "errs": {label: value},
-    "failed"}."""
+    """Runs ``only`` (default or one of ``RUNS``) and returns its records,
+    one per variant: {"name", "ms", "errs": {label: value}, "failed"}."""
     only, (n, k, h, half_t), dev_arg = _parse(
         sys.argv[1:] if argv is None else argv)
-    if only in WAITING:
-        raise NotImplementedError(
-            f"the {only!r} run needs {WAITING[only]}, not ported yet "
-            f"(ROADMAP queue 2)")
-    if only not in (None, "ablate", "mmprobe", "v8", "v7"):
+    if only not in (None, *RUNS):
         raise ValueError(f"unknown run {only!r}")
     device = resolve_device(device or dev_arg)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
@@ -296,6 +329,8 @@ def main(argv=None, device=None):
         return run_ablate(x1, x2, half_t, P_ref)
     if only == "v8":
         return run_v8(x1, x2, g, half_t, P_ref)
+    if only is not None:
+        return run_pipelined(only, x1, x2, half_t, P_ref)
     return run_default(x1, x2, g, half_t, P_ref)
 
 

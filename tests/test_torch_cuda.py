@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1 / K2 (displacement joint), K3 (fused
 clustering IID loss), X1 / X2 / X7 (the experiment tool's stack-product
-probe and bf16 joint forwards) and X8 / X9 (its bf16 input gradients) on
-the card, against their plain PyTorch versions.
+probe and bf16 joint forwards), X3-X6 (its pipelined bf16 joint forwards)
+and X8 / X9 (its bf16 input gradients) on the card, against their plain
+PyTorch versions.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -435,3 +436,86 @@ def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
     assert lib.joint_exp_dgrad_v8(g2d.bfloat16().data_ptr(), xb.data_ptr(),
                                   out.data_ptr(), 2, 3, 8, 8, 2, 24,
                                   stream) != 0
+
+
+# X3 at every rb and flat, X4 and X5 at every rb, X6 at both roll_build
+PIPE = ([("joint_fwd_v3", {"rb": rb, "flat": flat})
+         for rb in (16, 32, 64) for flat in (True, False)]
+        + [(name, {"rb": rb}) for name in ("joint_fwd_v4", "joint_fwd_v5")
+           for rb in (16, 32, 64)]
+        + [("joint_fwd_v6", {"roll_build": roll}) for roll in (False, True)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
+def test_x3_x6_match_plain(gpu, half_t, n, k, h, w):
+    """X3-X6 vs X2's plain version: the same bf16 operands (X6 rounds its
+    f32 inputs itself) and exact products, so only the f32 summation order
+    differs: rtol 1e-4, atol 2e-5 * max. One launch is counted per call."""
+    x1, x2, _ = _inputs(half_t + 3 * k, half_t, n, k, h, w, gpu)
+    ref = jx.joint_fwd_v2_plain(x1, x2, half_t).cpu().numpy()
+    t = 2 * half_t + 1
+    for name, kwargs in PIPE:
+        jx.reset_launch_counts()
+        got = getattr(jx, name)(x1, x2, half_t, **kwargs)
+        assert jx.LAUNCHES == {**_NO_LAUNCH, name: 1}
+        assert got.shape == (k, k, t, t) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
+                                   atol=2e-5 * np.abs(ref).max(),
+                                   err_msg=f"{name} {kwargs}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
+def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
+    """X3 and X5 add the same stages in X7's order (X5's priming and
+    padding products add zeros), so at one rb they equal X7 bit for bit.
+    X6 is X5's body on f32 inputs rounded in the kernel: it equals X5 on
+    inputs rounded by the wrapper, and roll_build=True equals False, bit
+    for bit."""
+    x1, x2, _ = _inputs(half_t + 4 * k, half_t, n, k, h, w, gpu)
+    for rb in (16, 32, 64):
+        x7 = jx.joint_fwd_v8(x1, x2, half_t, rb)
+        for flat in (True, False):
+            assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, flat), x7)
+        assert torch.equal(jx.joint_fwd_v5(x1, x2, half_t, rb), x7)
+    x6 = jx.joint_fwd_v6(x1, x2, half_t)
+    assert torch.equal(x6, jx.joint_fwd_v5(x1.bfloat16(), x2.bfloat16(),
+                                           half_t, 16))
+    assert torch.equal(jx.joint_fwd_v6(x1, x2, half_t, roll_build=True), x6)
+
+
+@pytest.mark.cuda
+def test_x3_x6_refuse_what_they_cannot_launch(gpu):
+    """Bad input raises before a launch; the TPU tool's asserts are refused
+    on the card too (X6 has no rb: half_t=10 runs where X3-X5 at rb=8
+    refuse it); a launch the C entry points refuse (no chunks) returns a
+    CUDA error code."""
+    x = torch.rand(2, 3, 8, 8, device=gpu)
+    fns = (jx.joint_fwd_v3, jx.joint_fwd_v4, jx.joint_fwd_v5,
+           jx.joint_fwd_v6)
+    for fn in fns:
+        with pytest.raises(TypeError):
+            fn(x.double(), x.double(), 2)
+        with pytest.raises(ValueError):
+            fn(x, x.cpu(), 2)
+        with pytest.raises(ValueError):
+            fn(x.transpose(2, 3), x, 2)
+        with pytest.raises(ValueError):
+            fn(x, x[:1].contiguous(), 2)
+        with pytest.raises(ValueError, match="2\\*half_t"):
+            fn(x, x, 65)
+    for fn in fns[:3]:
+        with pytest.raises(ValueError, match="2\\*half_t"):
+            fn(x, x, 10, rb=8)
+    assert jx.joint_fwd_v6(x, x, 10).shape == (3, 3, 21, 21)
+    lib = jx._pipe_lib()
+    xb = x.bfloat16()
+    part = torch.empty(64 * 64, device=gpu)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (part.data_ptr(), part.data_ptr(), 2, 3, 8, 8, 2)
+    for v in ("v3", "v4", "v5"):
+        entry = getattr(lib, f"joint_exp_fwd_{v}")
+        assert entry(xb.data_ptr(), xb.data_ptr(), *args, 0, 16, stream) != 0
+    assert lib.joint_exp_fwd_v6(x.data_ptr(), x.data_ptr(), *args, 1, 0, 16,
+                                stream) != 0

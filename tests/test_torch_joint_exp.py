@@ -203,12 +203,6 @@ def test_tool_runs_on_cpu(capsys, run, variants):
                 assert err < 1e-5, rec  # f32 rounding
 
 
-@pytest.mark.parametrize("run", sorted(tool.WAITING))
-def test_tool_runs_that_need_unported_kernels_raise(run):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2"):
-        tool.main([run, *map(str, TINY)], device="cpu")
-
-
 def test_tool_bwd_conv_is_the_joint_vjp():
     """The tool's E1 conv backward (f32) vs autograd of the plain joint:
     rtol 1e-4, atol 1e-5 * max (summation order)."""
