@@ -9,6 +9,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
+     for K1 and the tensor-core kernels X1 and X8 print registers, stack
+     and local memory (``cuobjdump --dump-resource-usage``) and the count
+     of HGMMA / HMMA instructions in their SASS (``--dump-sass``), and fail
+     if X1 or X8 has none or K1 leaves its 80 registers;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
@@ -27,12 +31,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      against float64; hold X1 (the stack-product probe) at the same shapes
      in both forms to its plain version (tiles of ones: every entry the
      count of terms issued), exactly; CUDA-event times of each kernel, its
-     plain version and the library call that computes the same function;
+     plain version and the library call that computes the same function
+     (X1 on the tensor cores beside one bf16 torch.matmul);
   6. hold X7 (the tool's v8 joint forward: K1's kernel on bf16 inputs) and
      X8 (its v8 input gradient with bf16 operands, dx1 and dx2) against
      their plain versions at the same shapes for rb = 16, 32, 64, within
      the JAX contract; their errors against float64; X7's time beside K1's
-     and X2's in the same phase; kernel, plain and library times;
+     and X2's in the same phase; X8 (on the tensor cores) beside K2 and the
+     bf16 cuDNN conv in its phase; kernel, plain and library times;
   7. hold X3-X6 (the tool's pipelined v3, v4, v5 and v6 joint forwards)
      against X2's plain version at the same shapes within the JAX contract:
      X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb, X6 (f32 inputs,
@@ -71,6 +77,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -114,6 +121,15 @@ TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", *X_PIPE, "joint_fwd_v8",
 # bf16 and the kernels' contract (rtol 5e-3) admits it; the f32 figure is
 # printed beside.
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
+# Kernels whose resources and tensor-core instructions the build phase
+# reports, by library: mangled-name key -> (tag, must use the tensor cores,
+# registers it must use or None). K1 is held at 80 registers (its time
+# hangs on the residency they allow).
+SASS_KERNELS = {
+    "seg_joint": {"joint_partial_kernelIfE": ("K1", False, 80)},
+    "joint_exp": {"mm_probe_partial_kernel": ("X1", True, None)},
+    "joint_exp_bwd": {"dgrad_v8_kernel": ("X8", True, None)},
+}
 X_RB = 16  # X1-X5, X7, X8 rb in the kernel table (the TPU tool's default)
 X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
 # X9 against its plain version: each p_v is rounded to bf16, so a last-bit
@@ -192,7 +208,11 @@ def _clocks(tag):
 
 def phase_build():
     """Build every kernel source at once, one nvcc each (ptxas prints each
-    kernel's registers, shared memory and spills)."""
+    kernel's registers, shared memory and spills), then report, from the
+    built libraries, the registers, stack and local memory of K1 and of the
+    tensor-core kernels and the count of tensor-core instructions in each
+    of those kernels' SASS; fail if K1 leaves its 80 registers or a
+    tensor-core kernel has no such instruction."""
     from concurrent.futures import ThreadPoolExecutor
     from iic_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -201,6 +221,65 @@ def phase_build():
     _log(f"build: {', '.join(LIBS)} in {time.perf_counter() - t0:.2f} s "
          + ", ".join(f"(nvcc {n} {_build.BUILD_SECONDS[n]:.2f} s)"
                      for n in LIBS))
+    cuobjdump = _build.cuda_tool("cuobjdump")
+    for lib, kernels in SASS_KERNELS.items():
+        path = str(_build.LIB_PATHS[lib])
+        usage = _resource_usage(subprocess.run(
+            [cuobjdump, "--dump-resource-usage", path], capture_output=True,
+            text=True, check=True).stdout)
+        counts = _mma_counts(subprocess.run(
+            [cuobjdump, "--dump-sass", path], capture_output=True, text=True,
+            check=True).stdout)
+        for key, (tag, tensor_cores, want_regs) in kernels.items():
+            names = [f for f in counts if key in f]
+            if not names:
+                raise AssertionError(f"no kernel {key} in lib{lib}'s SASS")
+            for f in names:
+                if f not in usage:
+                    raise AssertionError(f"no resource usage for {f} in "
+                                         f"lib{lib}")
+                use, mma = usage[f], counts[f]
+                _log(f"  {tag} {f}: {use['REG']} registers, stack "
+                     f"{use.get('STACK', '?')} bytes, local "
+                     f"{use.get('LOCAL', '?')} bytes; SASS HGMMA "
+                     f"{mma['HGMMA']}, HMMA {mma['HMMA']}")
+                if tensor_cores and mma["HGMMA"] + mma["HMMA"] == 0:
+                    raise AssertionError(f"{tag} {f} has no tensor-core "
+                                         f"instruction in its SASS")
+                if want_regs is not None and use["REG"] != want_regs:
+                    raise AssertionError(f"{tag} {f} uses {use['REG']} "
+                                         f"registers, not {want_regs}")
+
+
+def _resource_usage(dump):
+    """{mangled kernel: {"REG": n, "STACK": n, "LOCAL": n, ...}} from
+    ``cuobjdump --dump-resource-usage``: each function's line of KEY:value
+    fields follows its name."""
+    usage, fn = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function ([^\s:]+)", line)
+        if m:
+            fn = m.group(1)
+        fields = dict(re.findall(r"\b([A-Z]+):(\d+)", line))
+        if fn and "REG" in fields:
+            usage[fn] = {key: int(v) for key, v in fields.items()}
+    return usage
+
+
+def _mma_counts(sass):
+    """{mangled kernel: {"HGMMA": n, "HMMA": n}}: the warpgroup (wgmma) and
+    warp-level tensor-core instructions in each function of a SASS dump."""
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn and "HGMMA" in line:
+            counts[fn]["HGMMA"] += 1
+        elif fn and "HMMA" in line:
+            counts[fn]["HMMA"] += 1
+    return counts
 
 
 def _time_ms(fn, reps=5):

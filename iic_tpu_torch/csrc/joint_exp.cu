@@ -1,7 +1,7 @@
 // Forward probes of the displacement-joint experiment tool, hand-written for
 // Hopper (sm_90a): X2, the joint forward with bf16 operands and its
-// ablations, X1, the stack-product probe, and X7, the joint forward with
-// bf16 operands on K1's split-K kernel.
+// ablations, X1, the stack-product probe on the tensor cores, and X7, the
+// joint forward with bf16 operands on K1's split-K kernel.
 //
 // Replaces tools/joint_kernel_exp.py: `_joint_kernel_v2` (launched by
 // `joint_fwd_v2`), `_mm_probe_kernel` (launched by `mm_probe`) and
@@ -20,15 +20,15 @@
 // the in-frame rows (columns) over the shifts, on 2 x 59 MB of bf16 input:
 // far above the H100's ridge, so compute-bound (0.36 ms at the 989 TFLOP/s
 // bf16 tensor-core peak). Like K1 it also multiplies the zeros outside the
-// frame, 2 * n*h*w * (kT)^2 ~ 3.9e11 FLOP issued. X1 issues the TPU probe's
-// count of products, 2 * (kT)^2 * n*(t_hi - t_lo)*rb*128 ~ 4.4e11 FLOP at
-// rb=16, over no input at all.
-// This first version runs the product as f32 FMAs on the CUDA cores
-// (67 TFLOP/s peak): each bf16 pair is widened in registers, so the tiles in
-// shared memory hold half the bytes of K1's. Tensor cores (wgmma on the same
-// bf16 tiles, fed by TMA) are the later speed-up.
+// frame, 2 * n*h*w * (kT)^2 ~ 3.9e11 FLOP issued. X2 and X7 run the product
+// as f32 FMAs on the CUDA cores (67 TFLOP/s peak): each bf16 pair is widened
+// in registers, so the tiles in shared memory hold half the bytes of K1's.
+// X1 issues the TPU probe's count of products, 2 * (kT)^2 * n*(t_hi -
+// t_lo)*rb*128 ~ 4.4e11 FLOP at rb=16, over no input at all, so only the
+// tensor cores' issue rate bounds it (0.44 ms); it runs on them (wgmma,
+// hopper_mma.cuh).
 //
-// Design. K1's structure: block (bx, by, s) owns a 64x64 tile of the
+// X2 design. K1's structure: block (bx, by, s) owns a 64x64 tile of the
 // (kT x kT) output and the s-th chunk of the (n, y) rows, and writes its
 // partial sum to part[s]; a second kernel adds the partials in chunk order
 // (deterministic, no atomics) and scatters them into (k, k, T, T). A pass
@@ -75,13 +75,20 @@
 //                   is the zero-displacement joint for every (u, v), exactly
 //                   the same value in each.
 //
-// X1 runs the same pass loop and product over shared-memory tiles filled
-// with bf16 1.0 at block start, with no global loads, for the TPU probe's
-// count of products: n * (t_hi - t_lo) row tiles of rb * 128, i.e.
-// 16 * n * (t_hi - t_lo) passes of depth 8*rb. `kn` stages the B tile
-// (K, N) instead of (N, K) (the TPU tool's "mk-kn" form). Every entry of its
-// (kT, kT) output is the count of terms issued, n * (t_hi - t_lo) * rb*128
-// (2,211,840 at the tool's default), so a pass skipped or misindexed shows.
+// X1 is the stack product alone on Hopper's tensor cores. Block (bx, by, s)
+// owns a 64 x 160 tile of the (kT, kT) output (kT = 315 at the tool's
+// default: 5 x 2 tiles) and the s-th chunk of the passes, one warpgroup
+// with its m64n160 f32 accumulator in registers (80 a thread). The A
+// (64 x 8*rb) and B tiles are filled with bf16 ones once, at block start,
+// in the layout wgmma reads; B is K-major for "mk-nk" and MN-major for
+// "mk-kn" (the transpose bit: the card's counterpart of the TPU tool's two
+// forms). A pass is then rb/2 wgmma k16 steps along the tiles, one commit
+// group a pass with one more group in flight, and no barrier in the loop.
+// Every entry of its (kT, kT) output is the count of terms issued,
+// n * (t_hi - t_lo) * rb*128 (2,211,840 at the tool's default), so a pass
+// skipped or a descriptor that strays into the zeroed guards shows. The
+// partials go through the ordered reduce (no atomics). rb must be even (a
+// pass is whole k16 steps) and its two tiles must fit a block: rb <= 64.
 //
 // The row tables, the partial store and the ordered reduce are K1's
 // (joint_common.cuh).
@@ -105,28 +112,25 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "joint_common.cuh"
 
 namespace {
 
 constexpr int TILE = 64;  // output tile edge
 constexpr int BQ = 8;     // image columns per pass
-constexpr int LDN = TILE + 2;  // row pitch of a (K, N) B tile, in bf16
 
 enum Mode { kFull = 0, kMmOnly = 1, kCopiesOnly = 2, kAligned = 3 };
 
 __host__ __device__ inline int pitch(int rb) { return BQ * rb + 2; }
 
-__host__ __device__ inline size_t stage_bytes(int rb, bool kn) {
-  const size_t a = sizeof(__nv_bfloat16) * TILE * pitch(rb);
-  const size_t b = kn ? sizeof(__nv_bfloat16) * BQ * rb * LDN : a;
-  return a + b;
+// X2's dynamic shared memory: the A and B tiles, (64, 8*rb + 2) bf16 each.
+__host__ __device__ inline size_t stage_bytes(int rb) {
+  return 2 * sizeof(__nv_bfloat16) * TILE * pitch(rb);
 }
 
-// acc[a][b] += sum_{kq < depth} A[tr + 16a][kq] * B[tc + 16b][kq]. A is
-// (M, K) with pitch lda; B is (N, K) with pitch lda, or (K, N) with pitch
-// LDN when kKN.
-template <bool kKN>
+// acc[a][b] += sum_{kq < depth} A[tr + 16a][kq] * B[tc + 16b][kq]; A and B
+// are (M, K) and (N, K) with pitch lda.
 __device__ __forceinline__ void product(const __nv_bfloat16* __restrict__ As,
                                         const __nv_bfloat16* __restrict__ Bs,
                                         int depth, int lda, int tr, int tc,
@@ -138,13 +142,8 @@ __device__ __forceinline__ void product(const __nv_bfloat16* __restrict__ As,
     for (int s = 0; s < 4; ++s) {
       a[s] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
           As + (tr + 16 * s) * lda + kq));
-      if (kKN) {
-        b[s] = make_float2(__bfloat162float(Bs[kq * LDN + tc + 16 * s]),
-                           __bfloat162float(Bs[(kq + 1) * LDN + tc + 16 * s]));
-      } else {
-        b[s] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-            Bs + (tc + 16 * s) * lda + kq));
-      }
+      b[s] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          Bs + (tc + 16 * s) * lda + kq));
     }
 #pragma unroll
     for (int p = 0; p < 4; ++p)
@@ -200,7 +199,7 @@ joint_v2_partial_kernel(const __nv_bfloat16* __restrict__ x1,
     b_shift[tid] = MODE == kAligned ? 0 : b_shift_of(nn, tk, k, half_t);
     row_sum[0][tid] = row_sum[1][tid] = 0u;
   }
-  if (MODE == kMmOnly) fill_ones(As, stage_bytes(rb, false));
+  if (MODE == kMmOnly) fill_ones(As, stage_bytes(rb));
   __syncthreads();
 
   // Loader role: 64 threads sweep the pass's depth, four rows at a time.
@@ -260,7 +259,7 @@ joint_v2_partial_kernel(const __nv_bfloat16* __restrict__ x1,
           }
         }
       } else {
-        product<false>(As, Bs, depth, lda, tr, tc, acc);
+        product(As, Bs, depth, lda, tr, tc, acc);
       }
       __syncthreads();
     }
@@ -300,7 +299,7 @@ int launch_v2(const __nv_bfloat16* x1, const __nv_bfloat16* x2, float* part,
               unsigned* chk, int n, int k, int h, int w, int half_t, int rb,
               int splits, int rows_per_chunk, cudaStream_t stream) {
   const int tk = k * (2 * half_t + 1);
-  const size_t smem = stage_bytes(rb, false);
+  const size_t smem = stage_bytes(rb);
   cudaError_t err = cudaFuncSetAttribute(
       joint_v2_partial_kernel<MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -313,49 +312,97 @@ int launch_v2(const __nv_bfloat16* x1, const __nv_bfloat16* x2, float* part,
 
 // ------------------------------------------------------------------- X1
 
-template <bool kKN>
-__global__ void __launch_bounds__(kThreads)
-mm_probe_partial_kernel(float* __restrict__ part, int tk, int rb,
-                        int passes_total, int passes_per_chunk) {
-  const int depth = BQ * rb;
-  const int lda = pitch(rb);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * TILE;
-  const int n0 = blockIdx.x * TILE;
-  const int p_begin = blockIdx.z * passes_per_chunk;
-  const int p_end = min(p_begin + passes_per_chunk, passes_total);
+constexpr int PROBE_M = 64;          // output tile rows: one m64 product
+constexpr int PROBE_N = 160;         // output tile columns (kT = 315: 5 x 2)
+constexpr int PROBE_THREADS = 128;   // one warpgroup
+constexpr int PROBE_GUARD = 1024;    // zeroed bytes after each tile
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + TILE * lda;
-  fill_ones(As, stage_bytes(rb, kKN));
-
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-  for (int p = p_begin; p < p_end; ++p) {
-    __syncthreads();
-    product<kKN>(As, Bs, depth, lda, tr, tc, acc);
-    __syncthreads();
-  }
-  store_partial(part, tk, m0 + tr, n0 + tc, 16, acc);
+// Bytes of a (rows x 8*rb) bf16 tile.
+__host__ __device__ inline size_t probe_tile_bytes(int rows, int rb) {
+  return sizeof(__nv_bfloat16) * rows * BQ * rb;
 }
 
-template <bool kKN>
+// Dynamic shared memory of one X1 block: the A and B tiles, each followed
+// by a zeroed guard.
+__host__ __device__ inline size_t probe_smem(int rb) {
+  return probe_tile_bytes(PROBE_M, rb) + probe_tile_bytes(PROBE_N, rb)
+         + 2 * PROBE_GUARD;
+}
+
+// Block (bx, by, s) owns the 64 x 160 output tile (by, bx) and the s-th
+// chunk of passes. Both tiles are filled with bf16 ones once and the
+// guards with zeros, so a descriptor that strays outside a tile reads zeros
+// and the count falls short. Layout, no swizzle: core matrix (r/8, k/8) of
+// a tile of R rows at byte ((k/8) * R/8 + r/8) * 128. A is K-major; B is
+// K-major ("mk-nk") or, with kTransB, MN-major ("mk-kn", the transpose bit
+// of the instruction), and in both the core matrices sit 128 bytes apart
+// along the rows and 128 R/8 bytes apart along K.
+template <int kTransB>
+__global__ void __launch_bounds__(PROBE_THREADS)
+mm_probe_partial_kernel(float* __restrict__ part, int tk, int rb,
+                        int passes_total, int passes_per_chunk) {
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * PROBE_M;
+  const int n0 = blockIdx.x * PROBE_N;
+  const int p_begin = blockIdx.z * passes_per_chunk;
+  const int p_end = min(p_begin + passes_per_chunk, passes_total);
+  const uint32_t a_bytes = probe_tile_bytes(PROBE_M, rb);
+  const uint32_t b_off = a_bytes + PROBE_GUARD;
+  const uint32_t b_end = b_off + probe_tile_bytes(PROBE_N, rb);
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned* words = reinterpret_cast<unsigned*>(smem);
+  for (uint32_t e = tid; e < (b_end + PROBE_GUARD) / 4; e += PROBE_THREADS) {
+    const uint32_t byte = 4 * e;
+    words[e] = (byte < a_bytes || (byte >= b_off && byte < b_end))
+                   ? 0x3F803F80u : 0u;
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  const uint64_t da = smem_desc(smem, 128 * (PROBE_M / 8), 128);
+  const uint64_t db = smem_desc(smem + b_off, 128 * (PROBE_N / 8), 128);
+  const uint32_t a_step = 2 * 128 * (PROBE_M / 8);  // one k16 step
+  const uint32_t b_step = 2 * 128 * (PROBE_N / 8);
+  const int steps = BQ * rb / 16;  // wgmmas per pass of depth 8*rb
+
+  float acc[80];
+#pragma unroll
+  for (int e = 0; e < 80; ++e) acc[e] = 0.f;
+  wgmma_fence();
+  for (int p = p_begin; p < p_end; ++p) {
+    for (int s = 0; s < steps; ++s)
+      wgmma_m64n160k16_ss<kTransB>(acc, desc_advance(da, s * a_step),
+                                   desc_advance(db, s * b_step));
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+
+  float* out = part + static_cast<size_t>(blockIdx.z) * tk * tk;
+  const int row = m0 + 16 * (tid / 32) + (tid % 32) / 4;
+  const int col = n0 + 2 * (tid % 4);
+#pragma unroll
+  for (int e = 0; e < 80; ++e) {
+    const int m = row + 8 * ((e >> 1) & 1);
+    const int nn = col + 8 * (e >> 2) + (e & 1);
+    if (m < tk && nn < tk) out[static_cast<size_t>(m) * tk + nn] = acc[e];
+  }
+}
+
+template <int kTransB>
 int launch_probe(float* part, int tk, int rb, int passes_total,
                  int passes_per_chunk, int splits, cudaStream_t stream) {
-  const size_t smem = stage_bytes(rb, kKN);
+  if (rb < 2 || rb % 2 != 0 || passes_per_chunk < 1 || splits < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = probe_smem(rb);
   cudaError_t err = cudaFuncSetAttribute(
-      mm_probe_partial_kernel<kKN>,
+      mm_probe_partial_kernel<kTransB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return refused(err);
-  dim3 grid((tk + TILE - 1) / TILE, (tk + TILE - 1) / TILE, splits);
-  mm_probe_partial_kernel<kKN><<<grid, kThreads, smem, stream>>>(
+  dim3 grid((tk + PROBE_N - 1) / PROBE_N, (tk + PROBE_M - 1) / PROBE_M,
+            splits);
+  mm_probe_partial_kernel<kTransB><<<grid, PROBE_THREADS, smem, stream>>>(
       part, tk, rb, passes_total, passes_per_chunk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -363,12 +410,6 @@ int launch_probe(float* part, int tk, int rb, int passes_total,
 }  // namespace
 
 extern "C" {
-
-// Dynamic shared memory of one block, in bytes, for pass rows rb (X1 with
-// kn != 0 stages B as (K, N)).
-int joint_exp_stage_bytes(int rb, int kn) {
-  return static_cast<int>(stage_bytes(rb, kn != 0));
-}
 
 // X2: x1, x2 (n, k, h, w) bf16 contiguous; part (splits, kT, kT) f32
 // scratch; chk (2 kT) u32 scratch (copies-only); out (k, k, T, T) f32.
@@ -434,14 +475,36 @@ int joint_exp_fwd_v8(const void* x1, const void* x2, float* part, float* out,
 int joint_exp_mm_probe(float* part, float* out, int tk, int rb, int kn,
                        int passes_total, int passes_per_chunk, int splits,
                        cudaStream_t stream) {
-  const int err = kn ? launch_probe<true>(part, tk, rb, passes_total,
-                                          passes_per_chunk, splits, stream)
-                     : launch_probe<false>(part, tk, rb, passes_total,
-                                           passes_per_chunk, splits, stream);
+  const int err = kn ? launch_probe<1>(part, tk, rb, passes_total,
+                                       passes_per_chunk, splits, stream)
+                     : launch_probe<0>(part, tk, rb, passes_total,
+                                       passes_per_chunk, splits, stream);
   if (err != 0) return err;
   joint_reduce_kernel<<<(tk * tk + kThreads - 1) / kThreads, kThreads, 0,
                         stream>>>(part, out, splits, tk, 1, 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// X1's blocks the current device holds at once at rb: its SMs times the
+// blocks an SM admits (registers, shared memory); minus a CUDA error code
+// when rb's tiles do not fit.
+int joint_exp_mm_probe_slots(int rb, int kn) {
+  const auto kernel = kn ? mm_probe_partial_kernel<1>
+                         : mm_probe_partial_kernel<0>;
+  const int smem = static_cast<int>(probe_smem(rb));
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, PROBE_THREADS, smem);
+  if (err != cudaSuccess) return -refused(err);
+  return sms * per_sm;
 }
 
 }  // extern "C"

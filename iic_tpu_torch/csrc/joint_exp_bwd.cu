@@ -1,7 +1,7 @@
 // Backward probes of the displacement-joint experiment tool, hand-written for
-// Hopper (sm_90a): X8, the input gradient with bf16 operands, and X9, both
-// input gradients in one launch with each per-displacement partial rounded
-// to bf16.
+// Hopper (sm_90a): X8, the input gradient with bf16 operands on the tensor
+// cores, and X9, both input gradients in one launch with each
+// per-displacement partial rounded to bf16.
 //
 // Replaces tools/joint_kernel_exp.py: `_dgrad_kernel_v8` (launched by
 // `dgrad_v8`, called twice by `bwd_v8`) and `_dgrad_kernel_v7` (launched by
@@ -24,21 +24,48 @@
 // 2 * n * k^2 * S_h * S_w ~ 3.6e11 FLOP of in-frame products, S = 2578 (see
 // joint_exp.cu), on 59 MB of bf16 input and 118 MB of f32 output; X9 twice
 // that. Compute-bound: 0.36 / 0.73 ms at the H100 SXM's published 989
-// TFLOP/s bf16 tensor-core peak (700 W). This first version runs f32 FMAs
-// on the CUDA cores (67 TFLOP/s peak); tensor cores are the later speed-up.
+// TFLOP/s bf16 tensor-core peak (700 W). X8 runs on the tensor cores
+// (wgmma, hopper_mma.cuh); X9 still runs f32 FMAs on the CUDA cores (67
+// TFLOP/s peak).
 //
-// X8 design: K2's output-stationary block. Block (bx, by, z) owns an
-// rb-row x (256/rb * PX)-column tile of one image and KM output channels,
-// walks the other input's channels j, and for each stages the zero-masked
-// (rb+2h) x (tile columns + 2h) patch of `other` and the adjoint chunk
-// G[(v, i0:i0+KM), (u, j)] for all (u, v) in shared memory, both bf16: the
-// chunk is T*T*KM*2 bytes, 14 KB at T=21, KM=16, half K2's f32 28 KB. Each
-// thread keeps KM x PX f32 accumulators in registers and widens each bf16
-// operand once per use. `rb`, the tile rows, is K2's TY=32 made a parameter:
-// the 256 threads stand in 256/rb columns of rb rows, so a tile is always
-// 256*PX pixels, and rb must divide 256. Each block writes its tile of the
-// unpadded frame directly: the TPU's width-tile overlap-add (a 128-lane
-// artefact) is not carried over.
+// X8 design: an implicit GEMM with pixels as M. For one output row y and
+// 64 pixels x0.. of it, dx (64 x N) = sum_{v, u} A(u, v) B(u, v), where
+//   A(u, v)[p, j] = other[n, j, y - u + h, x0 + p - v + h]   (64 x 16)
+//   B(u, v)[j, i] = G[(v, i), (u, j)]                        (16 x N)
+// with j a chunk of 16 channels (one wgmma k16 step is one displacement
+// (u, v) at k <= 16) and i a chunk of N = 8 (k <= 8) or 16 output channels,
+// both zero past k. The wrapper lays `other` out once as channels-last bf16
+// padded to 16 channels, so a pixel is 32 bytes, one row of an A fragment,
+// and the adjoint as (i chunk, j chunk, v, u) tiles in the layout wgmma
+// reads (a plain permute and pad, in the timed call, like the TPU tool's
+// jnp.pad). Block (bx, by, z) owns `rb` rows x 64 pixels of one image and
+// one i chunk, one warpgroup, and walks its rows in windows of 8. For a
+// window it stages with cp.async the zero-masked patch of (8 + 2h) rows x
+// (64 + 2h) pixels (src-size 0 fills the pixels outside the frame), then
+// for each v the adjoint chunk B(., v) (T N 32 bytes, 10.75 KB at T=21,
+// N=16), double-buffered over v. A(u, v) starts 32 bytes further per v,
+// which a descriptor cannot express, so it is loaded into registers with
+// ldmatrix and multiplied with wgmma RS (A from registers, B from shared
+// memory). The loop over v is outermost because it makes A reusable: the
+// fragment of patch row pr at v feeds every row r of the window with
+// u = r - pr + 2h in [0, T), so the window's 8 accumulators (m64nN, N/2
+// registers each) cut the ldmatrix traffic by 8 T / (T + 7), 6x at T=21,
+// against one row at a time. Two fragments alternate, each reloaded only
+// after wgmma_wait<1> has retired the products that read it. The products
+// are tiny (m64n16k16), so what they cost beyond the tensor cores' work is
+// issue: a full window runs its patch rows as a head, a body and a tail
+// whose row sets are compile-time, with no test around a product. Every
+// pixel's sum runs over (j chunk, v ascending, u descending) in that order
+// in every tile and window, so rb changes no bit of dx. The epilogue passes
+// the accumulators through shared memory (the patch's) so that each
+// channel's 64 pixels leave as one coalesced f32 row of dx, in the
+// unpadded frame.
+// Shared memory does not grow with rb: 96,768 bytes at k=15, h=10 (two
+// blocks an SM). It grows with h, and from h = 23 at N=16 (25 at N=8) the
+// whole patch no longer fits a block's 227 KB; there the kernel's sliced
+// form stages, for each v, only the 64 pixel columns A(., v) reads, in
+// slabs of patch rows (the wrapper picks the rows), so every h the TPU
+// tool admits (h <= 64) runs, with the same products in the same order.
 //
 // X9 design: the rounding of each p_v forces the loop over v outermost: a
 // block must finish p_v for its tile before it can round it. Block
@@ -62,6 +89,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_mma.cuh"
 #include "joint_common.cuh"
 
 namespace {
@@ -128,91 +156,302 @@ __device__ __forceinline__ void stage_patch(bf16* __restrict__ patch,
 
 // ------------------------------------------------------------------- X8
 
-template <int KM, int PX>
-__global__ void __launch_bounds__(kThreads)
-dgrad_v8_kernel(const bf16* __restrict__ g2d, const bf16* __restrict__ oth,
-                float* __restrict__ dx, int k, int h, int w, int half_t,
-                int rb) {
-  const int cols = kThreads / rb;  // threads along a tile row
-  const int tw = cols * PX;        // tile columns
+constexpr int V8_PIX = 64;      // pixels of a tile row: the m64 of a product
+constexpr int V8_WIN = 8;       // output rows a window keeps in registers
+constexpr int V8_THREADS = 128;  // one warpgroup
+constexpr int V8_CH = 16;       // channels of a chunk: one k16 step
+constexpr int V8_PIXEL = 2 * V8_CH;  // bytes of a channels-last pixel
+constexpr int V8_EPI_PITCH = V8_PIX + 4;  // f32; spreads the epilogue banks
+
+__host__ __device__ inline int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Bytes of the patch (the whole patch at slab 0, else one slab of `slab`
+// rows x 64 pixels), of the epilogue tile (which reuses the patch's
+// memory), of one adjoint chunk, and of a block's dynamic shared memory.
+__host__ __device__ inline int v8_patch_bytes(int half_t, int slab) {
+  if (slab > 0) return slab * V8_PIX * V8_PIXEL;
+  return (V8_WIN + 2 * half_t) * (V8_PIX + 2 * half_t) * V8_PIXEL;
+}
+__host__ __device__ inline int v8_region_bytes(int n_cols, int half_t,
+                                               int slab) {
+  const int patch = v8_patch_bytes(half_t, slab);
+  const int epi = V8_WIN * n_cols * V8_EPI_PITCH * 4;
+  return round_up(patch > epi ? patch : epi, 128);
+}
+__host__ __device__ inline int v8_chunk_bytes(int n_cols, int t) {
+  return t * n_cols * V8_PIXEL;
+}
+__host__ __device__ inline int v8_smem(int n_cols, int half_t, int slab) {
+  return v8_region_bytes(n_cols, half_t, slab)
+         + 2 * v8_chunk_bytes(n_cols, 2 * half_t + 1);
+}
+
+// One patch row's products: load A(pr, v) from the patch (once the
+// products that last read `a` have retired), then acc[r] += A * B(u) with
+// u = r + u0 (u0 = 2h - pr) for the rows r in [lo, hi], in r order.
+// Unchecked, the caller passes bounds that are compile-time after
+// unrolling and meet the patch row at displacements in [0, T), so the
+// products are straight-line code; kChecked also tests each (r, u).
+template <int N, bool kChecked>
+__device__ __forceinline__ void v8_row(float (&acc)[V8_WIN][N / 2],
+                                       uint32_t (&a)[4], uint32_t a_addr,
+                                       uint64_t db, int u0, int lo, int hi,
+                                       int t) {
+  wgmma_wait<1>();
+  ldmatrix_x4(a, a_addr);
+  wgmma_fence();
+#pragma unroll
+  for (int r = 0; r < V8_WIN; ++r) {
+    const int u = r + u0;
+    if (r >= lo && r <= hi && (!kChecked || (u >= 0 && u < t)))
+      wgmma_rs<N>(acc[r], a, desc_advance(db, u * N * V8_PIXEL));
+  }
+  wgmma_commit();
+}
+
+// The products of one v for patch rows pr in [p0, p1), in order, two A
+// fragments alternating, each (r, u) tested; a_base is the address of
+// patch row p0.
+template <int N>
+__device__ __forceinline__ void v8_rows_checked(float (&acc)[V8_WIN][N / 2],
+                                                uint32_t a_base,
+                                                int row_bytes, uint64_t db,
+                                                int p0, int p1, int rows,
+                                                int half_t) {
   const int t = 2 * half_t + 1;
-  const int tk = k * t;
-  const int ichunks = (k + KM - 1) / KM;
+  const int d = 2 * half_t;
+  uint32_t a0[4], a1[4];
+  for (int pr = p0; pr < p1; pr += 2) {
+    v8_row<N, true>(acc, a0, a_base + (pr - p0) * row_bytes, db, d - pr, 0,
+                    rows - 1, t);
+    if (pr + 1 < p1)
+      v8_row<N, true>(acc, a1, a_base + (pr + 1 - p0) * row_bytes, db,
+                      d - pr - 1, 0, rows - 1, t);
+  }
+  wgmma_wait<0>();
+}
+
+// All products of one v for the window: patch rows pr = 0 .. rows+2h-1 in
+// order, two A fragments alternating. A full window (8 rows, 2h >= 7) runs
+// as a head (pr < 7: rows 0..pr), a body (pr = 7..2h: every row) and a
+// tail (pr > 2h: rows pr-2h..7) of unconditional products; any other
+// window checks each (r, u). Either way each row sums its products in the
+// same order (u descending).
+template <int N>
+__device__ __forceinline__ void v8_products(float (&acc)[V8_WIN][N / 2],
+                                            uint32_t a_base, int row_bytes,
+                                            uint64_t db, int rows,
+                                            int half_t) {
+  constexpr int kRamp = V8_WIN - 1;
+  const int t = 2 * half_t + 1;
+  const int d = 2 * half_t;
+  uint32_t a0[4], a1[4];
+  if (rows == V8_WIN && d >= kRamp) {
+#pragma unroll
+    for (int q = 0; q < kRamp; q += 2) {  // head: pr = q, rows 0..q
+      v8_row<N, false>(acc, a0, a_base + q * row_bytes, db, d - q, 0, q, t);
+      if (q + 1 < kRamp)
+        v8_row<N, false>(acc, a1, a_base + (q + 1) * row_bytes, db,
+                         d - q - 1, 0, q + 1, t);
+    }
+    wgmma_wait<0>();
+    int pr = kRamp;
+    for (; pr + 1 <= d; pr += 2) {  // body: every row
+      v8_row<N, false>(acc, a0, a_base + pr * row_bytes, db, d - pr, 0,
+                       V8_WIN - 1, t);
+      v8_row<N, false>(acc, a1, a_base + (pr + 1) * row_bytes, db,
+                       d - pr - 1, 0, V8_WIN - 1, t);
+    }
+    if (pr <= d)
+      v8_row<N, false>(acc, a0, a_base + pr * row_bytes, db, d - pr, 0,
+                       V8_WIN - 1, t);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < kRamp; q += 2) {  // tail: pr = 2h+1+q, rows q+1..7
+      v8_row<N, false>(acc, a0, a_base + (d + 1 + q) * row_bytes, db,
+                       -1 - q, q + 1, V8_WIN - 1, t);
+      if (q + 1 < kRamp)
+        v8_row<N, false>(acc, a1, a_base + (d + 2 + q) * row_bytes, db,
+                         -2 - q, q + 2, V8_WIN - 1, t);
+    }
+    wgmma_wait<0>();
+  } else {
+    v8_rows_checked<N>(acc, a_base, row_bytes, db, 0, rows + d, rows,
+                       half_t);
+  }
+}
+
+template <int N, bool kSliced>
+__global__ void __launch_bounds__(V8_THREADS)
+dgrad_v8_kernel(const bf16* __restrict__ gc, const bf16* __restrict__ oc,
+                float* __restrict__ dx, int k, int h, int w, int half_t,
+                int rb, int slab) {
+  const int t = 2 * half_t + 1;
+  const int jchunks = (k + V8_CH - 1) / V8_CH;
+  const int ichunks = (k + N - 1) / N;
   const int img = blockIdx.z / ichunks;
-  const int i0 = (blockIdx.z - img * ichunks) * KM;
-  const int y0 = blockIdx.y * rb;
-  const int x0 = blockIdx.x * tw;
-  const int pw = tw + 2 * half_t;
-  const int ph = rb + 2 * half_t;
+  const int ic = blockIdx.z - img * ichunks;
+  const int i0 = ic * N;
+  const int x0 = blockIdx.x * V8_PIX;
+  const int y_begin = blockIdx.y * rb;
+  const int y_end = min(y_begin + rb, h);
+  const int pw = V8_PIX + 2 * half_t;
+  const int chunk_bytes = v8_chunk_bytes(N, t);
   const size_t plane = static_cast<size_t>(h) * w;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* gs = reinterpret_cast<bf16*>(smem);  // [u][v][KM]
-  bf16* patch = gs + t * t * KM;             // [ph][pw]
+  float* epi = reinterpret_cast<float*>(smem);  // reuses the patch
+  unsigned char* bufs = smem + v8_region_bytes(N, half_t, slab);
+  const uint32_t patch = smem_addr(smem);
 
   const int tid = threadIdx.x;
-  const int ty = tid / cols;
-  const int tx = tid - ty * cols;  // pixel p of this thread: column tx+cols*p
+  const int warp = tid / 32, lane = tid % 32;
+  // this lane's ldmatrix row: pixel 16 warp + lane % 16, channels 8 (lane/16)
+  const int lpix = 16 * warp + (lane & 15);
+  const int lhalf = lane >> 4;
 
-  float acc[KM][PX];
-#pragma unroll
-  for (int a = 0; a < KM; ++a)
-#pragma unroll
-    for (int p = 0; p < PX; ++p) acc[a][p] = 0.f;
+  // The adjoint chunk of (jc, v): T core-matrix tiles B(u), 16 x N each.
+  auto stage_chunk = [&](int jc, int v, int buf) {
+    const bf16* src = gc + (static_cast<size_t>(ic * jchunks + jc) * t + v)
+                               * t * N * V8_CH;
+    const uint32_t dst = smem_addr(bufs + buf * chunk_bytes);
+    for (int e = tid; e < chunk_bytes / 16; e += V8_THREADS)
+      cp_async_16(dst + 16 * e, src + 8 * e, 16);
+  };
 
-  for (int j = 0; j < k; ++j) {
-    __syncthreads();  // previous channel's tiles fully consumed
-    for (int e = tid; e < t * t * KM; e += kThreads) {
-      const int ii = e % KM;
-      const int uv = e / KM;
-      const int u = uv / t, v = uv - (uv / t) * t;
-      const int i = i0 + ii;
-      gs[e] = (i < k) ? g2d[static_cast<size_t>(v * k + i) * tk + u * k + j]
-                      : bf16_zero();
+  for (int wy = y_begin; wy < y_end; wy += V8_WIN) {
+    const int rows = min(V8_WIN, y_end - wy);
+    const int ph = rows + 2 * half_t;
+    float acc[V8_WIN][N / 2];
+#pragma unroll
+    for (int r = 0; r < V8_WIN; ++r)
+#pragma unroll
+      for (int e = 0; e < N / 2; ++e) acc[r][e] = 0.f;
+
+    for (int jc = 0; jc < jchunks; ++jc) {
+      __syncthreads();  // the previous patch or epilogue tile fully read
+      const bf16* src_c = oc + static_cast<size_t>(img * jchunks + jc)
+                                   * plane * V8_CH;
+      // Stages patch rows p0 .. p0+n_rows-1 (patch row q is image row
+      // wy - h + q), pixels x_lo .. x_lo+n_cols-1 of channel chunk jc at
+      // `dst`, zero outside the frame; the two 16-byte halves of a pixel
+      // swap places when bit 2 of its column is set, so that the eight rows
+      // an ldmatrix phase reads fall in distinct banks.
+      auto stage_patch_rows = [&](uint32_t dst, int p0, int n_rows,
+                                  int x_lo, int n_cols) {
+        for (int e = tid; e < n_rows * n_cols * 2; e += V8_THREADS) {
+          const int pr = e / (2 * n_cols);
+          const int rem = e - pr * 2 * n_cols;
+          const int pc = rem >> 1, c = rem & 1;
+          const int yy = wy - half_t + p0 + pr, xx = x_lo + pc;
+          const bool in = yy >= 0 && yy < h && xx >= 0 && xx < w;
+          const bf16* src = in ? src_c + (static_cast<size_t>(yy) * w + xx)
+                                             * V8_CH + 8 * c
+                               : src_c;
+          cp_async_16(dst + (pr * n_cols + pc) * V8_PIXEL
+                          + 16 * (c ^ ((pc >> 2) & 1)),
+                      src, in ? 16 : 0);
+        }
+      };
+
+      if constexpr (!kSliced) {
+        // The whole patch: rows wy-h .. wy+rows-1+h, pixels x0-h .. x0+63+h.
+        stage_patch_rows(patch, 0, ph, x0 - half_t, pw);
+        stage_chunk(jc, 0, 0);
+        cp_async_commit();
+        for (int v = 0; v < t; ++v) {
+          cp_async_wait_all();
+          fence_proxy_async();
+          __syncthreads();  // chunk v (and the patch) visible to every thread
+          if (v + 1 < t) {  // its buffer's products retired at the end of v-1
+            stage_chunk(jc, v + 1, (v + 1) & 1);
+            cp_async_commit();
+          }
+          const uint64_t db = smem_desc(bufs + (v & 1) * chunk_bytes,
+                                        128 * (N / 8), 128);
+          // A(pr, v): the 64 pixels at patch column p + 2h - v of row pr
+          const int col = lpix + 2 * half_t - v;
+          v8_products<N>(acc, patch + col * V8_PIXEL
+                                  + 16 * (lhalf ^ ((col >> 2) & 1)),
+                         pw * V8_PIXEL, db, rows, half_t);
+        }
+      } else {
+        // A patch too large for shared memory: for each v only the 64
+        // pixels x0+h-v .. x0+h-v+63 that A(., v) reads, in slabs of `slab`
+        // patch rows: the same products in the same order as the whole
+        // patch's, so both forms give the same bits.
+        stage_chunk(jc, 0, 0);
+        cp_async_commit();
+        const uint32_t a_row = patch + lpix * V8_PIXEL
+                               + 16 * (lhalf ^ ((lpix >> 2) & 1));
+        for (int v = 0; v < t; ++v) {
+          const uint64_t db = smem_desc(bufs + (v & 1) * chunk_bytes,
+                                        128 * (N / 8), 128);
+          for (int p0 = 0; p0 < ph; p0 += slab) {
+            const int n_rows = min(slab, ph - p0);
+            __syncthreads();  // the previous slab's fragments loaded
+            stage_patch_rows(patch, p0, n_rows, x0 + half_t - v, V8_PIX);
+            cp_async_commit();
+            cp_async_wait_all();
+            fence_proxy_async();
+            __syncthreads();  // the slab and chunk v visible to every thread
+            if (p0 == 0 && v + 1 < t) {  // buffer's products retired in v-1
+              stage_chunk(jc, v + 1, (v + 1) & 1);
+              cp_async_commit();
+            }
+            v8_rows_checked<N>(acc, a_row, V8_PIX * V8_PIXEL, db, p0,
+                               p0 + n_rows, rows, half_t);
+          }
+        }
+      }
     }
-    stage_patch(patch, oth + (static_cast<size_t>(img) * k + j) * plane, y0,
-                x0, ph, pw, h, w, half_t, tid, kThreads);
+
+    // Epilogue: acc through shared memory, then each channel's row of 64
+    // pixels leaves as one coalesced f32 row of dx.
     __syncthreads();
-
-    const bf16* prow = patch + (ty + 2 * half_t) * pw + tx + 2 * half_t;
-    for (int v = 0; v < t; ++v)
-      accumulate<KM, PX>(acc, gs + v * KM, t * KM, prow - v, t, pw, cols);
-  }
-
-  const int y = y0 + ty;
-  if (y >= h) return;
+    const int prow = 16 * warp + lane / 4;
 #pragma unroll
-  for (int a = 0; a < KM; ++a) {
-    const int i = i0 + a;
-    if (i >= k) continue;
-    float* row = dx + (static_cast<size_t>(img) * k + i) * plane
-                 + static_cast<size_t>(y) * w;
+    for (int r = 0; r < V8_WIN; ++r) {
+      if (r >= rows) continue;
 #pragma unroll
-    for (int p = 0; p < PX; ++p) {
-      const int x = x0 + tx + cols * p;
-      if (x < w) row[x] = acc[a][p];
+      for (int e = 0; e < N / 2; ++e) {
+        const int p = prow + 8 * ((e >> 1) & 1);
+        const int i = 8 * (e >> 2) + 2 * (lane % 4) + (e & 1);
+        epi[(r * N + i) * V8_EPI_PITCH + p] = acc[r][e];
+      }
+    }
+    __syncthreads();
+    const int n_valid = min(N, k - i0);
+    for (int e = tid; e < rows * n_valid * V8_PIX; e += V8_THREADS) {
+      const int p = e % V8_PIX;
+      const int ri = e / V8_PIX;
+      const int r = ri / n_valid, i = ri - r * n_valid;
+      const int x = x0 + p;
+      if (x < w)
+        dx[(static_cast<size_t>(img) * k + i0 + i) * plane
+           + static_cast<size_t>(wy + r) * w + x] =
+            epi[(r * N + i) * V8_EPI_PITCH + p];
     }
   }
 }
 
-template <int KM, int PX>
-int launch_dgrad_v8(const bf16* g2d, const bf16* oth, float* dx, int n, int k,
-                    int h, int w, int half_t, int rb, cudaStream_t stream) {
-  if (rb < 1 || kThreads % rb != 0)
+template <int N>
+int launch_dgrad_v8(const bf16* gc, const bf16* oc, float* dx, int n, int k,
+                    int h, int w, int half_t, int rb, int slab,
+                    cudaStream_t stream) {
+  if (rb < 1 || n < 1 || k < 1 || half_t < 0 || slab < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int t = 2 * half_t + 1;
-  const int tw = kThreads / rb * PX;
-  const size_t smem = sizeof(bf16) *
-      (static_cast<size_t>(t) * t * KM
-       + static_cast<size_t>(rb + 2 * half_t) * (tw + 2 * half_t));
+  const int smem = v8_smem(N, half_t, slab);
+  auto kernel = slab ? dgrad_v8_kernel<N, true> : dgrad_v8_kernel<N, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      dgrad_v8_kernel<KM, PX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return refused(err);
-  const int ichunks = (k + KM - 1) / KM;
-  dim3 grid((w + tw - 1) / tw, (h + rb - 1) / rb, n * ichunks);
-  dgrad_v8_kernel<KM, PX><<<grid, kThreads, smem, stream>>>(
-      g2d, oth, dx, k, h, w, half_t, rb);
+  const int ichunks = (k + N - 1) / N;
+  dim3 grid((w + V8_PIX - 1) / V8_PIX, (h + rb - 1) / rb, n * ichunks);
+  kernel<<<grid, V8_THREADS, smem, stream>>>(gc, oc, dx, k, h, w, half_t, rb,
+                                             slab);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -332,16 +571,23 @@ int launch_fused_v7(const bf16* g2d_1, const bf16* g2d_2, const bf16* x1,
 
 extern "C" {
 
-// X8: g2d (kT, kT) bf16 with g2d[(v,i),(u,j)] = g[i,j,u,v]; other (n, k, h,
-// w) bf16 and dx (n, k, h, w) f32, contiguous; rb tile rows, dividing 256.
-int joint_exp_dgrad_v8(const void* g2d, const void* other, float* dx, int n,
-                       int k, int h, int w, int half_t, int rb,
+// X8: gc the adjoint in chunks, (ceil(k/N), ceil(k/16), T v, T u) tiles of
+// 16 x N bf16 in the K-major layout without swizzle (core matrix (i/8, j/8)
+// at ((j/8) * N/8 + i/8) * 128 bytes), N = 8 for k <= 8 and 16 above, with
+// tile (ic, jc, v, u)[i, j] = g2d[(v, N ic + i), (u, 16 jc + j)], zero past
+// k; oc the other input channels-last, (n, ceil(k/16), h, w, 16) bf16, zero
+// past k; dx (n, k, h, w) f32; all contiguous. rb >= 1 tile rows; slab 0
+// stages the whole patch, slab > 0 each v's 64 columns in slabs of that
+// many rows.
+int joint_exp_dgrad_v8(const void* gc, const void* oc, float* dx, int n,
+                       int k, int h, int w, int half_t, int rb, int slab,
                        cudaStream_t stream) {
-  const auto* g = static_cast<const bf16*>(g2d);
-  const auto* o = static_cast<const bf16*>(other);
-  if (k <= 4)
-    return launch_dgrad_v8<4, 8>(g, o, dx, n, k, h, w, half_t, rb, stream);
-  return launch_dgrad_v8<16, 4>(g, o, dx, n, k, h, w, half_t, rb, stream);
+  const auto* g = static_cast<const bf16*>(gc);
+  const auto* o = static_cast<const bf16*>(oc);
+  if (k <= 8)
+    return launch_dgrad_v8<8>(g, o, dx, n, k, h, w, half_t, rb, slab,
+                              stream);
+  return launch_dgrad_v8<16>(g, o, dx, n, k, h, w, half_t, rb, slab, stream);
 }
 
 // X9: g2d_1, g2d_2 (kT, kT) bf16, the adjoints of dx1 and dx2; x1, x2

@@ -25,16 +25,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS = {}
 BUILD_SECONDS = {}  # name -> seconds nvcc took in this process (0.0: cached)
+LIB_PATHS = {}      # name -> the loaded library's path
 
 
-def _nvcc():
+def cuda_tool(name="nvcc"):
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     cands = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                          "bin", "nvcc"), shutil.which("nvcc")]
+                          "bin", name), shutil.which(name)]
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
-                       "toolkit (set CUDA_HOME)")
+    raise RuntimeError(f"{name} not found: the CUDA kernels need the CUDA "
+                       f"toolkit (set CUDA_HOME)")
 
 
 def library(name):
@@ -50,7 +52,7 @@ def library(name):
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [cuda_tool(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
@@ -58,5 +60,6 @@ def library(name):
             print(proc.stderr.strip())
         os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    LIB_PATHS[name] = out
     _LIBS[name] = ctypes.CDLL(str(out))
     return _LIBS[name]

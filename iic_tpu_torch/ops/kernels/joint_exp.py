@@ -51,11 +51,15 @@ FORMS = ("mk-nk", "mk-kn")
 _MODE_IDS = {"full": 0, "rank3": 0, "mm-only": 1, "copies-only": 2,
              "aligned-copies": 3}
 _WL = 128        # the TPU tool's lane width: X1's row tiles are rb x 128
-_TILE = 64       # output tile edge (csrc/joint_exp.cu TILE)
+_TILE = 64       # X2's and K1's output tile edge (csrc/joint_exp.cu TILE)
 _BQ = 8          # image columns per shared-memory pass (BQ)
 _SMEM_BLOCK = 232448  # shared memory a block may use on the H100
 # X2's limit: less its kernel's 1.5 KB of static tables
 _SMEM_LIMIT = _SMEM_BLOCK - 1536
+_PROBE_M, _PROBE_N = 64, 160  # X1's output tile (csrc/joint_exp.cu PROBE_*)
+_PROBE_GUARD = 1024           # zeroed bytes after each X1 tile
+_V8_WIN, _V8_PIX, _V8_CH = 8, 64, 16  # X8's window rows, tile pixels, chunk
+_V8_EPI_PITCH = _V8_PIX + 4
 _V7_ROWS = 16  # X9's tile rows (csrc/joint_exp_bwd.cu V7_ROWS; the TPU _RB)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
 
@@ -65,11 +69,17 @@ def reset_launch_counts():
         LAUNCHES[name] = 0
 
 
-def stage_bytes(rb, form="mk-nk"):
-    """Dynamic shared memory of one block (csrc/joint_exp.cu stage_bytes):
-    the A tile (64, 8*rb + 2) and the B tile, both bf16."""
-    a = 2 * _TILE * (_BQ * rb + 2)
-    return a + (2 * _BQ * rb * (_TILE + 2) if form == "mk-kn" else a)
+def stage_bytes(rb):
+    """X2's dynamic shared memory (csrc/joint_exp.cu stage_bytes): the A
+    and B tiles, (64, 8*rb + 2) bf16 each."""
+    return 2 * 2 * _TILE * (_BQ * rb + 2)
+
+
+def probe_smem(rb):
+    """X1's dynamic shared memory (csrc/joint_exp.cu probe_smem): the
+    (64, 8*rb) A and (160, 8*rb) B tiles of bf16 ones, each followed by a
+    zeroed guard."""
+    return 2 * (_PROBE_M + _PROBE_N) * _BQ * rb + 2 * _PROBE_GUARD
 
 
 def _check_shift(half_t, rb):
@@ -85,57 +95,91 @@ def _check_lanes(half_t):
         raise ValueError(f"half_t={half_t}: need 2*half_t <= {_WL}")
 
 
-def check_args(half_t, rb, form="mk-nk"):
-    """The TPU tool's asserts (2*half_t <= 128 and 2*half_t <= 2*rb) and
-    this card's limit: one pass of rb rows must fit a block's shared
+def _check_smem(name, need, limit=_SMEM_BLOCK):
+    if need > limit:
+        raise ValueError(f"{name}: a block needs {need} bytes of shared "
+                         f"memory, over the {limit} a block can use")
+
+
+def check_args(half_t, rb):
+    """X2's limits: the TPU tool's asserts (2*half_t <= 128 and 2*half_t <=
+    2*rb) and this card's: one pass of rb rows must fit a block's shared
     memory."""
+    _check_shift(half_t, rb)
+    _check_smem(f"rb={rb}: a pass", stage_bytes(rb), _SMEM_LIMIT)
+
+
+def check_probe(half_t, rb, form):
+    """X1's limits: the TPU tool's asserts, rb even (a pass of depth 8*rb is
+    rb/2 whole k16 steps) and its two tiles in a block's shared memory."""
     if form not in FORMS:
         raise ValueError(f"form {form!r}: expected one of {FORMS}")
     _check_shift(half_t, rb)
-    if stage_bytes(rb, form) > _SMEM_LIMIT:
-        raise ValueError(f"rb={rb}: a pass needs {stage_bytes(rb, form)} "
-                         f"bytes of shared memory, over the {_SMEM_LIMIT} a "
-                         f"block can use")
+    if rb % 2:
+        raise ValueError(f"rb={rb}: X1 needs an even rb (a pass is rb/2 "
+                         f"k16 steps)")
+    _check_smem(f"mm_probe rb={rb}", probe_smem(rb))
 
 
-def _tiles(k):
-    """(KM, PX) of X8 and of X9 (csrc/joint_exp_bwd.cu): output channels
-    per block and pixels per thread."""
-    return ((4, 8), (4, 16)) if k <= 4 else ((16, 4), (16, 4))
+def _v8_cols(k):
+    """X8's N: output channels a block owns, k padded to 8 or 16."""
+    return 8 if k <= 8 else 16
 
 
-def dgrad_v8_smem(k, half_t, rb):
-    """X8's dynamic shared memory: the bf16 adjoint chunk (T, T, KM) and
-    the bf16 patch (rb + 2h) x (256/rb * PX + 2h)."""
-    (km, px), _ = _tiles(k)
-    t = 2 * half_t + 1
-    return 2 * (t * t * km + (rb + 2 * half_t) * (256 // rb * px
-                                                   + 2 * half_t))
+def _v8_smem(n_cols, half_t, slab):
+    """X8's dynamic shared memory (csrc/joint_exp_bwd.cu v8_smem): the
+    channels-last patch of 32-byte pixels, whole ((8 + 2h) rows x (64 + 2h)
+    pixels) at slab 0, else one slab of ``slab`` rows x 64 pixels, whose
+    memory the (8, N, 68) f32 epilogue tile reuses, and two adjoint chunks
+    of T tiles of 16 x N bf16."""
+    pixels = (slab * _V8_PIX if slab else
+              (_V8_WIN + 2 * half_t) * (_V8_PIX + 2 * half_t))
+    epi = _V8_WIN * n_cols * _V8_EPI_PITCH * 4
+    region = -(-max(pixels * 2 * _V8_CH, epi) // 128) * 128
+    return region + 2 * (2 * half_t + 1) * n_cols * 2 * _V8_CH
+
+
+def dgrad_v8_slab(k, half_t):
+    """X8's patch plan: 0 when the whole patch fits a block's shared memory
+    (h <= 22 at k > 8, h <= 24 at k <= 8), else the most patch rows a slab
+    can hold, in which a block stages, for each v, only the 64 columns that
+    v reads."""
+    n_cols = _v8_cols(k)
+    if _v8_smem(n_cols, half_t, 0) <= _SMEM_BLOCK:
+        return 0
+    slab = _V8_WIN + 2 * half_t
+    while slab > 1 and _v8_smem(n_cols, half_t, slab) > _SMEM_BLOCK:
+        slab -= 1
+    return slab
+
+
+def dgrad_v8_smem(k, half_t):
+    """X8's dynamic shared memory under its patch plan
+    (``dgrad_v8_slab``). It does not depend on rb."""
+    return _v8_smem(_v8_cols(k), half_t, dgrad_v8_slab(k, half_t))
+
+
+def _v7_tiles(k):
+    """(KM, PX) of X9 (csrc/joint_exp_bwd.cu): output channels per block
+    and pixels per thread."""
+    return (4, 16) if k <= 4 else (16, 4)
 
 
 def fused_v7_smem(k, half_t):
     """X9's dynamic shared memory: one adjoint column (k, T, KM) and all k
     patches (16 + 2h) x (8 PX + 2h), bf16."""
-    _, (km, px) = _tiles(k)
+    km, px = _v7_tiles(k)
     t = 2 * half_t + 1
     return 2 * k * (t * km + (_V7_ROWS + 2 * half_t) * (8 * px
                                                         + 2 * half_t))
 
 
-def _check_smem(name, need):
-    if need > _SMEM_BLOCK:
-        raise ValueError(f"{name}: a block needs {need} bytes of shared "
-                         f"memory, over the {_SMEM_BLOCK} a block can use")
-
-
 def check_dgrad_v8(k, half_t, rb):
-    """X8's limits: the TPU tool's asserts, rb tile rows dividing the
-    block's 256 threads, and the block's shared memory."""
+    """X8's limits: the TPU tool's asserts and the block's shared memory,
+    which its patch plan keeps under the limit for every h they admit. Any
+    rb >= 1 tiles the rows: a block walks its rb rows in windows of 8."""
     _check_shift(half_t, rb)
-    if 256 % rb:
-        raise ValueError(f"rb={rb}: X8's tile rows must divide 256")
-    _check_smem(f"dgrad_v8 k={k} half_t={half_t} rb={rb}",
-                dgrad_v8_smem(k, half_t, rb))
+    _check_smem(f"dgrad_v8 k={k} half_t={half_t}", dgrad_v8_smem(k, half_t))
 
 
 def check_fused_v7(k, half_t):
@@ -318,6 +362,8 @@ def _lib():
         lib.joint_exp_fwd_v2.restype = i
         lib.joint_exp_mm_probe.argtypes = [p, p] + [i] * 6 + [p]
         lib.joint_exp_mm_probe.restype = i
+        lib.joint_exp_mm_probe_slots.argtypes = [i, i]
+        lib.joint_exp_mm_probe_slots.restype = i
         lib.joint_exp_fwd_v8.argtypes = [p, p, p, p] + [i] * 7 + [p]
         lib.joint_exp_fwd_v8.restype = i
         lib._typed = True
@@ -342,7 +388,7 @@ def _bwd_lib():
     lib = _build.library("joint_exp_bwd")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.joint_exp_dgrad_v8.argtypes = [p, p, p] + [i] * 6 + [p]
+        lib.joint_exp_dgrad_v8.argtypes = [p, p, p] + [i] * 7 + [p]
         lib.joint_exp_dgrad_v8.restype = i
         lib.joint_exp_dgrad_fused_v7.argtypes = [p] * 6 + [i] * 5 + [p]
         lib.joint_exp_dgrad_fused_v7.restype = i
@@ -497,21 +543,46 @@ def joint_fwd_v6(x1, x2, half_t, roll_build=False):
                         to=torch.float32)
 
 
+def dgrad_v8_operands(g2d, other, half_t):
+    """X8's operands in the layouts its kernel reads (csrc/joint_exp_bwd.cu),
+    both bf16 and zero past k: ``gc``, the adjoint as (i chunk, j chunk, v,
+    u) tiles B(u, v)[j, i] = G[(v, i), (u, j)] of 16 x N, N = 8 for k <= 8
+    and 16 above, each in wgmma's K-major layout without swizzle (core
+    matrix (i/8, j/8) at ((j/8) * N/8 + i/8) * 128 bytes); and ``oc``,
+    ``other`` channels-last in chunks of 16 channels, (n, ceil(k/16), h, w,
+    16). A plain permute and pad, as the TPU tool's ``jnp.pad``."""
+    n, k, h, w = other.shape
+    t = 2 * half_t + 1
+    n_cols = _v8_cols(k)
+    ic, jc = -(-k // n_cols), -(-k // _V8_CH)
+    g = F.pad(g2d.to(torch.bfloat16).reshape(t, k, t, k),  # [v, i, u, j]
+              (0, jc * _V8_CH - k, 0, 0, 0, ic * n_cols - k))
+    gc = (g.reshape(t, ic, n_cols // 8, 8, t, jc, 2, 8)
+          .permute(1, 5, 0, 4, 6, 2, 3, 7).contiguous())
+    o = F.pad(other.to(torch.bfloat16).permute(0, 2, 3, 1),
+              (0, jc * _V8_CH - k))  # (n, h, w, 16 jc)
+    oc = (o.reshape(n, h, w, jc, _V8_CH).permute(0, 3, 1, 2, 4)
+          .contiguous())
+    return gc, oc
+
+
 def dgrad_v8(g2d, other, half_t, rb=16):
     """X8: the gradient for the column-shifted operand with the adjoint
     ``g2d`` (kT, kT) and ``other`` (n, k, h, w) rounded to bf16, f32
     accumulation, in the unpadded frame (``seg_joint.dgrad_plain``'s
-    contract); ``rb`` is the tile rows of a block."""
+    contract); ``rb`` is the tile rows of a block. On the card the products
+    run on the tensor cores over the operands of ``dgrad_v8_operands``."""
     check_dgrad_v8(other.shape[1], half_t, rb)
     if not _on_cuda("dgrad_v8", g2d, other):
         return dgrad_v8_plain(g2d, other, half_t)
     o = _as_input("other", other)
     n, k, h, w = other.shape
     g = _adjoint_bf16("g2d", g2d, k * (2 * half_t + 1))
+    gc, oc = dgrad_v8_operands(g, o, half_t)
     dx = torch.empty((n, k, h, w), device=other.device)
     err = _bwd_lib().joint_exp_dgrad_v8(
-        g.data_ptr(), o.data_ptr(), dx.data_ptr(), n, k, h, w, half_t, rb,
-        _stream(other.device))
+        gc.data_ptr(), oc.data_ptr(), dx.data_ptr(), n, k, h, w, half_t, rb,
+        dgrad_v8_slab(k, half_t), _stream(other.device))
     if err != 0:
         raise RuntimeError(f"dgrad_v8 launch failed: CUDA error {err}")
     LAUNCHES["dgrad_v8"] += 1
@@ -560,25 +631,53 @@ def probe_passes(n, h, half_t, rb):
     return n * (t_hi - t_lo) * (rb * _WL) // (_BQ * rb)
 
 
+def probe_wgmmas(rb):
+    """X1's wgmma k16 steps per pass of depth 8*rb."""
+    return _BQ * rb // 16
+
+
+def probe_tiles(tk):
+    """X1's 64 x 160 output tiles over (kT, kT)."""
+    return -(-tk // _PROBE_M) * -(-tk // _PROBE_N)
+
+
+def probe_split(passes, tiles, slots):
+    """(splits, per): X1's passes cut into chunks of ``per`` so that its
+    tiles x splits blocks fill one wave of the ``slots`` blocks the card
+    holds at once (``joint_exp_mm_probe_slots``): a second, partial wave
+    would leave SMs idle at the end."""
+    want = max(1, min(passes, slots // tiles))
+    per = -(-passes // want)
+    return -(-passes // per), per
+
+
 def mm_probe(n, k, h, half_t, rb, form, device):
     """X1: X2's stack product alone, over tiles of bf16 ones filled at
     block start and with no input, for the TPU probe's count of products;
-    ``form`` stages the B tile (N, K) ("mk-nk") or (K, N) ("mk-kn").
-    Returns (kT, kT), every entry the count of terms issued."""
-    check_args(half_t, rb, form)
+    on the card it runs on the tensor cores, with the B tile K-major
+    ("mk-nk") or MN-major ("mk-kn"). Returns (kT, kT), every entry the count
+    of terms issued."""
+    check_probe(half_t, rb, form)
     device = torch.device(device)
     if device.type == "cpu":
         return mm_probe_plain(n, k, h, half_t, rb, device)
     if device.type != "cuda":
         raise ValueError(f"mm_probe: device {device}")
     tk = k * (2 * half_t + 1)
+    kn = int(form == "mk-kn")
+    lib = _lib()
+    with torch.cuda.device(device):
+        slots = lib.joint_exp_mm_probe_slots(rb, kn)
+    if slots < 1:
+        raise RuntimeError(f"mm_probe: no block fits at rb={rb} (CUDA "
+                           f"error {-slots})")
     passes = probe_passes(n, h, half_t, rb)
-    splits, per = _split(passes, (-(-tk // _TILE)) ** 2)
+    splits, per = probe_split(passes, probe_tiles(tk), slots)
     part = torch.empty((splits, tk, tk), device=device)
     out = torch.empty((tk, tk), device=device)
-    err = _lib().joint_exp_mm_probe(
-        part.data_ptr(), out.data_ptr(), tk, rb, int(form == "mk-kn"),
-        passes, per, splits, _stream(device))
+    err = lib.joint_exp_mm_probe(
+        part.data_ptr(), out.data_ptr(), tk, rb, kn, passes, per, splits,
+        _stream(device))
     if err != 0:
         raise RuntimeError(f"mm_probe launch failed: CUDA error {err}")
     LAUNCHES["mm_probe"] += 1

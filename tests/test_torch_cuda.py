@@ -284,10 +284,13 @@ def test_x2_rb_and_input_type(gpu):
 @pytest.mark.parametrize("form", jx.FORMS)
 @pytest.mark.parametrize("n,k,h,half_t,rb", [(2, 7, 16, 10, 16),
                                              (3, 15, 128, 10, 32),
-                                             (1, 3, 20, 4, 64)])
+                                             (1, 3, 20, 4, 64),
+                                             (1, 17, 16, 10, 16)])
 def test_x1_counts_the_terms(gpu, form, n, k, h, half_t, rb):
-    """X1 multiplies tiles of ones: every entry is the count of terms it
-    issued, exactly its plain version's (integers under 2^24)."""
+    """X1 multiplies tiles of ones on the tensor cores: every entry is the
+    count of terms it issued, exactly its plain version's (integers under
+    2^24). kT = 147, 315, 27 and 357 fill none of the 64 x 160 tiles
+    whole; a descriptor that strays into the zeroed guards falls short."""
     jx.reset_launch_counts()
     out = jx.mm_probe(n, k, h, half_t, rb, form, gpu)
     tk = k * (2 * half_t + 1)
@@ -303,8 +306,8 @@ def test_x1_counts_the_terms(gpu, form, n, k, h, half_t, rb):
 @pytest.mark.cuda
 def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     """Bad input raises before a launch; a launch the C entry points refuse
-    (an unknown mode, a pass over the shared memory) returns a CUDA error
-    code."""
+    (an unknown mode, a pass over the shared memory, X1 at an odd rb)
+    returns a CUDA error code."""
     x = torch.rand(2, 3, 8, 8, device=gpu)
     with pytest.raises(TypeError):
         jx.joint_fwd_v2(x.double(), x.double(), 2)
@@ -318,6 +321,8 @@ def test_x1_x2_refuse_what_they_cannot_launch(gpu):
         jx.joint_fwd_v2(x, x, 2, rb=128)
     with pytest.raises(ValueError, match="shared memory"):
         jx.mm_probe(2, 3, 8, 2, 128, "mk-nk", gpu)
+    with pytest.raises(ValueError, match="even"):
+        jx.mm_probe(2, 3, 8, 2, 17, "mk-kn", gpu)
     lib = jx._lib()
     xb = x.bfloat16()
     part = torch.empty(64 * 64 * 64, device=gpu)
@@ -328,6 +333,14 @@ def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     assert lib.joint_exp_fwd_v2(*args, 128, 0, 1, 16, stream) != 0
     assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 128,
                                   0, 1, 1, 1, stream) != 0
+    assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 17,
+                                  1, 1, 1, 1, stream) != 0
+    # X1's one-wave plan reads the card's slots: 3 blocks an SM at rb=16
+    # (59,392 bytes of tiles each); none at rb=128
+    sms = torch.cuda.get_device_properties(gpu).multi_processor_count
+    assert lib.joint_exp_mm_probe_slots(16, 0) == 3 * sms
+    assert lib.joint_exp_mm_probe_slots(16, 1) == 3 * sms
+    assert lib.joint_exp_mm_probe_slots(128, 0) < 0
 
 
 def _inputs(seed, half_t, n, k, h, w, gpu):
@@ -365,17 +378,70 @@ def test_x7_x8_match_plain(gpu, half_t, n, k, h, w, rb):
 
 @pytest.mark.cuda
 def test_x8_tile_rows_and_input_type(gpu):
-    """Every rb that divides 256 and holds the shifts gives X8 exactly the
-    same gradient: rb moves the tiles, and each pixel's sum runs over
-    (j, v, u) in the same order in every tile; bf16 inputs give exactly
-    what their f32 originals give."""
+    """Every rb that holds the shifts gives X8 exactly the same gradient:
+    rb moves the tiles and the 8-row windows, and each pixel's sum runs
+    over (j chunk, v, u) in the same order in every tile and window; bf16
+    inputs give exactly what their f32 originals give."""
     x1, x2, g = _inputs(3, 2, 2, 5, 40, 36, gpu)
     g2d, _ = sj.adjoints(g)
-    outs = [jx.dgrad_v8(g2d, x2, 2, rb) for rb in (2, 4, 8, 16, 32, 64, 128)]
+    rbs = (2, 3, 4, 8, 16, 24, 32, 64, 128)
+    outs = [jx.dgrad_v8(g2d, x2, 2, rb) for rb in rbs]
     for o in outs[1:]:
         assert torch.equal(o, outs[0])
     assert torch.equal(jx.dgrad_v8(g2d.bfloat16(), x2.bfloat16(), 2, 16),
-                       outs[3])
+                       outs[rbs.index(16)])
+
+
+def _dgrad_v8_slab(g2d, other, half_t, rb, slab):
+    """X8 through its C entry point with the patch plan ``slab`` forced."""
+    n, k, h, w = other.shape
+    gc, oc = jx.dgrad_v8_operands(g2d, other, half_t)
+    dx = torch.empty((n, k, h, w), device=other.device)
+    err = jx._bwd_lib().joint_exp_dgrad_v8(
+        gc.data_ptr(), oc.data_ptr(), dx.data_ptr(), n, k, h, w, half_t, rb,
+        slab, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return dx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,k", [(2, 5), (10, 15), (4, 17)])
+def test_x8_sliced_form_equals_whole_patch(gpu, half_t, k):
+    """X8's sliced form (each v's 64 columns in slabs of patch rows, for h
+    whose whole patch does not fit) runs the same products in the same
+    order as the whole patch: forced at small h, every slab height gives
+    the whole patch's bits, at rb 8, 16 and 24."""
+    _, x2, g = _inputs(7 + k, half_t, 2, k, 30, 70, gpu)
+    g2d, _ = sj.adjoints(g)
+    ph = 8 + 2 * half_t
+    for rb in (8, 16, 24):
+        if rb < half_t:
+            continue
+        whole = _dgrad_v8_slab(g2d, x2, half_t, rb, 0)
+        for slab in (1, 3, 8, ph):
+            assert torch.equal(_dgrad_v8_slab(g2d, x2, half_t, rb, slab),
+                               whole)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,k,h,w", [(23, 15, 30, 70), (25, 3, 28, 66),
+                                          (40, 7, 20, 40),
+                                          (64, 15, 12, 80)])
+def test_x8_large_half_t_matches_plain(gpu, half_t, k, h, w):
+    """From h = 23 (N=16) or 25 (N=8) the wrapper plans slabs: X8 vs its
+    plain version (rtol 1e-4, atol 2e-5 * max, as at small h) up to the TPU
+    tool's largest h, 64, and bit-equal across rb."""
+    assert jx.dgrad_v8_slab(k, half_t) > 0
+    _, x2, g = _inputs(half_t + k, half_t, 1, k, h, w, gpu)
+    g2d, _ = sj.adjoints(g)
+    jx.reset_launch_counts()
+    outs = [jx.dgrad_v8(g2d, x2, half_t, rb)
+            for rb in (half_t, half_t + 5)]
+    assert jx.LAUNCHES == {**_NO_LAUNCH, "dgrad_v8": 2}
+    assert torch.equal(outs[0], outs[1])
+    ref = jx.dgrad_v8_plain(g2d, x2, half_t).cpu().numpy()
+    np.testing.assert_allclose(outs[0].cpu().numpy(), ref, rtol=1e-4,
+                               atol=2e-5 * np.abs(ref).max())
 
 
 def _mean_max(got, ref):
@@ -407,9 +473,10 @@ def test_x9_matches_plain(gpu, half_t, n, k, h, w):
 
 @pytest.mark.cuda
 def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
-    """Bad input raises before a launch; rb that does not divide 256 and
-    shared memory over the block's limit are refused on every device; a
-    launch the C entry point refuses returns a CUDA error code."""
+    """Bad input raises before a launch; rb under the TPU tool's asserts
+    and X9's shared memory over the block's limit are refused on every
+    device; a launch the C entry point refuses (rb 0, a negative slab, a
+    whole patch over the shared memory) returns a CUDA error code."""
     x = torch.rand(2, 3, 8, 8, device=gpu)
     g = torch.rand(3, 3, 5, 5, device=gpu)
     g2d, _ = sj.adjoints(g)
@@ -421,8 +488,8 @@ def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
         jx.dgrad_v8(g2d[:4], x, 2)
     with pytest.raises(TypeError):
         jx.dgrad_v8(g2d.double(), x, 2)
-    with pytest.raises(ValueError, match="divide 256"):
-        jx.dgrad_v8(g2d, x, 2, rb=24)
+    with pytest.raises(ValueError, match="2\\*half_t"):
+        jx.dgrad_v8(g2d, x, 2, rb=1)
     with pytest.raises(ValueError):
         jx.dgrad_fused_v7(g[:2], x, x, 2)
     with pytest.raises(ValueError, match="shared memory"):
@@ -433,9 +500,11 @@ def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
     xb = x.bfloat16()
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream().cuda_stream
-    assert lib.joint_exp_dgrad_v8(g2d.bfloat16().data_ptr(), xb.data_ptr(),
-                                  out.data_ptr(), 2, 3, 8, 8, 2, 24,
-                                  stream) != 0
+    gc, oc = jx.dgrad_v8_operands(g2d, xb, 2)
+    for half_t, rb, slab in ((2, 0, 0), (2, 16, -1), (63, 64, 0)):
+        assert lib.joint_exp_dgrad_v8(gc.data_ptr(), oc.data_ptr(),
+                                      out.data_ptr(), 2, 3, 8, 8, half_t, rb,
+                                      slab, stream) != 0
 
 
 # X3 at every rb and flat, X4 and X5 at every rb, X6 at both roll_build

@@ -151,21 +151,57 @@ def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
 
 
 def test_wrappers_refuse_what_shared_memory_cannot_hold():
-    """A pass of rb rows must fit a block's 227 KB: rb=64 does (132 KB),
-    rb=128 does not; refused before any launch, on every device."""
+    """X2: a pass of rb rows must fit a block's 227 KB: rb=64 does (132
+    KB), rb=128 does not. X1: its (64 + 160) x 8*rb bf16 tiles and two
+    1 KB guards must fit: rb=64 does (231,424 bytes), rb=66 does not; and
+    rb must be even. Refused before any launch, on every device."""
     assert jx.stage_bytes(16) == 2 * 64 * 130 * 2
     assert jx.stage_bytes(64) < 232448 - 1536 < jx.stage_bytes(128)
+    assert jx.probe_smem(16) == (64 + 160) * 128 * 2 + 2048 == 59392
+    assert jx.probe_smem(64) == 231424 <= 232448 < jx.probe_smem(66)
     x = torch.rand(1, 2, 8, 8)
     with pytest.raises(ValueError, match="shared memory"):
         jx.joint_fwd_v2(x, x, 2, rb=128)
     with pytest.raises(ValueError, match="shared memory"):
         jx.mm_probe(1, 2, 8, 2, 128, "mk-kn", "cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        jx.mm_probe(1, 2, 8, 2, 66, "mk-nk", "cpu")
+    with pytest.raises(ValueError, match="even"):
+        jx.mm_probe(1, 2, 8, 2, 17, "mk-nk", "cpu")
     with pytest.raises(ValueError, match="mode"):
         jx.joint_fwd_v2(x, x, 2, mode="v3")
     with pytest.raises(ValueError, match="form"):
         jx.mm_probe(1, 2, 8, 2, 16, "nk-mk", "cpu")
     with pytest.raises(ValueError):
         jx.joint_fwd_v2(x, x.to("meta"), 2)
+
+
+@pytest.mark.parametrize("n,k,h,half_t,rb", [
+    (120, 15, 128, 10, 16), (120, 15, 128, 10, 32), (120, 15, 128, 10, 64),
+    (120, 3, 128, 10, 16), (2, 7, 16, 10, 16), (1, 3, 20, 4, 64)])
+def test_x1_issue_arithmetic(n, k, h, half_t, rb):
+    """X1's launch plan issues exactly the count its plain version states:
+    the passes cut into ``splits`` chunks (the last may be shorter), each
+    pass rb/2 wgmma k16 steps of depth 16, so wgmmas x 16 summed over the
+    splits is every entry's count. The blocks, 64 x 160 tiles x splits,
+    fill one wave of the card's slots: on the H100, 132 SMs x the blocks
+    its 228 KB of shared memory admit at 1 KB reserved each (the tool's
+    default: 10 tiles x 39 splits on 3 x 132 slots)."""
+    tk = k * (2 * half_t + 1)
+    passes = jx.probe_passes(n, h, half_t, rb)
+    slots = 132 * (233472 // (jx.probe_smem(rb) + 1024))
+    splits, per = jx.probe_split(passes, jx.probe_tiles(tk), slots)
+    chunks = [min(per, passes - s * per) for s in range(splits)]
+    assert min(chunks) >= 1 and sum(chunks) == passes
+    wgmmas = [c * jx.probe_wgmmas(rb) for c in chunks]
+    terms = float(jx.mm_probe_plain(n, k, h, half_t, rb, "cpu")[0, 0])
+    assert sum(wgmmas) * 16 == terms
+    assert max(wgmmas) * 16 * splits >= terms > (max(wgmmas) * 16
+                                                 * (splits - 1))
+    assert jx.probe_tiles(tk) * splits <= max(slots, jx.probe_tiles(tk))
+    if (n, k, h, half_t, rb) == (120, 15, 128, 10, 16):
+        assert (jx.probe_tiles(tk), splits, per, slots) == (10, 39, 444, 396)
+        assert terms == 2211840
 
 
 def test_cpu_wrappers_use_plain_and_count_no_launch():

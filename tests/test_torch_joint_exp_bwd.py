@@ -194,26 +194,123 @@ def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
 
 
 def test_wrappers_refuse_what_the_card_cannot_hold():
-    """X8's tile rows must divide its 256 threads; X8's and X9's shared
-    memory must fit a block's 227 KB (the arithmetic of
-    csrc/joint_exp_bwd.cu's header). Refused before any launch, on every
-    device."""
-    assert jx.dgrad_v8_smem(15, 10, 16) == 2 * (21 * 21 * 16 + 36 * 84)
+    """X8's and X9's shared memory must fit a block's 227 KB (the
+    arithmetic of csrc/joint_exp_bwd.cu's header): X8's is the (8 + 2h) x
+    (64 + 2h) channels-last patch of 32-byte pixels and two adjoint chunks
+    of T tiles of 16 x N bf16, whatever rb; X9's is refused before any
+    launch, on every device. X8 takes any rb the TPU tool's asserts admit
+    (a block walks its rb rows in windows of 8), and past the whole patch's
+    limit its sliced plan keeps every h up to 64 in a block's memory."""
+    assert jx.dgrad_v8_smem(15, 10) == 28 * 84 * 32 + 2 * 21 * 16 * 32
+    assert jx.dgrad_v8_smem(15, 10) == 96768
+    assert jx.dgrad_v8_smem(3, 10) == 28 * 84 * 32 + 2 * 21 * 8 * 32
+    assert jx.dgrad_v8_smem(15, 0) == 8 * 16 * 68 * 4 + 2 * 16 * 32
     assert jx.fused_v7_smem(15, 10) == 15 * 36 * 52 * 2 + 21 * 15 * 16 * 2
     assert jx.fused_v7_smem(15, 10) == 66240
     x = torch.rand(1, 2, 8, 8)
     g2d = torch.rand(10, 10)
-    with pytest.raises(ValueError, match="divide 256"):
-        jx.dgrad_v8(g2d, x, 2, rb=24)
-    with pytest.raises(ValueError, match="divide 256"):
-        jx.bwd_v8(torch.rand(2, 2, 5, 5), x, x, 2, rb=3)
+    ref = jx.dgrad_v8(g2d, x, 2, rb=16)
+    for rb in (24, 3):
+        assert torch.equal(jx.dgrad_v8(g2d, x, 2, rb=rb), ref)
     wide = torch.rand(1, 64, 8, 8)
     with pytest.raises(ValueError, match="shared memory"):
         jx.dgrad_fused_v7(torch.rand(64, 64, 21, 21), wide, wide, 10)
-    with pytest.raises(ValueError, match="shared memory"):
-        jx.dgrad_v8(torch.rand(64 * 129, 64 * 129), wide, 64, 64)
+    # k=64, h=64: the whole patch and the chunks would need 313 KB; slabs
+    # of 49 rows x 64 pixels and the chunks take exactly 227 KB
+    assert jx.dgrad_v8_slab(64, 64) == 49
+    assert jx.dgrad_v8_smem(64, 64) == 49 * 64 * 32 + 2 * 129 * 16 * 32
+    assert jx.dgrad_v8_smem(64, 64) == 232448
+    jx.check_dgrad_v8(64, 64, 64)
     with pytest.raises(ValueError):
         jx.dgrad_fused_v7(torch.rand(2, 2, 5, 5), x, x.to("meta"), 2)
+
+
+@pytest.mark.parametrize("k,whole_up_to", [(3, 24), (8, 24), (9, 22),
+                                           (15, 22), (17, 22)])
+def test_x8_patch_plan_keeps_every_h(k, whole_up_to):
+    """X8 stages the whole patch up to h = 22 at N=16 (k > 8) and h = 24 at
+    N=8, and from the next h slabs of each v's 64 columns, as many rows as
+    fit: every h the TPU tool admits (2h <= 128) fits a block's 227 KB, and
+    the wrapper accepts it (run here on the plain version)."""
+    n_cols = 8 if k <= 8 else 16
+    for h in range(65):
+        slab, smem = jx.dgrad_v8_slab(k, h), jx.dgrad_v8_smem(k, h)
+        assert smem <= 232448
+        if h <= whole_up_to:
+            assert slab == 0
+            assert smem == max((8 + 2 * h) * (64 + 2 * h) * 32,
+                               8 * n_cols * 68 * 4) + 2 * (2 * h + 1) * (
+                                   n_cols * 32)
+        else:
+            assert 1 <= slab <= 8 + 2 * h
+            assert jx._v8_smem(n_cols, h, slab + 1) > 232448 or (
+                slab == 8 + 2 * h)
+    # the first h past the whole patch: its patch and chunks exceed 227 KB
+    h = whole_up_to + 1
+    assert ((8 + 2 * h) * (64 + 2 * h) * 32 + 2 * (2 * h + 1) * n_cols * 32
+            > 232448)
+    rng = np.random.default_rng(k)
+    t = 2 * h + 1
+    other = torch.from_numpy(rng.random((1, k, 6, 5)).astype(np.float32))
+    g2d = torch.from_numpy(rng.standard_normal((k * t, k * t))
+                           .astype(np.float32))
+    got = jx.dgrad_v8(g2d, other, h, rb=h)
+    ref = jx.dgrad_v8_plain(g2d, other, h)
+    assert torch.equal(got, ref)
+
+
+def _v8_gemm(g2d, other, half_t):
+    """X8's index algebra restated in plain PyTorch from the operands in the
+    layouts its kernel reads (``dgrad_v8_operands``): channels-last with j
+    padded to 16, the adjoint in (i chunk, j chunk, v, u) tiles of 16 x N
+    (N padded), decoded from wgmma's core-matrix layout, and one GEMM step
+    (pixels x 16) @ (16 x N) per displacement (u, v) and chunk pair."""
+    n, k, h, w = other.shape
+    gc, oc = jx.dgrad_v8_operands(g2d, other, half_t)
+    ic, jc, t = gc.shape[:3]
+    n_cols = 8 * gc.shape[5]
+    assert gc.shape == (ic, jc, t, t, 2, n_cols // 8, 8, 8)
+    assert oc.shape == (n, jc, h, w, 16) and n_cols in (8, 16)
+    # [ic, jc, v, u, jg, ig, ir, jr] -> B[ic, jc, v, u][j, i]
+    b = (gc.float().permute(0, 1, 2, 3, 4, 7, 5, 6)
+         .reshape(ic, jc, t, t, 16, n_cols))
+    # A(u, v)[n, y, x, j] = other[n, j, y - u + h, x - v + h], zero outside
+    op = torch.nn.functional.pad(oc.float(), (0, 0) + (half_t, half_t) * 2)
+    dx = torch.zeros(n, ic * n_cols, h, w)
+    d = 2 * half_t
+    for c in range(ic):
+        for j in range(jc):
+            for v in range(t):
+                for u in range(t):
+                    a = op[:, j, d - u:d - u + h, d - v:d - v + w]
+                    dx[:, c * n_cols:(c + 1) * n_cols] += (
+                        (a.reshape(-1, 16) @ b[c, j, v, u])
+                        .reshape(n, h, w, n_cols).permute(0, 3, 1, 2))
+    return dx[:, :k]
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t", [
+    (2, 3, 12, 70, 2), (1, 15, 10, 9, 0), (2, 15, 9, 66, 2),
+    (1, 17, 8, 20, 1), (2, 7, 16, 16, 10)])
+def test_v8_gemm_restatement(n, k, h, w, half_t):
+    """The restated GEMM vs plain X8 and the TPU tool's ``dgrad_v8``
+    (interpret mode): the same bf16 adjoint and input, exact products, f32
+    sums in another order: atol 1e-5 * max |dx|. Covers N = 8 (k=3, 7) and
+    16 (k=15), two chunks of i and j (k=17), half_t 0, 1, 2 and 10, and
+    w not a multiple of 64."""
+    rng = np.random.default_rng(n + k + w + half_t)
+    t = 2 * half_t + 1
+    other = rng.random((n, k, h, w)).astype(np.float32)
+    g2d = rng.standard_normal((k * t, k * t)).astype(np.float32)
+    got = _v8_gemm(torch.from_numpy(g2d), torch.from_numpy(other), half_t)
+    refs = (jx.dgrad_v8_plain(torch.from_numpy(g2d), torch.from_numpy(other),
+                              half_t).numpy(),
+            np.asarray(jax_tool.dgrad_v8(jnp.asarray(g2d), jnp.asarray(other),
+                                         half_t, rb=max(half_t, 1))))
+    for ref in refs:
+        assert ref.shape == got.shape == (n, k, h, w)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
 
 
 def test_cpu_wrappers_use_plain_and_count_no_launch():
