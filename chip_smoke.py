@@ -9,15 +9,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
-     for K1 and the tensor-core kernels X1 and X8 print registers, stack
-     and local memory (``cuobjdump --dump-resource-usage``) and the count
-     of HGMMA / HMMA instructions in their SASS (``--dump-sass``), and fail
-     if X1 or X8 has none or K1 leaves its 80 registers;
+     for K1, both forms of K2 and the tensor-core kernels X1, X8 and X9
+     print registers, stack and local memory (``cuobjdump
+     --dump-resource-usage``) and the count of HGMMA / HMMA instructions
+     and wgmma waits in their SASS (``--dump-sass``), and fail if a
+     tensor-core kernel (K2 at k > 4, X1, X8, X9) has none or uses local
+     memory (spills), or K1 leaves its 80 registers;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
-     contract (rtol 5e-3, atol 5e-3 * max); print errors and CUDA-event
-     times, and both versions' errors against a float64 plain version;
+     contract (rtol 5e-3, atol 5e-3 * max); hold both forms of K2 within
+     3e-5 of max of its bf16 function in float64, and K2 bit-equal to X8
+     where it runs X8's kernel (k=15); print errors, both versions' errors
+     against a float64 plain version, and CUDA-event times of K1, both K2
+     forms, the f32 plain versions and the bf16 cuDNN conv of each;
   4. hold K3 (fused clustering IID loss) against its plain version at the
      clustering path's shapes (S=5 sub-heads; bn, k = 660, 70 / 660, 10 /
      1000, 140): loss and loss_nl within rtol = atol = 1e-5, P within 1e-6
@@ -37,8 +42,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      X8 (its v8 input gradient with bf16 operands, dx1 and dx2) against
      their plain versions at the same shapes for rb = 16, 32, 64, within
      the JAX contract; their errors against float64; X7's time beside K1's
-     and X2's in the same phase; X8 (on the tensor cores) beside K2 and the
-     bf16 cuDNN conv in its phase; kernel, plain and library times;
+     and X2's in the same phase; X8 beside K2 (bit-equal to X8 at k=15)
+     and the bf16 cuDNN conv in its phase; kernel, plain and library
+     times;
   7. hold X3-X6 (the tool's pipelined v3, v4, v5 and v6 joint forwards)
      against X2's plain version at the same shapes within the JAX contract:
      X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb, X6 (f32 inputs,
@@ -48,8 +54,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
   8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
      each per-displacement partial rounded to bf16) against its plain
      version by mean |d| / mean |ref| <= 1e-5 and max |d| <= 2e-3 max |ref|,
-     and require X8's unrounded pair to fail that criterion (so the check
-     sees a lost rounding); errors against float64; times;
+     at k=15, k=3 and (n=8) k=17, and require X8's unrounded pair to fail
+     that criterion (so the check sees a lost rounding); errors against
+     float64; times beside two X8 calls and two bf16 cuDNN convs;
   9. run the two-head segmentation CLI (COCO-Stuff-3 shape, model 555,
      on SyntheticSeg3x146x480) with --test_code, kernel counts set to 0
      just before; require finite losses, a filled eval history and at
@@ -122,13 +129,17 @@ TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", *X_PIPE, "joint_fwd_v8",
 # printed beside.
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
 # Kernels whose resources and tensor-core instructions the build phase
-# reports, by library: mangled-name key -> (tag, must use the tensor cores,
-# registers it must use or None). K1 is held at 80 registers (its time
-# hangs on the residency they allow).
+# reports, by library: mangled-name key -> (tag, must use the tensor cores
+# and spill nothing, registers it must use or None). K1 is held at 80
+# registers (its time hangs on the residency they allow); K2's tensor-core
+# form is X8's kernel, built into K2's library.
 SASS_KERNELS = {
-    "seg_joint": {"joint_partial_kernelIfE": ("K1", False, 80)},
+    "seg_joint": {"joint_partial_kernelIfE": ("K1", False, 80),
+                  "15dgrad_v8_kernel": ("K2", True, None),
+                  "12dgrad_kernelI": ("K2 k<=4", False, None)},
     "joint_exp": {"mm_probe_partial_kernel": ("X1", True, None)},
-    "joint_exp_bwd": {"dgrad_v8_kernel": ("X8", True, None)},
+    "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None),
+                      "dgrad_fused_v7_kernel": ("X9", True, None)},
 }
 X_RB = 16  # X1-X5, X7, X8 rb in the kernel table (the TPU tool's default)
 X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
@@ -137,6 +148,10 @@ X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
 # mean |d| / mean |ref| and max |d| / max |ref| (X8's unrounded pair is
 # ~1.7e-3 off in the mean)
 X9_MEAN, X9_MAX = 1e-5, 2e-3
+# K2 against its own function in float64 (bf16 operands, exact products):
+# f32 summation only, which the tensor cores accumulate truncating (toward
+# zero) where FMAs round (1.03e-5 of max measured at k=15)
+K2_F64 = 3e-5
 TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v3": 5, "v4": 1,
              "v5": 1, "v6": 2, "kpad": 2, "v8": 6,
              "v7": 2}  # run -> variants
@@ -242,10 +257,15 @@ def phase_build():
                 _log(f"  {tag} {f}: {use['REG']} registers, stack "
                      f"{use.get('STACK', '?')} bytes, local "
                      f"{use.get('LOCAL', '?')} bytes; SASS HGMMA "
-                     f"{mma['HGMMA']}, HMMA {mma['HMMA']}")
+                     f"{mma['HGMMA']}, HMMA {mma['HMMA']}, WARPGROUP.DEPBAR "
+                     f"{mma['DEPBAR']}")
                 if tensor_cores and mma["HGMMA"] + mma["HMMA"] == 0:
                     raise AssertionError(f"{tag} {f} has no tensor-core "
                                          f"instruction in its SASS")
+                if tensor_cores and use.get("LOCAL", 0) != 0:
+                    raise AssertionError(f"{tag} {f} spills: "
+                                         f"{use['LOCAL']} bytes of local "
+                                         f"memory")
                 if want_regs is not None and use["REG"] != want_regs:
                     raise AssertionError(f"{tag} {f} uses {use['REG']} "
                                          f"registers, not {want_regs}")
@@ -267,18 +287,22 @@ def _resource_usage(dump):
 
 
 def _mma_counts(sass):
-    """{mangled kernel: {"HGMMA": n, "HMMA": n}}: the warpgroup (wgmma) and
-    warp-level tensor-core instructions in each function of a SASS dump."""
+    """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n}}: the warpgroup
+    (wgmma) and warp-level tensor-core instructions in each function of a
+    SASS dump, and the waits on wgmma groups (`WARPGROUP.DEPBAR`): one per
+    HGMMA means ptxas serialised the products."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}
         elif fn and "HGMMA" in line:
             counts[fn]["HGMMA"] += 1
         elif fn and "HMMA" in line:
             counts[fn]["HMMA"] += 1
+        elif fn and "WARPGROUP.DEPBAR" in line:
+            counts[fn]["DEPBAR"] += 1
     return counts
 
 
@@ -334,10 +358,16 @@ def _softmax_pair(gen, k):
 
 
 def phase_kernels():
-    """K1 and K2 against their plain versions at the main path's shapes.
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms"}} (ms at head A's
-    k=15; the k=3 numbers are printed)."""
+    """K1 and K2 against their plain versions at the main path's shapes;
+    K2 also against its own function in float64 (bf16 operands, exact
+    products) within K2_F64 of max, and bit-equal to X8 where it runs X8's
+    kernel; times of K1, both forms of K2, the plain versions (f32 convs)
+    and the bf16 cuDNN conv computing each one's function. Returns
+    {kernel: {"max_abs_err", "ms", "plain_ms", "library_ms", ...}} (ms at
+    head A's k=15; the k=3 numbers are printed)."""
     import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
     from iic_tpu_torch.ops.kernels import seg_joint as sj
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -348,7 +378,9 @@ def phase_kernels():
         x1, x2 = _softmax_pair(gen, k)
         g = torch.randn((k, k, t, t), device="cuda", generator=gen)
         g2d, g2d_swap = sj.adjoints(g)
-        _log(f"k={k}: n={N}, {HW}x{HW}, T={t}")
+        form = sj.k2_form(k, HALF_T)
+        other_form = next(f for f in sj.K2_FORMS if f != form)
+        _log(f"k={k}: n={N}, {HW}x{HW}, T={t}; K2 form {form}")
 
         got = sj.joint_fwd(x1, x2, HALF_T)
         ref = sj.displacement_joint_dense(x1, x2, HALF_T)
@@ -361,21 +393,54 @@ def phase_kernels():
         torch.cuda.synchronize()
         e_bwd = max(_compare("K2 dx1", got1, ref1),
                     _compare("K2 dx2", got2, ref2))
-        del got, ref, got1, ref1, got2, ref2
+        del got, ref, ref1, got2, ref2
+        # K2's function on the card: bf16 operands, exact products, f32 sums
+        ref64 = jx.dgrad_v8_plain(g2d.double(), x2.double(), HALF_T)
+        scale = float(ref64.abs().max())
+        for tag, f in ((form, got1), (other_form, sj.joint_dgrad(
+                g2d, x2, HALF_T, form=other_form))):
+            e64 = float((f.double() - ref64).abs().max()) / scale
+            ok = e64 <= K2_F64
+            _log(f"  K2 {tag} dx1 vs float64 of its bf16 operands: max err "
+                 f"/ max|ref| {e64:.3e} (<= {K2_F64:g}) "
+                 f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"K2 {tag} is off its bf16 function")
+        del ref64
+        if form == "wgmma":
+            same = torch.equal(got1, jx.dgrad_v8(g2d, x2, HALF_T, X_RB))
+            _log(f"  K2 dx1 equals X8 (rb={X_RB}) bit for bit: {same}")
+            if not same:
+                raise AssertionError("K2 differs from X8 on its operands")
+        del got1
         _f64_errors(k, x1, x2, g2d)
 
+        x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        gf = g.flip(2, 3).bfloat16().contiguous()
         times = {
             "seg_joint_fwd": (
                 _time_ms(lambda: sj.joint_fwd(x1, x2, HALF_T)),
                 _time_ms(lambda: sj.displacement_joint_dense(x1, x2,
-                                                             HALF_T))),
+                                                             HALF_T)),
+                _time_ms(lambda: F.conv2d(x1b.transpose(0, 1),
+                                          x2b.transpose(0, 1),
+                                          padding=HALF_T))),
             "seg_joint_dgrad": (
                 _time_ms(lambda: sj.joint_dgrad(g2d, x2, HALF_T)),
-                _time_ms(lambda: sj.dgrad_plain(g2d, x2, HALF_T))),
+                _time_ms(lambda: sj.dgrad_plain(g2d, x2, HALF_T)),
+                _time_ms(lambda: F.conv2d(x2b, gf, padding=HALF_T))),
         }
-        for name, (ms, plain_ms) in times.items():
-            _log(f"  {name} k={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        other_ms = _time_ms(lambda: sj.joint_dgrad(g2d, x2, HALF_T,
+                                                   form=other_form))
+        for name, (ms, plain_ms, lib_ms) in times.items():
+            _log(f"  {name} k={k}: kernel {ms:.3f} ms, plain (f32 "
+                 f"F.conv2d) {plain_ms:.3f} ms, bf16 F.conv2d {lib_ms:.3f} "
                  f"ms (CUDA events, mean of 5)")
+        k2_ms, _, k2_lib = times["seg_joint_dgrad"]
+        _log(f"  K2 k={k} forms: {form} {k2_ms:.3f} ms (the path's), "
+             f"{other_form} {other_ms:.3f} ms; "
+             f"{'faster' if k2_ms < k2_lib else 'SLOWER'} than one bf16 "
+             f"F.conv2d ({k2_lib:.3f} ms)")
         stats["seg_joint_fwd"]["max_abs_err"] = max(
             stats["seg_joint_fwd"]["max_abs_err"], e_fwd)
         stats["seg_joint_dgrad"]["max_abs_err"] = max(
@@ -383,13 +448,12 @@ def phase_kernels():
         if k == KS[0]:
             flop = _joint_flop(N, k, HW, HW, HALF_T)
             in_bytes = 2 * x1.numel() * 4
-            for name, (ms, plain_ms) in times.items():
-                # the plain version is one F.conv2d: the library call
+            for name, (ms, plain_ms, lib_ms) in times.items():
                 stats[name].update(ms=ms, plain_ms=plain_ms,
-                                   library_ms=plain_ms)
+                                   library_ms=lib_ms)
                 stats[name].update(_bound(name, flop, in_bytes
                                           + (k * t) ** 2 * 4, PEAK_BF16))
-        del x1, x2
+        del x1, x2, x1b, x2b
         torch.cuda.empty_cache()
     return stats
 
@@ -779,14 +843,21 @@ def phase_x8():
         times = {rb: _time_ms(lambda r=rb: jx.dgrad_v8(g2d, x2b, HALF_T, r))
                  for rb in X_RBS}
         x2f = x2b.float()
+        k2 = sj.joint_dgrad(g2d, x2f, HALF_T)
+        if sj.k2_form(k, HALF_T) == "wgmma":
+            same = torch.equal(k2, jx.dgrad_v8(g2d, x2b, HALF_T, X_RB))
+            _log(f"  K2 on the same operands equals X8 bit for bit: {same}")
+            if not same:
+                raise AssertionError("K2 differs from X8 on its operands")
+        del k2
         k2_ms = _time_ms(lambda: sj.joint_dgrad(g2d, x2f, HALF_T))
         plain_ms = _time_ms(lambda: jx.dgrad_v8_plain(g2d, x2b, HALF_T))
         library_ms = _time_ms(library)
         _log(f"  dgrad_v8 k={k} (one call, dx1): kernel "
              + ", ".join(f"rb={rb} {ms:.3f}" for rb, ms in times.items())
-             + f" ms; in the same phase K2 (f32) {k2_ms:.3f} ms; plain "
-             f"{plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f} ms (CUDA "
-             f"events, mean of 5)")
+             + f" ms; in the same phase K2 ({sj.k2_form(k, HALF_T)}, f32 "
+             f"in) {k2_ms:.3f} ms; plain {plain_ms:.3f} ms; bf16 F.conv2d "
+             f"{library_ms:.3f} ms (CUDA events, mean of 5)")
         if k == KS[0]:
             stats.update(ms=times[X_RB], plain_ms=plain_ms,
                          library_ms=library_ms)
@@ -880,6 +951,22 @@ def phase_x9():
                                 PEAK_BF16))
         del x1b, x2b
         torch.cuda.empty_cache()
+    # k > 16: two j chunks, where X9's v-outer order differs from X8's
+    x1, x2 = (torch.softmax(torch.randn((8, 17, HW, HW), device="cuda",
+                                        generator=gen), dim=1)
+              for _ in range(2))
+    g = torch.randn((17, 17, t, t), device="cuda", generator=gen)
+    got = jx.dgrad_fused_v7(g, x1, x2, HALF_T)
+    for tag, a, r in zip(("dx1", "dx2"), got,
+                         jx.dgrad_fused_v7_plain(g, x1, x2, HALF_T)):
+        mean, mx, err = _mean_max(a, r)
+        ok = mean <= X9_MEAN and mx <= X9_MAX and math.isfinite(err)
+        _log(f"X9 k=17, n=8, {HW}x{HW} {tag}: mean {mean:.3e}, max {mx:.3e} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"X9 k=17 {tag} disagrees with its plain "
+                                 f"version")
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
     return stats
 
 
@@ -996,7 +1083,8 @@ def phase_tool():
 
 def _f64_errors(k, x1, x2, g2d):
     """Max error over max |ref| of K1, K2 and their f32 plain versions
-    against the plain version run in float64."""
+    against the plain version run in float64 on the f32 inputs (K2 rounds
+    its operands to bf16, so its error here is bf16's)."""
     import torch
     from iic_tpu_torch.ops.kernels import seg_joint as sj
 
@@ -1098,7 +1186,7 @@ def phase_profile(trace_dir):
             include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment)
         _profile(f"seg head {head}", step, batches, trace_dir,
                  ("joint_partial_kernel", "joint_reduce_kernel",
-                  "dgrad_kernel"))
+                  "dgrad_v8_kernel", "dgrad_kernel"))
 
 
 def phase_cluster_profile(trace_dir):

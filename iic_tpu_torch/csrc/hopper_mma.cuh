@@ -1,6 +1,7 @@
 // Inline-PTX wrappers for Hopper's (sm_90a) warpgroup tensor-core product,
 // shared by the kernels that run their products on the tensor cores
-// (joint_exp.cu X1, joint_exp_bwd.cu X8).
+// (joint_exp.cu X1; dgrad_common.cuh, the implicit GEMM of X8 and K2;
+// joint_exp_bwd.cu X9).
 //
 // A warpgroup is four consecutive warps (128 threads). `wgmma.mma_async`
 // multiplies a 64-row A tile (from shared memory, or from registers) by an
@@ -78,6 +79,13 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
+// Pins an accumulator register in place: the compiler may not move a read
+// of it above an earlier wgmma_wait, which it cannot see writes the
+// register (the asm's "+f" makes the read depend on this point).
+__device__ __forceinline__ void wgmma_fence_operand(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
 // Makes this thread's generic-proxy writes to shared memory (st.shared,
 // cp.async) visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -149,10 +157,12 @@ __device__ __forceinline__ void wgmma_m64n160k16_ss(float (&d)[80],
       : "l"(da), "l"(db), "r"(1), "n"(kTransB));
 }
 
-// d (m64n16, f32) += A (64 x 16, registers) * B (16 x 16, shared, K-major).
+// d (m64n16, f32) = A (64 x 16, registers) * B (16 x 16, shared, K-major)
+// + d, or + 0 at scale_d = 0.
 __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
                                                    const uint32_t (&a)[4],
-                                                   uint64_t db) {
+                                                   uint64_t db,
+                                                   int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -163,13 +173,15 @@ __device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
-// d (m64n8, f32) += A (64 x 16, registers) * B (16 x 8, shared, K-major).
+// d (m64n8, f32) = A (64 x 16, registers) * B (16 x 8, shared, K-major)
+// + d, or + 0 at scale_d = 0.
 __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
                                                   const uint32_t (&a)[4],
-                                                  uint64_t db) {
+                                                  uint64_t db,
+                                                  int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -178,19 +190,19 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // The RS product for an N of 8 or 16.
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
-                                         uint64_t db) {
+                                         uint64_t db, int scale_d = 1) {
   static_assert(N == 8 || N == 16, "N must be 8 or 16");
   if constexpr (N == 16)
-    wgmma_m64n16k16_rs(d, a, db);
+    wgmma_m64n16k16_rs(d, a, db, scale_d);
   else
-    wgmma_m64n8k16_rs(d, a, db);
+    wgmma_m64n8k16_rs(d, a, db, scale_d);
 }
 
 }  // namespace

@@ -17,17 +17,16 @@
 // the in-frame rows (columns) over the shifts, on 2 x 118 MB of input, and
 // each K2 call the same count of multiply-adds: far above the H100's ridge,
 // so both are compute-bound. (K1 also multiplies the zeros outside the
-// frame: it issues 2 * n*h*w * (kT)^2 ~ 3.9e11.) This first version runs
-// f32 FMAs on the CUDA cores (67 TFLOP/s peak), keeps the operands f32 (the TPU kernel rounds
-// them to bf16 for its MXU; without tensor cores bf16 buys nothing here and
-// f32 keeps the kernel within f32 rounding of the conv oracle), and builds
-// both shifted stacks in shared memory straight from the unpadded inputs,
-// masking the frame edges itself: no padded copy reaches device memory.
-// Tensor cores (wgmma on bf16 or TF32 tiles fed by TMA) are the later
-// speed-up.
+// frame: it issues 2 * n*h*w * (kT)^2 ~ 3.9e11.) The TPU kernels round
+// their operands to bf16 for the MXU and sum in f32; at the bf16
+// tensor-core peak (989 TFLOP/s) each needs 0.36 ms.
 //
-// K1 design. The TPU kernel carries one (kT x kT) accumulator across its
-// sequential grid. Blocks here run in parallel, so the contraction is split:
+// K1 design. f32 FMAs on the CUDA cores (67 TFLOP/s peak) on the f32
+// operands (within f32 rounding of the conv oracle), both shifted stacks
+// built in shared memory straight from the unpadded inputs, the frame
+// edges masked in the kernel: no padded copy reaches device memory. The
+// TPU kernel carries one (kT x kT) accumulator across its sequential grid.
+// Blocks here run in parallel, so the contraction is split:
 // block (bx, by, s) owns a 64x64 output tile and the s-th chunk of
 // (n, y) rows, and writes its partial sum to part[s]. A second kernel adds
 // the partials in a fixed order (deterministic; no atomics) and writes the
@@ -36,15 +35,23 @@
 // kernel lives in joint_common.cuh, templated on the input type: X7
 // (joint_exp.cu) is the same kernel on bf16 inputs.
 //
-// K2 design. Output-stationary: block (bx, by, z) owns a 32-row x (8*PX)-col
-// tile of one image and KM output channels, so no reduction crosses blocks
-// and each block writes its tile of the unpadded frame directly (the TPU's
+// K2 design. K2 computes what the TPU's `_dgrad_kernel` computes: the
+// adjoint and `other` rounded to bf16 (nearest even; the wrapper's one
+// layout pass), exact products, f32 sums, dx f32 in the unpadded frame.
+// At k > 4 it is X8's implicit GEMM on the tensor cores (dgrad_common.cuh:
+// pixels as M, 16 channels of j as each k16 step, A from a channels-last
+// patch through ldmatrix into wgmma RS), launched at 16 tile rows a block;
+// the same kernel and operands as X8 (joint_exp_bwd.cu), so the two give
+// the same bits. At k <= 4 that form pads j to 16 and issues 5.3x the
+// work; there K2 keeps its CUDA-core form, here on the same bf16 operands:
+// output-stationary, block (bx, by, z) owns a 32-row x (8*PX)-col tile of
+// one image and KM output channels, so no reduction crosses blocks and
+// each block writes its tile of the unpadded frame directly (the TPU's
 // per-width-tile overlap-add disappears). It walks the other input's
 // channels j; for each it stages the (32+2h) x (8*PX+2h) zero-masked patch
-// of `other` and the adjoint chunk g[i0:i0+KM, j, :, :] (T*T*KM floats,
-// 28 KB at T=21, KM=16 -- the whole adjoint, 397 KB for head A, does not fit
-// a block's 227 KB) in shared memory. Each thread keeps KM x PX accumulators
-// in registers. dx2 runs through the same kernel via the swap symmetry
+// of `other` and the adjoint chunk g[i0:i0+KM, j, :, :] in shared memory,
+// widened to f32, and each thread keeps KM x PX accumulators in registers.
+// dx2 runs through the same kernels via the swap symmetry
 // P[i,j,u,v] = P_swap[j,i,2h-u,2h-v] (the wrapper swaps inputs, flips g).
 //
 // Every entry point launches on the caller's stream, allocates nothing and
@@ -52,6 +59,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dgrad_common.cuh"
 #include "joint_common.cuh"
 
 namespace {
@@ -59,10 +67,13 @@ namespace {
 // ------------------------------------------------------------------- K2
 
 constexpr int TY = 32;  // tile rows: 32 rows of 8 threads
+constexpr int K2_RB = 16;  // tile rows of the tensor-core form (X8's best)
 
-template <int KM, int PX>
+// The CUDA-core form (k <= 4), templated on the input type as K1's kernel
+// is: bf16 operands here, widened to f32 as they are staged.
+template <typename T, int KM, int PX>
 __global__ void __launch_bounds__(kThreads)
-dgrad_kernel(const float* __restrict__ g2d, const float* __restrict__ oth,
+dgrad_kernel(const T* __restrict__ g2d, const T* __restrict__ oth,
              float* __restrict__ dx, int k, int h, int w, int half_t) {
   constexpr int TX = 8 * PX;
   const int t = 2 * half_t + 1;
@@ -76,9 +87,11 @@ dgrad_kernel(const float* __restrict__ g2d, const float* __restrict__ oth,
   const int ph = TY + 2 * half_t;
   const size_t plane = static_cast<size_t>(h) * w;
 
-  extern __shared__ __align__(16) float smem[];
-  float* gs = smem;                // [u][v][KM]
-  float* patch = smem + t * t * KM;  // [ph][pw]
+  // named apart from X8's `smem` (dgrad_common.cuh): extern shared arrays
+  // of one translation unit must agree in type
+  extern __shared__ __align__(16) float k2_smem[];
+  float* gs = k2_smem;                // [u][v][KM]
+  float* patch = k2_smem + t * t * KM;  // [ph][pw]
 
   const int tid = threadIdx.x;
   const int ty = tid / 8;
@@ -98,14 +111,14 @@ dgrad_kernel(const float* __restrict__ g2d, const float* __restrict__ oth,
       const int u = uv / t, v = uv - (uv / t) * t;
       const int i = i0 + ii;
       gs[e] = (i < k)
-          ? g2d[static_cast<size_t>(v * k + i) * tk + u * k + j] : 0.f;
+          ? widen(g2d[static_cast<size_t>(v * k + i) * tk + u * k + j]) : 0.f;
     }
-    const float* o = oth + (static_cast<size_t>(img) * k + j) * plane;
+    const T* o = oth + (static_cast<size_t>(img) * k + j) * plane;
     for (int e = tid; e < ph * pw; e += kThreads) {
       const int pr = e / pw, pc = e - (e / pw) * pw;
       const int yy = y0 - half_t + pr, xx = x0 - half_t + pc;
       patch[e] = (yy >= 0 && yy < h && xx >= 0 && xx < w)
-          ? o[static_cast<size_t>(yy) * w + xx] : 0.f;
+          ? widen(o[static_cast<size_t>(yy) * w + xx]) : 0.f;
     }
     __syncthreads();
 
@@ -145,8 +158,8 @@ dgrad_kernel(const float* __restrict__ g2d, const float* __restrict__ oth,
   }
 }
 
-template <int KM, int PX>
-int launch_dgrad(const float* g2d, const float* other, float* dx, int n, int k,
+template <typename T, int KM, int PX>
+int launch_dgrad(const T* g2d, const T* other, float* dx, int n, int k,
                  int h, int w, int half_t, cudaStream_t stream) {
   const int t = 2 * half_t + 1;
   const size_t smem = sizeof(float) *
@@ -154,13 +167,13 @@ int launch_dgrad(const float* g2d, const float* other, float* dx, int n, int k,
        + static_cast<size_t>(TY + 2 * half_t) * (8 * PX + 2 * half_t));
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        dgrad_kernel<KM, PX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dgrad_kernel<T, KM, PX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (err != cudaSuccess) return refused(err);
   }
   const int ichunks = (k + KM - 1) / KM;
   dim3 grid((w + 8 * PX - 1) / (8 * PX), (h + TY - 1) / TY, n * ichunks);
-  dgrad_kernel<KM, PX><<<grid, kThreads, smem, stream>>>(
+  dgrad_kernel<T, KM, PX><<<grid, kThreads, smem, stream>>>(
       g2d, other, dx, k, h, w, half_t);
   return static_cast<int>(cudaGetLastError());
 }
@@ -179,13 +192,31 @@ int seg_joint_fwd(const float* x1, const float* x2, float* part, float* out,
                                  splits, rows_per_chunk, stream);
 }
 
-// K2: g2d (kT, kT) f32 with g2d[(v,i),(u,j)] = g[i,j,u,v]; other and dx
-// (n, k, h, w) f32 contiguous.
-int seg_joint_dgrad(const float* g2d, const float* other, float* dx, int n,
-                    int k, int h, int w, int half_t, cudaStream_t stream) {
-  if (k <= 4)
-    return launch_dgrad<4, 16>(g2d, other, dx, n, k, h, w, half_t, stream);
-  return launch_dgrad<16, 4>(g2d, other, dx, n, k, h, w, half_t, stream);
+// K2 at k > 4, X8's tensor-core form: gc, oc the adjoint and the other
+// input in X8's layouts (dgrad_common.cuh, joint_exp_bwd.cu's
+// joint_exp_dgrad_v8), bf16; dx (n, k, h, w) f32; all contiguous. slab 0
+// stages the whole patch, slab > 0 each v's 64 columns in slabs of that
+// many rows (the wrapper's plan).
+int seg_joint_dgrad(const void* gc, const void* oc, float* dx, int n, int k,
+                    int h, int w, int half_t, int slab, cudaStream_t stream) {
+  const auto* g = static_cast<const bf16*>(gc);
+  const auto* o = static_cast<const bf16*>(oc);
+  if (k <= 8)
+    return launch_dgrad_v8<8>(g, o, dx, n, k, h, w, half_t, K2_RB, slab,
+                              stream);
+  return launch_dgrad_v8<16>(g, o, dx, n, k, h, w, half_t, K2_RB, slab,
+                             stream);
+}
+
+// K2's CUDA-core form (k <= 4): g2d (kT, kT) bf16 with
+// g2d[(v,i),(u,j)] = g[i,j,u,v]; other (n, k, h, w) bf16; dx (n, k, h, w)
+// f32; all contiguous.
+int seg_joint_dgrad_small(const void* g2d, const void* other, float* dx,
+                          int n, int k, int h, int w, int half_t,
+                          cudaStream_t stream) {
+  return launch_dgrad<bf16, 4, 16>(static_cast<const bf16*>(g2d),
+                                   static_cast<const bf16*>(other), dx, n, k,
+                                   h, w, half_t, stream);
 }
 
 }  // extern "C"

@@ -16,7 +16,9 @@ sources, with the note on what bounds them on the H100, how their design
 answers it and the exact definition of each mode, are
 ``iic_tpu_torch/csrc/joint_exp.cu`` (X1, X2, X7),
 ``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (X3-X6) and
-``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9).
+``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9; X8's kernel is the
+implicit GEMM of ``csrc/dgrad_common.cuh``, which K2 shares, and whose
+operand layout and shared-memory plan ``seg_joint`` holds).
 
 Where the TPU tool leaves an output undefined, the port defines it: the TPU
 ``mm-only`` and ``mm_probe`` multiply uninitialised scratch, ``copies-only``
@@ -38,7 +40,9 @@ import torch.nn.functional as F
 
 from iic_tpu_torch.ops.kernels import _build
 from iic_tpu_torch.ops.kernels import seg_joint as sj
-from iic_tpu_torch.ops.kernels.seg_joint import displacement_joint_dense
+from iic_tpu_torch.ops.kernels.seg_joint import (
+    _SMEM_BLOCK, _V8_CH, _v8_smem, dgrad_v8_operands,
+    dgrad_v8_slab, dgrad_v8_smem, displacement_joint_dense)
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
@@ -53,14 +57,12 @@ _MODE_IDS = {"full": 0, "rank3": 0, "mm-only": 1, "copies-only": 2,
 _WL = 128        # the TPU tool's lane width: X1's row tiles are rb x 128
 _TILE = 64       # X2's and K1's output tile edge (csrc/joint_exp.cu TILE)
 _BQ = 8          # image columns per shared-memory pass (BQ)
-_SMEM_BLOCK = 232448  # shared memory a block may use on the H100
 # X2's limit: less its kernel's 1.5 KB of static tables
 _SMEM_LIMIT = _SMEM_BLOCK - 1536
 _PROBE_M, _PROBE_N = 64, 160  # X1's output tile (csrc/joint_exp.cu PROBE_*)
 _PROBE_GUARD = 1024           # zeroed bytes after each X1 tile
-_V8_WIN, _V8_PIX, _V8_CH = 8, 64, 16  # X8's window rows, tile pixels, chunk
-_V8_EPI_PITCH = _V8_PIX + 4
-_V7_ROWS = 16  # X9's tile rows (csrc/joint_exp_bwd.cu V7_ROWS; the TPU _RB)
+_V7_RB = 16    # X9's tile rows (the TPU tool's _RB)
+_V9_COLS = 16  # X9's N at every k (csrc/joint_exp_bwd.cu V9_COLS)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
 
 
@@ -121,59 +123,6 @@ def check_probe(half_t, rb, form):
     _check_smem(f"mm_probe rb={rb}", probe_smem(rb))
 
 
-def _v8_cols(k):
-    """X8's N: output channels a block owns, k padded to 8 or 16."""
-    return 8 if k <= 8 else 16
-
-
-def _v8_smem(n_cols, half_t, slab):
-    """X8's dynamic shared memory (csrc/joint_exp_bwd.cu v8_smem): the
-    channels-last patch of 32-byte pixels, whole ((8 + 2h) rows x (64 + 2h)
-    pixels) at slab 0, else one slab of ``slab`` rows x 64 pixels, whose
-    memory the (8, N, 68) f32 epilogue tile reuses, and two adjoint chunks
-    of T tiles of 16 x N bf16."""
-    pixels = (slab * _V8_PIX if slab else
-              (_V8_WIN + 2 * half_t) * (_V8_PIX + 2 * half_t))
-    epi = _V8_WIN * n_cols * _V8_EPI_PITCH * 4
-    region = -(-max(pixels * 2 * _V8_CH, epi) // 128) * 128
-    return region + 2 * (2 * half_t + 1) * n_cols * 2 * _V8_CH
-
-
-def dgrad_v8_slab(k, half_t):
-    """X8's patch plan: 0 when the whole patch fits a block's shared memory
-    (h <= 22 at k > 8, h <= 24 at k <= 8), else the most patch rows a slab
-    can hold, in which a block stages, for each v, only the 64 columns that
-    v reads."""
-    n_cols = _v8_cols(k)
-    if _v8_smem(n_cols, half_t, 0) <= _SMEM_BLOCK:
-        return 0
-    slab = _V8_WIN + 2 * half_t
-    while slab > 1 and _v8_smem(n_cols, half_t, slab) > _SMEM_BLOCK:
-        slab -= 1
-    return slab
-
-
-def dgrad_v8_smem(k, half_t):
-    """X8's dynamic shared memory under its patch plan
-    (``dgrad_v8_slab``). It does not depend on rb."""
-    return _v8_smem(_v8_cols(k), half_t, dgrad_v8_slab(k, half_t))
-
-
-def _v7_tiles(k):
-    """(KM, PX) of X9 (csrc/joint_exp_bwd.cu): output channels per block
-    and pixels per thread."""
-    return (4, 16) if k <= 4 else (16, 4)
-
-
-def fused_v7_smem(k, half_t):
-    """X9's dynamic shared memory: one adjoint column (k, T, KM) and all k
-    patches (16 + 2h) x (8 PX + 2h), bf16."""
-    km, px = _v7_tiles(k)
-    t = 2 * half_t + 1
-    return 2 * k * (t * km + (_V7_ROWS + 2 * half_t) * (8 * px
-                                                        + 2 * half_t))
-
-
 def check_dgrad_v8(k, half_t, rb):
     """X8's limits: the TPU tool's asserts and the block's shared memory,
     which its patch plan keeps under the limit for every h they admit. Any
@@ -182,9 +131,25 @@ def check_dgrad_v8(k, half_t, rb):
     _check_smem(f"dgrad_v8 k={k} half_t={half_t}", dgrad_v8_smem(k, half_t))
 
 
+def fused_v7_slab(k, half_t):
+    """X9's patch plan: 0 when the whole patches of all ceil(k/16) j chunks
+    fit a block's shared memory beside the adjoint chunks (k <= 32 at
+    h = 10), else the most patch rows a slab can hold, in which a block
+    stages, for each (v, j chunk), only the 64 columns that v reads."""
+    return sj.slab_plan(_V9_COLS, half_t, -(-k // _V8_CH))
+
+
+def fused_v7_smem(k, half_t):
+    """X9's dynamic shared memory under its patch plan (``fused_v7_slab``):
+    X8's layout with one whole patch per j chunk, or X8's slab."""
+    return _v8_smem(_V9_COLS, half_t, fused_v7_slab(k, half_t),
+                    -(-k // _V8_CH))
+
+
 def check_fused_v7(k, half_t):
     """X9's limits: the TPU tool's assert (2*half_t <= 128; its rb is fixed
-    at 16) and the block's shared memory, which grows with k."""
+    at 16) and the block's shared memory, which its patch plan keeps under
+    the limit for every k and every h the assert admits."""
     _check_lanes(half_t)
     _check_smem(f"dgrad_fused_v7 k={k} half_t={half_t}",
                 fused_v7_smem(k, half_t))
@@ -390,7 +355,7 @@ def _bwd_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.joint_exp_dgrad_v8.argtypes = [p, p, p] + [i] * 7 + [p]
         lib.joint_exp_dgrad_v8.restype = i
-        lib.joint_exp_dgrad_fused_v7.argtypes = [p] * 6 + [i] * 5 + [p]
+        lib.joint_exp_dgrad_fused_v7.argtypes = [p] * 6 + [i] * 7 + [p]
         lib.joint_exp_dgrad_fused_v7.restype = i
         lib._typed = True
     return lib
@@ -543,29 +508,6 @@ def joint_fwd_v6(x1, x2, half_t, roll_build=False):
                         to=torch.float32)
 
 
-def dgrad_v8_operands(g2d, other, half_t):
-    """X8's operands in the layouts its kernel reads (csrc/joint_exp_bwd.cu),
-    both bf16 and zero past k: ``gc``, the adjoint as (i chunk, j chunk, v,
-    u) tiles B(u, v)[j, i] = G[(v, i), (u, j)] of 16 x N, N = 8 for k <= 8
-    and 16 above, each in wgmma's K-major layout without swizzle (core
-    matrix (i/8, j/8) at ((j/8) * N/8 + i/8) * 128 bytes); and ``oc``,
-    ``other`` channels-last in chunks of 16 channels, (n, ceil(k/16), h, w,
-    16). A plain permute and pad, as the TPU tool's ``jnp.pad``."""
-    n, k, h, w = other.shape
-    t = 2 * half_t + 1
-    n_cols = _v8_cols(k)
-    ic, jc = -(-k // n_cols), -(-k // _V8_CH)
-    g = F.pad(g2d.to(torch.bfloat16).reshape(t, k, t, k),  # [v, i, u, j]
-              (0, jc * _V8_CH - k, 0, 0, 0, ic * n_cols - k))
-    gc = (g.reshape(t, ic, n_cols // 8, 8, t, jc, 2, 8)
-          .permute(1, 5, 0, 4, 6, 2, 3, 7).contiguous())
-    o = F.pad(other.to(torch.bfloat16).permute(0, 2, 3, 1),
-              (0, jc * _V8_CH - k))  # (n, h, w, 16 jc)
-    oc = (o.reshape(n, h, w, jc, _V8_CH).permute(0, 3, 1, 2, 4)
-          .contiguous())
-    return gc, oc
-
-
 def dgrad_v8(g2d, other, half_t, rb=16):
     """X8: the gradient for the column-shifted operand with the adjoint
     ``g2d`` (kT, kT) and ``other`` (n, k, h, w) rounded to bf16, f32
@@ -600,8 +542,11 @@ def bwd_v8(g, x1, x2, half_t, rb=16):
 def dgrad_fused_v7(g, x1, x2, half_t):
     """X9: (dx1, dx2) of the joint for the cotangent g (k, k, T, T) in one
     launch, with g, x1 and x2 rounded to bf16 and each per-displacement
-    partial rounded to bf16 before the f32 sum over v."""
-    check_fused_v7(x1.shape[1], half_t)
+    partial rounded to bf16 before the f32 sum over v. On the card it runs
+    X8's implicit GEMM with v outermost, over the operands of
+    ``dgrad_v8_operands`` (N = 16) for each output."""
+    k = x1.shape[1]
+    check_fused_v7(k, half_t)
     if not _on_cuda("dgrad_fused_v7", g, x1, x2):
         return dgrad_fused_v7_plain(g, x1, x2, half_t)
     a = _as_input("x1", x1)
@@ -611,13 +556,15 @@ def dgrad_fused_v7(g, x1, x2, half_t):
     if tuple(g.shape) != (k, k, t, t):
         raise ValueError(f"g: expected shape {(k, k, t, t)}, got "
                          f"{tuple(g.shape)}")
-    g1, g2 = (_adjoint_bf16("g", m, k * t) for m in sj.adjoints(g))
+    g2d, g2d_swap = (_adjoint_bf16("g", m, k * t) for m in sj.adjoints(g))
+    gc1, oc1 = dgrad_v8_operands(g2d, b, half_t, _V9_COLS)       # dx1: x2
+    gc2, oc2 = dgrad_v8_operands(g2d_swap, a, half_t, _V9_COLS)  # dx2: x1
     dx1 = torch.empty((n, k, h, w), device=x1.device)
     dx2 = torch.empty_like(dx1)
     err = _bwd_lib().joint_exp_dgrad_fused_v7(
-        g1.data_ptr(), g2.data_ptr(), a.data_ptr(), b.data_ptr(),
-        dx1.data_ptr(), dx2.data_ptr(), n, k, h, w, half_t,
-        _stream(x1.device))
+        gc1.data_ptr(), oc1.data_ptr(), gc2.data_ptr(), oc2.data_ptr(),
+        dx1.data_ptr(), dx2.data_ptr(), n, k, h, w, half_t, _V7_RB,
+        fused_v7_slab(k, half_t), _stream(x1.device))
     if err != 0:
         raise RuntimeError(f"dgrad_fused_v7 launch failed: CUDA error {err}")
     LAUNCHES["dgrad_fused_v7"] += 1

@@ -1,13 +1,18 @@
 """Displacement joint of the uncollapsed segmentation loss: the CUDA kernels
 K1 (forward) and K2 (input gradient), their plain PyTorch versions, and the
-``SegJoint`` autograd function that ties them together.
+``SegJoint`` autograd function that ties them together. K2 rounds its
+operands to bf16 on the card, as the TPU kernel does, and at k > 4 runs on
+the tensor cores: it shares X8's implicit GEMM, whose operand layouts and
+shared-memory plan are here so that the training path needs nothing of the
+experiment tool's module (``joint_exp``), which imports them from here.
 
 Replaces ``iic_tpu/ops/pallas/seg_joint_kernel.py``: K1 replaces
 ``_joint_kernel`` (launched by ``_joint_pallas_raw``), K2 replaces
 ``_dgrad_kernel`` (launched by ``_dgrad_pallas``), and ``SegJoint`` replaces
 the ``jax.custom_vjp`` ``displacement_joint_dense_pallas``. The kernels'
 source, with the note on what bounds them on the H100 and how their design
-answers it, is ``iic_tpu_torch/csrc/seg_joint.cu``.
+answers it, is ``iic_tpu_torch/csrc/seg_joint.cu`` (K2's tensor-core form in
+``csrc/dgrad_common.cuh``).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; it never falls back.
@@ -27,6 +32,13 @@ LAUNCHES = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
 # Blocks K1 aims to put in flight: eight per SM of the H100's 132.
 _TARGET_BLOCKS = 8 * 132
 _TILE = 64  # K1's output tile edge (csrc/seg_joint.cu BM, BN)
+_SMEM_BLOCK = 232448  # shared memory a block may use on the H100
+# X8's implicit GEMM (csrc/dgrad_common.cuh): window rows, tile pixels,
+# channels of a chunk, epilogue pitch
+_V8_WIN, _V8_PIX, _V8_CH = 8, 64, 16
+_V8_EPI_PITCH = _V8_PIX + 4
+K2_FORMS = ("wgmma", "cuda-core")
+_K2_TY, _K2_KM, _K2_PX = 32, 4, 16  # the CUDA-core form's tile (seg_joint.cu)
 
 
 def reset_launch_counts():
@@ -96,8 +108,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.seg_joint_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
         lib.seg_joint_fwd.restype = i
-        lib.seg_joint_dgrad.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.seg_joint_dgrad.argtypes = [p, p, p] + [i] * 6 + [p]
         lib.seg_joint_dgrad.restype = i
+        lib.seg_joint_dgrad_small.argtypes = [p, p, p] + [i] * 5 + [p]
+        lib.seg_joint_dgrad_small.restype = i
         lib._typed = True
     return lib
 
@@ -136,9 +150,102 @@ def joint_fwd(x1, x2, half_t):
     return out
 
 
-def joint_dgrad(g2d, other, half_t):
+def _v8_cols(k):
+    """X8's N: output channels a block owns, k padded to 8 or 16."""
+    return 8 if k <= 8 else 16
+
+
+def _v8_smem(n_cols, half_t, slab, patches=1):
+    """Dynamic shared memory of X8's implicit GEMM (csrc/dgrad_common.cuh
+    v8_smem; csrc/joint_exp_bwd.cu v9_smem for X9's ``patches``): the
+    channels-last patch of 32-byte pixels, whole ((8 + 2h) rows x (64 + 2h)
+    pixels, ``patches`` of them side by side) at slab 0, else one slab of
+    ``slab`` rows x 64 pixels, whose memory the (8, N, 68) f32 epilogue tile
+    reuses, and two adjoint chunks of T tiles of 16 x N bf16."""
+    pixels = (slab * _V8_PIX if slab else
+              patches * (_V8_WIN + 2 * half_t) * (_V8_PIX + 2 * half_t))
+    epi = _V8_WIN * n_cols * _V8_EPI_PITCH * 4
+    region = -(-max(pixels * 2 * _V8_CH, epi) // 128) * 128
+    return region + 2 * (2 * half_t + 1) * n_cols * 2 * _V8_CH
+
+
+def slab_plan(n_cols, half_t, patches=1):
+    """0 when the whole patches fit a block's shared memory, else the most
+    patch rows a slab can hold (a block then stages, for each v, only the 64
+    columns that v reads)."""
+    if _v8_smem(n_cols, half_t, 0, patches) <= _SMEM_BLOCK:
+        return 0
+    slab = _V8_WIN + 2 * half_t
+    while slab > 1 and _v8_smem(n_cols, half_t, slab) > _SMEM_BLOCK:
+        slab -= 1
+    return slab
+
+
+def dgrad_v8_slab(k, half_t):
+    """X8's (and K2's) patch plan: 0 when the whole patch fits a block's
+    shared memory (h <= 22 at k > 8, h <= 24 at k <= 8), else the most patch
+    rows a slab can hold, in which a block stages, for each v, only the 64
+    columns that v reads."""
+    return slab_plan(_v8_cols(k), half_t)
+
+
+def dgrad_v8_smem(k, half_t):
+    """X8's (and K2's) dynamic shared memory under its patch plan
+    (``dgrad_v8_slab``). It does not depend on rb."""
+    return _v8_smem(_v8_cols(k), half_t, dgrad_v8_slab(k, half_t))
+
+
+def dgrad_v8_operands(g2d, other, half_t, n_cols=None):
+    """The operands of X8's implicit GEMM in the layouts its kernel reads
+    (csrc/dgrad_common.cuh), both bf16 (nearest even) and zero past k:
+    ``gc``, the adjoint as (i chunk, j chunk, v, u) tiles B(u, v)[j, i] =
+    G[(v, i), (u, j)] of 16 x N, N = ``n_cols`` (by default 8 for k <= 8
+    and 16 above; X9 takes 16 at every k), each in wgmma's K-major layout
+    without swizzle (core matrix (i/8, j/8) at ((j/8) * N/8 + i/8) * 128
+    bytes); and ``oc``, ``other`` channels-last in chunks of 16 channels,
+    (n, ceil(k/16), h, w, 16). A plain permute and pad, as the TPU tool's
+    ``jnp.pad``."""
+    n, k, h, w = other.shape
+    t = 2 * half_t + 1
+    n_cols = n_cols or _v8_cols(k)
+    ic, jc = -(-k // n_cols), -(-k // _V8_CH)
+    g = F.pad(g2d.to(torch.bfloat16).reshape(t, k, t, k),  # [v, i, u, j]
+              (0, jc * _V8_CH - k, 0, 0, 0, ic * n_cols - k))
+    gc = (g.reshape(t, ic, n_cols // 8, 8, t, jc, 2, 8)
+          .permute(1, 5, 0, 4, 6, 2, 3, 7).contiguous())
+    o = F.pad(other.to(torch.bfloat16).permute(0, 2, 3, 1),
+              (0, jc * _V8_CH - k))  # (n, h, w, 16 jc)
+    oc = (o.reshape(n, h, w, jc, _V8_CH).permute(0, 3, 1, 2, 4)
+          .contiguous())
+    return gc, oc
+
+
+def _k2_small_smem(half_t):
+    """Shared memory of K2's CUDA-core form: the f32 adjoint chunk (T, T,
+    KM) and the f32 patch (32 + 2h) x (8 PX + 2h)."""
+    t = 2 * half_t + 1
+    return 4 * (t * t * _K2_KM
+                + (_K2_TY + 2 * half_t) * (8 * _K2_PX + 2 * half_t))
+
+
+def k2_form(k, half_t):
+    """K2's form on the card: the CUDA-core kernel at k <= 4, where the
+    tensor-core form pads j to 16 channels and N to 8 and issues 5.3x the
+    work (at k = 3), as long as its adjoint fits a block; else X8's
+    implicit GEMM on the tensor cores (``"wgmma"``)."""
+    if k <= 4 and _k2_small_smem(half_t) <= _SMEM_BLOCK:
+        return "cuda-core"
+    return "wgmma"
+
+
+def joint_dgrad(g2d, other, half_t, form=None):
     """K2: the gradient for the column-shifted operand, in the unpadded
-    (n, k, h, w) frame (see ``dgrad_plain`` for the contract)."""
+    (n, k, h, w) frame (see ``dgrad_plain`` for the contract). On the card
+    the adjoint and ``other`` are rounded to bf16 and the sums run in f32,
+    as in the TPU kernel; ``form`` (one of ``K2_FORMS``) overrides
+    ``k2_form``'s choice."""
+    if form is not None and form not in K2_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {K2_FORMS}")
     if g2d.device.type == "cpu" and other.device.type == "cpu":
         return dgrad_plain(g2d, other, half_t)
     if other.device.type != "cuda" or g2d.device != other.device:
@@ -148,11 +255,27 @@ def joint_dgrad(g2d, other, half_t):
     tk = k * (2 * half_t + 1)
     _check("other", other)
     _check("g2d", g2d, (tk, tk))
+    form = form or k2_form(k, half_t)
+    need = (dgrad_v8_smem(k, half_t) if form == "wgmma"
+            else _k2_small_smem(half_t))
+    if need > _SMEM_BLOCK:
+        raise ValueError(f"joint_dgrad ({form}) k={k} half_t={half_t}: a "
+                         f"block needs {need} bytes of shared memory, over "
+                         f"the {_SMEM_BLOCK} a block can use")
     dx = torch.empty_like(other)
     with torch.cuda.device(other.device):
         stream = torch.cuda.current_stream().cuda_stream
-    err = _lib().seg_joint_dgrad(g2d.data_ptr(), other.data_ptr(),
-                                 dx.data_ptr(), n, k, h, w, half_t, stream)
+    if form == "wgmma":
+        gc, oc = dgrad_v8_operands(g2d, other, half_t)
+        err = _lib().seg_joint_dgrad(gc.data_ptr(), oc.data_ptr(),
+                                     dx.data_ptr(), n, k, h, w, half_t,
+                                     dgrad_v8_slab(k, half_t), stream)
+    else:
+        gb = g2d.to(torch.bfloat16)
+        ob = other.to(torch.bfloat16)
+        err = _lib().seg_joint_dgrad_small(gb.data_ptr(), ob.data_ptr(),
+                                           dx.data_ptr(), n, k, h, w,
+                                           half_t, stream)
     if err != 0:
         raise RuntimeError(f"seg_joint_dgrad launch failed: CUDA error {err}")
     LAUNCHES["seg_joint_dgrad"] += 1

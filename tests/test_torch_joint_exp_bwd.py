@@ -195,32 +195,39 @@ def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
 
 def test_wrappers_refuse_what_the_card_cannot_hold():
     """X8's and X9's shared memory must fit a block's 227 KB (the
-    arithmetic of csrc/joint_exp_bwd.cu's header): X8's is the (8 + 2h) x
-    (64 + 2h) channels-last patch of 32-byte pixels and two adjoint chunks
-    of T tiles of 16 x N bf16, whatever rb; X9's is refused before any
-    launch, on every device. X8 takes any rb the TPU tool's asserts admit
-    (a block walks its rb rows in windows of 8), and past the whole patch's
-    limit its sliced plan keeps every h up to 64 in a block's memory."""
+    arithmetic of csrc/dgrad_common.cuh and csrc/joint_exp_bwd.cu): X8's is
+    the (8 + 2h) x (64 + 2h) channels-last patch of 32-byte pixels and two
+    adjoint chunks of T tiles of 16 x N bf16, whatever rb; X9's the same
+    with one whole patch per j chunk, or X8's slab where those do not fit.
+    X8 takes any rb the TPU tool's asserts admit (a block walks its rb rows
+    in windows of 8), and past the whole patch's limit its sliced plan keeps
+    every h up to 64 in a block's memory; so does X9's, at every k."""
     assert jx.dgrad_v8_smem(15, 10) == 28 * 84 * 32 + 2 * 21 * 16 * 32
     assert jx.dgrad_v8_smem(15, 10) == 96768
     assert jx.dgrad_v8_smem(3, 10) == 28 * 84 * 32 + 2 * 21 * 8 * 32
     assert jx.dgrad_v8_smem(15, 0) == 8 * 16 * 68 * 4 + 2 * 16 * 32
-    assert jx.fused_v7_smem(15, 10) == 15 * 36 * 52 * 2 + 21 * 15 * 16 * 2
-    assert jx.fused_v7_smem(15, 10) == 66240
+    assert jx.fused_v7_smem(15, 10) == jx.dgrad_v8_smem(15, 10) == 96768
+    assert jx.fused_v7_smem(17, 10) == 2 * 28 * 84 * 32 + 2 * 21 * 16 * 32
     x = torch.rand(1, 2, 8, 8)
     g2d = torch.rand(10, 10)
     ref = jx.dgrad_v8(g2d, x, 2, rb=16)
     for rb in (24, 3):
         assert torch.equal(jx.dgrad_v8(g2d, x, 2, rb=rb), ref)
+    # k=64, h=10: four whole patches and the chunks would need 323 KB; X9
+    # stages each (v, j chunk)'s 64 columns, all 28 patch rows at once
+    assert jx.fused_v7_slab(64, 10) == 28
+    assert jx.fused_v7_smem(64, 10) == 28 * 64 * 32 + 2 * 21 * 16 * 32
     wide = torch.rand(1, 64, 8, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        jx.dgrad_fused_v7(torch.rand(64, 64, 21, 21), wide, wide, 10)
+    got = jx.dgrad_fused_v7(torch.rand(64, 64, 21, 21), wide, wide, 10)
+    assert [tuple(d.shape) for d in got] == [(1, 64, 8, 8)] * 2
     # k=64, h=64: the whole patch and the chunks would need 313 KB; slabs
     # of 49 rows x 64 pixels and the chunks take exactly 227 KB
     assert jx.dgrad_v8_slab(64, 64) == 49
     assert jx.dgrad_v8_smem(64, 64) == 49 * 64 * 32 + 2 * 129 * 16 * 32
     assert jx.dgrad_v8_smem(64, 64) == 232448
+    assert jx.fused_v7_smem(64, 64) == 232448
     jx.check_dgrad_v8(64, 64, 64)
+    jx.check_fused_v7(64, 64)
     with pytest.raises(ValueError):
         jx.dgrad_fused_v7(torch.rand(2, 2, 5, 5), x, x.to("meta"), 2)
 
@@ -311,6 +318,131 @@ def test_v8_gemm_restatement(n, k, h, w, half_t):
         assert ref.shape == got.shape == (n, k, h, w)
         np.testing.assert_allclose(got.numpy(), ref, rtol=0,
                                    atol=1e-5 * np.abs(ref).max())
+
+
+def _v9_order(g, x1, x2, half_t):
+    """X9's loop order restated in plain PyTorch on the operands in X8's
+    layouts (``seg_joint.dgrad_v8_operands``) for each output (dx1: the
+    adjoint and x2; dx2: the swapped adjoint and x1): for each v, p_v sums
+    one (pixels x 16) @ (16 x N) step per j chunk and then per u
+    descending, in f32, and dx adds bf16(p_v) in v order. X9 takes N = 16
+    at every k."""
+    outs = []
+    for g2d, other in zip(sj.adjoints(g), (x2, x1)):
+        n, k, h, w = other.shape
+        gc, oc = sj.dgrad_v8_operands(g2d, other, half_t, 16)
+        ic, jc, t = gc.shape[:3]
+        n_cols = 8 * gc.shape[5]
+        b = (gc.float().permute(0, 1, 2, 3, 4, 7, 5, 6)
+             .reshape(ic, jc, t, t, 16, n_cols))
+        op = torch.nn.functional.pad(oc.float(),
+                                     (0, 0) + (half_t, half_t) * 2)
+        d = 2 * half_t
+        dx = torch.zeros(n, ic * n_cols, h, w)
+        for c in range(ic):
+            for v in range(t):
+                p = torch.zeros(n, h, w, n_cols)
+                for j in range(jc):
+                    for u in reversed(range(t)):
+                        a = op[:, j, d - u:d - u + h, d - v:d - v + w]
+                        p += (a.reshape(-1, 16) @ b[c, j, v, u]).reshape(
+                            n, h, w, n_cols)
+                dx[:, c * n_cols:(c + 1) * n_cols] += (
+                    p.bfloat16().float().permute(0, 3, 1, 2))
+        outs.append(dx[:, :k])
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t", [
+    (2, 3, 12, 20, 2), (1, 15, 10, 9, 1), (2, 17, 8, 20, 2),
+    (1, 33, 6, 7, 1)])
+def test_v9_order_restatement(n, k, h, w, half_t):
+    """X9's order (v, then j chunk, then u, bf16 of each p_v) over the
+    laid-out operands vs plain X9: the same bf16 operands and exact
+    products, each p_v summed in another f32 order before it is rounded,
+    so the v7 criterion (mean <= 1e-5, max <= 2e-3 of max). Covers i and j
+    padded from 3 to 16 (k=3), one j chunk (k <= 16), two (k=17, where the
+    v-outer order differs from X8's) and three (k=33)."""
+    rng = np.random.default_rng(n + k + w + half_t)
+    x1, x2 = (_softmax_maps(rng, n, k, h, w) for _ in range(2))
+    t = 2 * half_t + 1
+    g = rng.standard_normal((k, k, t, t)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (g, x1, x2)]
+    gots = _v9_order(*args, half_t)
+    refs = jx.dgrad_fused_v7_plain(*args, half_t)
+    for got, ref in zip(gots, refs):
+        assert got.shape == ref.shape == (n, k, h, w)
+        mean, mx = _mean_max(got.numpy(), ref.numpy())
+        assert mean <= V7_MEAN and mx <= V7_MAX, (mean, mx)
+
+
+def test_v9_order_matches_jax_tool(v7_case):
+    """The restated X9 order vs the TPU tool's ``dgrad_fused_v7`` (interpret
+    mode), by the v7 criterion."""
+    (x1, x2, g, half_t), refs = v7_case
+    gots = _v9_order(*map(torch.from_numpy, (g, x1, x2)), half_t)
+    for got, ref in zip(gots, refs):
+        mean, mx = _mean_max(got.numpy(), ref)
+        assert mean <= V7_MEAN and mx <= V7_MAX, (mean, mx)
+
+
+@pytest.mark.parametrize("k,n_cols", [(1, None), (3, None), (8, None),
+                                      (9, None), (15, None), (16, None),
+                                      (17, None), (33, None), (3, 16),
+                                      (8, 16)])
+def test_v8_operands_gather_back(k, n_cols):
+    """``seg_joint.dgrad_v8_operands`` (K2's and X8's operands, N = 8 at
+    k <= 8 and 16 above; X9's, N = 16 at every k) gathers back to G and
+    ``other`` rounded to bf16, with zeros past k: tile (ic, jc, v, u)[j, i]
+    = G[(v, N ic + i), (u, 16 jc + j)] through wgmma's core matrices, and
+    oc[n, jc, y, x, c] = other[n, 16 jc + c, y, x]."""
+    rng = np.random.default_rng(k)
+    n, h, w, half_t = 2, 5, 7, 2
+    t = 2 * half_t + 1
+    other = torch.from_numpy(rng.random((n, k, h, w)).astype(np.float32))
+    g2d = torch.from_numpy(rng.standard_normal((k * t, k * t))
+                           .astype(np.float32))
+    gc, oc = sj.dgrad_v8_operands(g2d, other, half_t, n_cols)
+    assert gc.dtype == oc.dtype == torch.bfloat16
+    n_cols = n_cols or (8 if k <= 8 else 16)
+    ic, jc = -(-k // n_cols), -(-k // 16)
+    assert gc.shape == (ic, jc, t, t, 2, n_cols // 8, 8, 8)
+    assert oc.shape == (n, jc, h, w, 16)
+    # core matrix (i/8, j/8) of each tile: its row is i % 8, its 8 bf16 j % 8
+    tiles = gc.permute(0, 1, 2, 3, 5, 6, 4, 7).reshape(ic, jc, t, t, n_cols,
+                                                      16)  # [.., i, j]
+    g = tiles.permute(2, 0, 4, 3, 1, 5).reshape(t, ic * n_cols, t, jc * 16)
+    want = g2d.bfloat16().reshape(t, k, t, k)  # [v, i, u, j]
+    assert torch.equal(g[:, :k, :, :k], want)
+    assert not g[:, k:].any() and not g[:, :, :, k:].any()
+    o = oc.permute(0, 1, 4, 2, 3).reshape(n, jc * 16, h, w)
+    assert torch.equal(o[:, :k], other.bfloat16())
+    assert not o[:, k:].any()
+
+
+@pytest.mark.parametrize("k", [3, 15, 17, 33, 64])
+def test_x9_patch_plan_keeps_every_h(k):
+    """X9 (N = 16 at every k) keeps every j chunk's whole patch while they
+    fit beside the two adjoint chunks, else slabs of each (v, j chunk)'s 64
+    columns, as many rows as fit: every k and every h the TPU tool admits
+    (2h <= 128) fits a block's 227 KB."""
+    n_cols, jchunks = 16, -(-k // 16)
+    for h in range(65):
+        slab, smem = jx.fused_v7_slab(k, h), jx.fused_v7_smem(k, h)
+        assert smem <= 232448
+        whole = (max(jchunks * (8 + 2 * h) * (64 + 2 * h) * 32,
+                     8 * n_cols * 68 * 4) + 2 * (2 * h + 1) * n_cols * 32)
+        if whole <= 232448:
+            assert slab == 0 and smem == whole
+        else:
+            assert 1 <= slab <= 8 + 2 * h
+            assert smem == jx._v8_smem(n_cols, h, slab)
+            assert (slab == 8 + 2 * h
+                    or jx._v8_smem(n_cols, h, slab + 1) > 232448)
+        jx.check_fused_v7(k, h)
+    if 8 < k <= 16:  # one j chunk at X8's N: X9's plan is X8's
+        assert all(jx.fused_v7_smem(k, h) == jx.dgrad_v8_smem(k, h)
+                   for h in range(65))
 
 
 def test_cpu_wrappers_use_plain_and_count_no_launch():

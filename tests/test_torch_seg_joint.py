@@ -131,6 +131,78 @@ def test_cpu_wrappers_use_plain_and_count_no_launch():
     assert sj.LAUNCHES == {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
 
 
+@pytest.mark.parametrize("half_t,n,k,h,w", SHAPES[1:] + [(3, 1, 17, 9, 20)])
+def test_k2_card_function_matches_jax_dgrad_pallas(half_t, n, k, h, w):
+    """What K2 computes on the card, the adjoint and ``other`` rounded to
+    bf16 with exact products and f32 sums, is what the TPU kernel
+    computes: X8's plain version and X8's GEMM restated over K2's operand
+    layouts (``sj.dgrad_v8_operands``, K2's tensor-core form) vs JAX
+    _dgrad_pallas (interpret) on the same adjoint: f32 summation order only,
+    atol 1e-5 * max."""
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from test_torch_joint_exp_bwd import _v8_gemm
+
+    rng = np.random.default_rng(3 + k)
+    t = 2 * half_t + 1
+    other = _maps(rng, n, k, h, w)
+    g2d = rng.standard_normal((k * t, k * t)).astype(np.float32)
+    ref = np.asarray(_dgrad_pallas(jnp.asarray(g2d), jnp.asarray(other),
+                                   half_t, True))
+    args = (torch.from_numpy(g2d), torch.from_numpy(other), half_t)
+    for got in (jx.dgrad_v8_plain(*args), _v8_gemm(*args)):
+        assert got.shape == ref.shape == other.shape
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
+def test_k2_form_and_its_limits():
+    """K2 takes its CUDA-core form at k <= 4 while that form's f32 adjoint
+    and patch fit a block (h <= 44), else the tensor-core form, whose patch
+    plan keeps every h <= 64; each form's shared memory as its kernel
+    computes it."""
+    for k in (1, 3, 4):
+        assert sj.k2_form(k, 10) == "cuda-core"
+        assert sj.k2_form(k, 44) == "cuda-core"
+        assert sj.k2_form(k, 45) == "wgmma"
+    for k in (5, 8, 9, 15, 17, 64):
+        assert sj.k2_form(k, 0) == sj.k2_form(k, 10) == "wgmma"
+    assert sj._k2_small_smem(10) == 4 * (21 * 21 * 4 + 52 * 148)
+    assert sj._k2_small_smem(44) <= 232448 < sj._k2_small_smem(45)
+    assert sj.dgrad_v8_smem(15, 10) == 96768
+    assert all(sj.dgrad_v8_smem(k, h) <= 232448
+               for k in (1, 3, 15, 64) for h in range(65))
+
+
+def test_cpu_k2_takes_plain_in_every_form():
+    """On CPU tensors K2 returns its f32 plain version whatever the form,
+    and counts no launch; an unknown form is refused on every device."""
+    sj.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.random((2, 3, 6, 6)).astype(np.float32))
+    g2d = torch.from_numpy(rng.standard_normal((9, 9)).astype(np.float32))
+    ref = sj.dgrad_plain(g2d, x, 1)
+    for form in (None, *sj.K2_FORMS):
+        assert torch.equal(sj.joint_dgrad(g2d, x, 1, form=form), ref)
+    assert sj.LAUNCHES == {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    with pytest.raises(ValueError, match="form"):
+        sj.joint_dgrad(g2d, x, 1, form="cudnn")
+
+
+def test_training_path_needs_no_experiment_module():
+    """The segmentation loss and its train step import K1/K2 and X8's
+    operand layout from ``seg_joint`` and never the experiment tool's
+    ``joint_exp``."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = ("import sys, iic_tpu_torch.parallel.train_step; "
+            "assert 'iic_tpu_torch.ops.kernels.seg_joint' in sys.modules; "
+            "assert 'iic_tpu_torch.ops.kernels.joint_exp' not in "
+            "sys.modules")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=Path(__file__).resolve().parents[1])
+
+
 def test_wrapper_refuses_mixed_devices():
     x = torch.rand(2, 3, 6, 6)
     with pytest.raises(ValueError):
