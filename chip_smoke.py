@@ -9,20 +9,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
-     for K1, both forms of K2 and the tensor-core kernels X1, X8 and X9
-     print registers, stack and local memory (``cuobjdump
+     for both forms of K1 and K2 and the tensor-core kernels X1, X7, X8
+     and X9 print registers, stack and local memory (``cuobjdump
      --dump-resource-usage``) and the count of HGMMA / HMMA instructions
-     and wgmma waits in their SASS (``--dump-sass``), and fail if a
-     tensor-core kernel (K2 at k > 4, X1, X8, X9) has none or uses local
-     memory (spills), or K1 leaves its 80 registers;
+     and wgmma waits (all, and those for zero groups) in their SASS
+     (``--dump-sass``), and fail if a tensor-core kernel (K1 and K2 at
+     k > 4, X1, X7, X8, X9) has none or uses local memory (spills), if
+     K1's tensor-core kernel waits for zero groups after every product
+     (ptxas serialised them), or K1's CUDA-core form leaves its 80
+     registers;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
-     contract (rtol 5e-3, atol 5e-3 * max); hold both forms of K2 within
-     3e-5 of max of its bf16 function in float64, and K2 bit-equal to X8
-     where it runs X8's kernel (k=15); print errors, both versions' errors
-     against a float64 plain version, and CUDA-event times of K1, both K2
-     forms, the f32 plain versions and the bf16 cuDNN conv of each;
+     contract (rtol 5e-3, atol 5e-3 * max); hold both forms of K1 within
+     K1_F64 (tensor cores) or K1_F64_FMA (CUDA cores) of max of its bf16
+     function in float64 and both forms of K2 within 3e-5, and K2
+     bit-equal to X8 where it runs X8's kernel (k=15); print each form's
+     errors against the bf16 function in float64 and against the f32
+     conv, K1's error and time against its chunk depth and the device
+     time of each kernel a K1 call launches (k=15), and
+     CUDA-event times of both forms of K1 and K2, the f32 plain versions
+     and the bf16 cuDNN conv of each;
   4. hold K3 (fused clustering IID loss) against its plain version at the
      clustering path's shapes (S=5 sub-heads; bn, k = 660, 70 / 660, 10 /
      1000, 140): loss and loss_nl within rtol = atol = 1e-5, P within 1e-6
@@ -38,19 +45,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      count of terms issued), exactly; CUDA-event times of each kernel, its
      plain version and the library call that computes the same function
      (X1 on the tensor cores beside one bf16 torch.matmul);
-  6. hold X7 (the tool's v8 joint forward: K1's kernel on bf16 inputs) and
-     X8 (its v8 input gradient with bf16 operands, dx1 and dx2) against
-     their plain versions at the same shapes for rb = 16, 32, 64, within
-     the JAX contract; their errors against float64; X7's time beside K1's
-     and X2's in the same phase; X8 beside K2 (bit-equal to X8 at k=15)
-     and the bf16 cuDNN conv in its phase; kernel, plain and library
-     times;
+  6. hold X7 (the tool's v8 joint forward: K1's kernels on bf16 inputs)
+     in both forms and X8 (its v8 input gradient with bf16 operands, dx1
+     and dx2) against their plain versions at the same shapes for rb = 16,
+     32, 64, within the JAX contract, and X7 bit-equal to K1 on the same
+     bf16 operands in K1's form; their errors against float64; X7's times
+     in both forms beside K1's and X2's in the same phase; X8 beside K2
+     (bit-equal to X8 at k=15) and the bf16 cuDNN conv in its phase;
+     kernel, plain and library times;
   7. hold X3-X6 (the tool's pipelined v3, v4, v5 and v6 joint forwards)
      against X2's plain version at the same shapes within the JAX contract:
-     X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb, X6 (f32 inputs,
+     X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb (X3 and X5 bit
+     for bit equal to X7's CUDA-core form at that rb), X6 (f32 inputs,
      rounded in the kernel) at both roll_build, which must agree bit for
      bit; each kernel's error against float64; their times beside K1's,
-     X7's and X2's in the same phase; plain and library times;
+     X7's (both forms) and X2's in the same phase; plain and library
+     times;
   8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
      each per-displacement partial rounded to bf16) against its plain
      version by mean |d| / mean |ref| <= 1e-5 and max |d| <= 2e-3 max |ref|,
@@ -130,16 +140,22 @@ TOOL_KERNELS = ("mm_probe", "joint_fwd_v2", *X_PIPE, "joint_fwd_v8",
 PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
 # Kernels whose resources and tensor-core instructions the build phase
 # reports, by library: mangled-name key -> (tag, must use the tensor cores
-# and spill nothing, registers it must use or None). K1 is held at 80
-# registers (its time hangs on the residency they allow); K2's tensor-core
-# form is X8's kernel, built into K2's library.
+# and spill nothing, registers it must use or None, must keep its products
+# in flight). K1's CUDA-core form is held at 80 registers (its time hangs
+# on the residency they allow); its tensor-core form, which X7 shares,
+# must not wait for zero groups after every product (ptxas serialises the
+# products when registers run short); K2's tensor-core form is X8's
+# kernel, built into K2's library.
 SASS_KERNELS = {
-    "seg_joint": {"joint_partial_kernelIfE": ("K1", False, 80),
-                  "15dgrad_v8_kernel": ("K2", True, None),
-                  "12dgrad_kernelI": ("K2 k<=4", False, None)},
-    "joint_exp": {"mm_probe_partial_kernel": ("X1", True, None)},
-    "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None),
-                      "dgrad_fused_v7_kernel": ("X9", True, None)},
+    "seg_joint": {"joint_fwd_mma_kernel": ("K1", True, None, True),
+                  "joint_partial_kernelI13__nv_bfloat16E":
+                      ("K1 k<=4", False, 80, False),
+                  "15dgrad_v8_kernel": ("K2", True, None, False),
+                  "12dgrad_kernelI": ("K2 k<=4", False, None, False)},
+    "joint_exp": {"mm_probe_partial_kernel": ("X1", True, None, False),
+                  "joint_fwd_mma_kernel": ("X7", True, None, True)},
+    "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None, False),
+                      "dgrad_fused_v7_kernel": ("X9", True, None, False)},
 }
 X_RB = 16  # X1-X5, X7, X8 rb in the kernel table (the TPU tool's default)
 X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
@@ -152,6 +168,12 @@ X9_MEAN, X9_MAX = 1e-5, 2e-3
 # f32 summation only, which the tensor cores accumulate truncating (toward
 # zero) where FMAs round (1.03e-5 of max measured at k=15)
 K2_F64 = 3e-5
+# K1 against its own function in float64, the same: a joint's terms are
+# all positive, so the truncation does not cancel and grows with a
+# chunk's depth (8.2e-5 of max measured at 128-row chunks, k=15); the
+# CUDA-core form rounds (2.6e-6)
+K1_F64, K1_F64_FMA = 2e-4, 2e-5
+K1_CHUNKS = (16, 32, 64, 128, 256, 512, 1024)  # chunk rows, error vs depth
 TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v3": 5, "v4": 1,
              "v5": 1, "v6": 2, "kpad": 2, "v8": 6,
              "v7": 2}  # run -> variants
@@ -226,8 +248,9 @@ def phase_build():
     kernel's registers, shared memory and spills), then report, from the
     built libraries, the registers, stack and local memory of K1 and of the
     tensor-core kernels and the count of tensor-core instructions in each
-    of those kernels' SASS; fail if K1 leaves its 80 registers or a
-    tensor-core kernel has no such instruction."""
+    of those kernels' SASS; fail if K1's CUDA-core form leaves its 80
+    registers, a tensor-core kernel has no such instruction or spills, or
+    K1's tensor-core kernel has its products serialised."""
     from concurrent.futures import ThreadPoolExecutor
     from iic_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -245,7 +268,7 @@ def phase_build():
         counts = _mma_counts(subprocess.run(
             [cuobjdump, "--dump-sass", path], capture_output=True, text=True,
             check=True).stdout)
-        for key, (tag, tensor_cores, want_regs) in kernels.items():
+        for key, (tag, tensor_cores, want_regs, pipelined) in kernels.items():
             names = [f for f in counts if key in f]
             if not names:
                 raise AssertionError(f"no kernel {key} in lib{lib}'s SASS")
@@ -258,7 +281,11 @@ def phase_build():
                      f"{use.get('STACK', '?')} bytes, local "
                      f"{use.get('LOCAL', '?')} bytes; SASS HGMMA "
                      f"{mma['HGMMA']}, HMMA {mma['HMMA']}, WARPGROUP.DEPBAR "
-                     f"{mma['DEPBAR']}")
+                     f"{mma['DEPBAR']} ({mma['DEPBAR0']} for zero groups)")
+                if pipelined and mma["DEPBAR0"] >= mma["HGMMA"]:
+                    raise AssertionError(f"{tag} {f} waits for zero groups "
+                                         f"after every product: ptxas "
+                                         f"serialised them")
                 if tensor_cores and mma["HGMMA"] + mma["HMMA"] == 0:
                     raise AssertionError(f"{tag} {f} has no tensor-core "
                                          f"instruction in its SASS")
@@ -287,22 +314,25 @@ def _resource_usage(dump):
 
 
 def _mma_counts(sass):
-    """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n}}: the warpgroup
-    (wgmma) and warp-level tensor-core instructions in each function of a
-    SASS dump, and the waits on wgmma groups (`WARPGROUP.DEPBAR`): one per
-    HGMMA means ptxas serialised the products."""
+    """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n, "DEPBAR0": n}}:
+    the warpgroup (wgmma) and warp-level tensor-core instructions in each
+    function of a SASS dump, the waits on wgmma groups
+    (`WARPGROUP.DEPBAR`), and those of them that wait for zero groups in
+    flight: one of those per HGMMA means ptxas serialised the products."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0, "DEPBAR0": 0}
         elif fn and "HGMMA" in line:
             counts[fn]["HGMMA"] += 1
         elif fn and "HMMA" in line:
             counts[fn]["HMMA"] += 1
         elif fn and "WARPGROUP.DEPBAR" in line:
             counts[fn]["DEPBAR"] += 1
+            if re.search(r"gsb0, 0x0\b", line):
+                counts[fn]["DEPBAR0"] += 1
     return counts
 
 
@@ -359,12 +389,14 @@ def _softmax_pair(gen, k):
 
 def phase_kernels():
     """K1 and K2 against their plain versions at the main path's shapes;
-    K2 also against its own function in float64 (bf16 operands, exact
-    products) within K2_F64 of max, and bit-equal to X8 where it runs X8's
-    kernel; times of K1, both forms of K2, the plain versions (f32 convs)
-    and the bf16 cuDNN conv computing each one's function. Returns
-    {kernel: {"max_abs_err", "ms", "plain_ms", "library_ms", ...}} (ms at
-    head A's k=15; the k=3 numbers are printed)."""
+    both forms of each also against its own function in float64 (bf16
+    operands, exact products), K1 within K1_F64 (K1_F64_FMA on the CUDA
+    cores) and K2 within K2_F64 of max, and K2 bit-equal to X8 where it
+    runs X8's kernel; K1's error and time against its chunk depth; times of
+    both forms of K1 and K2, the plain versions (f32 convs) and the bf16
+    cuDNN conv computing each one's function. Returns {kernel:
+    {"max_abs_err", "ms", "plain_ms", "library_ms", ...}} (ms at head A's
+    k=15 in the path's form; the k=3 numbers are printed)."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
@@ -380,12 +412,33 @@ def phase_kernels():
         g2d, g2d_swap = sj.adjoints(g)
         form = sj.k2_form(k, HALF_T)
         other_form = next(f for f in sj.K2_FORMS if f != form)
-        _log(f"k={k}: n={N}, {HW}x{HW}, T={t}; K2 form {form}")
+        k1_form = sj.k1_form(k, HALF_T)
+        k1_other = next(f for f in sj.K1_FORMS if f != k1_form)
+        _log(f"k={k}: n={N}, {HW}x{HW}, T={t}; K1 form {k1_form}, K2 form "
+             f"{form}")
 
         got = sj.joint_fwd(x1, x2, HALF_T)
         ref = sj.displacement_joint_dense(x1, x2, HALF_T)
         torch.cuda.synchronize()
         e_fwd = _compare("K1 joint", got, ref)
+        # K1's function on the card: bf16 operands, exact products, f32 sums
+        ref64 = sj.joint_fwd_bf16_plain(x1.double(), x2.double(), HALF_T)
+        scale64, scale = float(ref64.abs().max()), float(ref.abs().max())
+        for tag, f in ((k1_form, got), (k1_other, sj.joint_fwd(
+                x1, x2, HALF_T, form=k1_other))):
+            tol = K1_F64 if tag == "wgmma" else K1_F64_FMA
+            e64 = float((f.double() - ref64).abs().max()) / scale64
+            ok = e64 <= tol
+            _log(f"  K1 {tag} vs float64 of its bf16 operands: max err / "
+                 f"max|ref| {e64:.3e} (<= {tol:g}) {'ok' if ok else 'FAIL'};"
+                 f" vs the f32 conv {float((f - ref).abs().max()) / scale:.3e}")
+            if not ok:
+                raise AssertionError(f"K1 {tag} is off its bf16 function")
+            e_fwd = max(e_fwd, _compare(f"K1 {tag} vs the f32 conv", f, ref))
+        if k == KS[0]:
+            _k1_depth(x1, x2, ref64, scale64)
+            _k1_parts(x1, x2)
+        del ref64
         got1 = sj.joint_dgrad(g2d, x2, HALF_T)
         ref1 = sj.dgrad_plain(g2d, x2, HALF_T)
         got2 = sj.joint_dgrad(g2d_swap, x1, HALF_T)
@@ -417,6 +470,8 @@ def phase_kernels():
 
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
         gf = g.flip(2, 3).bfloat16().contiguous()
+        k1_other_ms = _time_ms(lambda: sj.joint_fwd(x1, x2, HALF_T,
+                                                     form=k1_other))
         times = {
             "seg_joint_fwd": (
                 _time_ms(lambda: sj.joint_fwd(x1, x2, HALF_T)),
@@ -436,6 +491,11 @@ def phase_kernels():
             _log(f"  {name} k={k}: kernel {ms:.3f} ms, plain (f32 "
                  f"F.conv2d) {plain_ms:.3f} ms, bf16 F.conv2d {lib_ms:.3f} "
                  f"ms (CUDA events, mean of 5)")
+        k1_ms, _, k1_lib = times["seg_joint_fwd"]
+        _log(f"  K1 k={k} forms: {k1_form} {k1_ms:.3f} ms (the path's), "
+             f"{k1_other} {k1_other_ms:.3f} ms; "
+             f"{'faster' if k1_ms < k1_lib else 'SLOWER'} than one bf16 "
+             f"F.conv2d ({k1_lib:.3f} ms)")
         k2_ms, _, k2_lib = times["seg_joint_dgrad"]
         _log(f"  K2 k={k} forms: {form} {k2_ms:.3f} ms (the path's), "
              f"{other_form} {other_ms:.3f} ms; "
@@ -456,6 +516,55 @@ def phase_kernels():
         del x1, x2, x1b, x2b
         torch.cuda.empty_cache()
     return stats
+
+
+def _k1_depth(x1, x2, ref64, scale64):
+    """K1's tensor-core form (its launcher, past the wrapper) at each chunk
+    depth of K1_CHUNKS: its error against its bf16 function in float64
+    (the tensor cores' f32 sums truncate, and a joint's terms do not
+    cancel) and its time."""
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    n, k, h, w = x1.shape
+    for rows in K1_CHUNKS:
+        per, splits = sj.k1_plan(n, k, h, HALF_T, sj.K1_RB, rows)
+        def call():
+            return sj.launch_joint_fwd_mma(sj._lib().seg_joint_fwd, x1, x2,
+                                           HALF_T, sj.K1_RB, rows)
+        err = float((call().double() - ref64).abs().max()) / scale64
+        ms = _time_ms(call)
+        _log(f"  K1 wgmma chunk of {per * sj.K1_RB} rows ({splits} chunks, "
+             f"{per * sj.K1_RB * -(-w // 16)} k16 steps): max err / max|ref| "
+             f"{err:.3e}, {ms:.3f} ms"
+             + (" (the default)" if rows == sj.K1_CHUNK_ROWS else ""))
+
+
+def _k1_parts(x1, x2, calls=5):
+    """Device time of each kernel one K1 call (the path's form) launches,
+    from torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    sj.joint_fwd(x1, x2, HALF_T)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            sj.joint_fwd(x1, x2, HALF_T)
+        torch.cuda.synchronize()
+    parts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    _log("  K1's kernels, device ms a call (torch.profiler, mean of "
+         f"{calls}): " + ", ".join(
+             f"{_kernel_name(e.key)} x{e.count // calls} "
+             f"{e.self_device_time_total / calls / 1e3:.4f}"
+             for e in sorted(parts, key=lambda e: -e.self_device_time_total)))
+
+
+def _kernel_name(key):
+    """A kernel's bare name from a profiler key such as ``void
+    (anonymous namespace)::f<float>(float const*, ...)``."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0].split("<")[0].split("::")[-1]
 
 
 def phase_k3():
@@ -655,10 +764,12 @@ def phase_x1():
 
 
 def phase_x7():
-    """X7 against its plain version at the segmentation shapes for each rb,
-    its errors against float64, and its time beside K1's and X2's and the
-    bf16 cuDNN conv of the same joint. Returns the table stats (k=15,
-    rb=16)."""
+    """X7 in both forms against its plain version at the segmentation
+    shapes for each rb, bit-equal to K1 on the same bf16 operands in the
+    tensor-core form (the same kernel and chunks), its errors against
+    float64, and its times in both forms beside K1's and X2's and the bf16
+    cuDNN conv of the same joint. Returns the table stats (k=15, rb=16, the
+    form K1 takes there)."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
@@ -670,39 +781,55 @@ def phase_x7():
     for k in KS:
         x1, x2 = _softmax_pair(gen, k)
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
-        _log(f"X7 k={k}: n={N}, {HW}x{HW}, T={t}, bf16 inputs")
+        form = sj.k1_form(k, HALF_T)
+        _log(f"X7 k={k}: n={N}, {HW}x{HW}, T={t}, bf16 inputs; K1's form "
+             f"{form}")
         ref = jx.joint_fwd_v8_plain(x1b, x2b, HALF_T)
-        for rb in X_RBS:
-            got = jx.joint_fwd_v8(x1b, x2b, HALF_T, rb)
-            torch.cuda.synchronize()
-            stats["max_abs_err"] = max(stats["max_abs_err"],
-                                       _compare(f"rb={rb}", got, ref))
-        p = jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB).double()
-        ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
-                                            HALF_T)
-        for tag, f in (("kernel", p), ("plain f32", ref.double())):
+        k1 = sj.joint_fwd(x1, x2, HALF_T, form="wgmma")
+        for f in sj.K1_FORMS:
+            for rb in X_RBS:
+                got = jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form=f)
+                torch.cuda.synchronize()
+                stats["max_abs_err"] = max(
+                    stats["max_abs_err"], _compare(f"{f} rb={rb}", got, ref))
+                if f == "wgmma":
+                    same = torch.equal(got, k1)
+                    _log(f"    equals K1 (wgmma) on the same bf16 operands "
+                         f"bit for bit: {same}")
+                    if not same:
+                        raise AssertionError(f"X7 rb={rb} differs from K1")
+        del k1
+        ref64 = sj.joint_fwd_bf16_plain(x1b.double(), x2b.double(), HALF_T)
+        for tag, f in (("wgmma", jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                 form="wgmma")),
+                       ("cuda-core", jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                     form="cuda-core")),
+                       ("plain f32", ref)):
             _log(f"  {tag} vs float64 of its bf16 inputs: max err / max|ref|"
-                 f" {float((f - ref64).abs().max() / ref64.abs().max()):.3e}")
-        del p, ref, ref64
+                 f" {float((f.double() - ref64).abs().max() / ref64.abs().max()):.3e}")
+        del ref, ref64
 
         def library():
             return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
                             padding=HALF_T)
-        times = {rb: _time_ms(lambda r=rb: jx.joint_fwd_v8(x1b, x2b, HALF_T,
-                                                           r))
-                 for rb in X_RBS}
-        k1_ms = _time_ms(lambda: sj.joint_fwd(x1, x2, HALF_T))
+        times = {(f, rb): _time_ms(lambda f=f, r=rb: jx.joint_fwd_v8(
+                     x1b, x2b, HALF_T, r, form=f))
+                 for f in sj.K1_FORMS for rb in X_RBS}
+        k1_ms = {f: _time_ms(lambda f=f: sj.joint_fwd(x1, x2, HALF_T,
+                                                      form=f))
+                 for f in sj.K1_FORMS}
         x2_ms = _time_ms(lambda: jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB))
         plain_ms = _time_ms(lambda: jx.joint_fwd_v8_plain(x1b, x2b, HALF_T))
         library_ms = _time_ms(library)
-        _log(f"  joint_fwd_v8 k={k}: kernel "
-             + ", ".join(f"rb={rb} {ms:.3f}" for rb, ms in times.items())
-             + f" ms; in the same phase K1 (f32) {k1_ms:.3f} ms, X2 (bf16 "
-             f"tiles, widened in the inner loop) {x2_ms:.3f} ms; plain "
-             f"{plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f} ms (CUDA "
-             f"events, mean of 5)")
+        for f in sj.K1_FORMS:
+            _log(f"  joint_fwd_v8 k={k} {f}: kernel "
+                 + ", ".join(f"rb={rb} {times[(f, rb)]:.3f}" for rb in X_RBS)
+                 + f" ms; K1 (f32 in) {k1_ms[f]:.3f} ms")
+        _log(f"  in the same phase X2 (bf16 tiles, widened in the inner loop)"
+             f" {x2_ms:.3f} ms; plain {plain_ms:.3f} ms; bf16 F.conv2d "
+             f"{library_ms:.3f} ms (CUDA events, mean of 5)")
         if k == KS[0]:
-            stats.update(ms=times[X_RB], plain_ms=plain_ms,
+            stats.update(ms=times[(form, X_RB)], plain_ms=plain_ms,
                          library_ms=library_ms)
             stats.update(_bound("joint_fwd_v8",
                                 _joint_flop(N, k, HW, HW, HALF_T),
@@ -715,11 +842,13 @@ def phase_x7():
 
 def phase_x3_x6():
     """X3-X6 against X2's plain version at the segmentation shapes (X3 at
-    each rb and flat, X4 and X5 at each rb, X6 on the f32 inputs at both
-    roll_build, which must agree bit for bit), each call's error against
-    float64, and the times of X3-X6 at rb=16 beside K1's, X7's and X2's in
-    the same phase (X7 first and last, to show drift), of the plain version
-    and of X2's bf16 cuDNN conv. Returns {kernel: table stats} (k=15,
+    each rb and flat, X4 and X5 at each rb, X3 and X5 bit-equal to X7's
+    CUDA-core form at that rb, X6 on the f32 inputs at both roll_build,
+    which must agree bit for bit), each call's error against
+    float64, and the times of X3-X6 at rb=16 beside K1's, X7's (both forms;
+    the CUDA-core form, whose order X3 and X5 follow, first and last, to
+    show drift) and X2's in the same phase, of the plain version and of
+    X2's bf16 cuDNN conv. Returns {kernel: table stats} (k=15,
     rb=16, X3 flat, X6 roll_build=False)."""
     import torch
     import torch.nn.functional as F
@@ -752,6 +881,8 @@ def phase_x3_x6():
                 lambda roll=roll: jx.joint_fwd_v6(x1, x2, HALF_T, roll))
                for roll in (False, True)])
         x6 = {}
+        x7 = {rb: jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form="cuda-core")
+              for rb in X_RBS}
         for name, tag, call in calls:
             got = call()
             torch.cuda.synchronize()
@@ -761,24 +892,34 @@ def phase_x3_x6():
                  f"{float((got.double() - ref64).abs().max()) / scale:.3e}")
             if name == "joint_fwd_v6":
                 x6[tag] = got
+            elif name in ("joint_fwd_v3", "joint_fwd_v5"):
+                rb = int(tag.split()[0].removeprefix("rb="))
+                if not torch.equal(got, x7[rb]):
+                    raise AssertionError(f"{name} {tag} differs from X7's "
+                                         f"CUDA-core form")
+        _log("  X3 and X5 equal X7's CUDA-core form at each rb bit for bit")
         if not torch.equal(x6["roll_build=True"], x6["roll_build=False"]):
             raise AssertionError("X6 roll_build=True differs from False")
         _log("  X6 roll_build=True equals roll_build=False bit for bit")
-        del ref, ref64, x6, got
+        del ref, ref64, x6, x7, got
 
         def library():
             return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
                             padding=HALF_T)
         timed = {
-            "X7": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB),
-            "K1 (f32)": lambda: sj.joint_fwd(x1, x2, HALF_T),
+            "X7 cuda-core": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                    form="cuda-core"),
+            "X7 wgmma": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                form="wgmma"),
+            "K1": lambda: sj.joint_fwd(x1, x2, HALF_T),
             "X2": lambda: jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB),
             "joint_fwd_v3": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v4": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v5": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v6": lambda: jx.joint_fwd_v6(x1, x2, HALF_T),
             "X6 roll_build": lambda: jx.joint_fwd_v6(x1, x2, HALF_T, True),
-            "X7 again": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB),
+            "X7 cuda-core again": lambda: jx.joint_fwd_v8(
+                x1b, x2b, HALF_T, X_RB, form="cuda-core"),
             "plain": lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T),
             "bf16 F.conv2d": library}
         ms = {tag: _time_ms(fn) for tag, fn in timed.items()}
@@ -1083,8 +1224,9 @@ def phase_tool():
 
 def _f64_errors(k, x1, x2, g2d):
     """Max error over max |ref| of K1, K2 and their f32 plain versions
-    against the plain version run in float64 on the f32 inputs (K2 rounds
-    its operands to bf16, so its error here is bf16's)."""
+    against the plain version run in float64 on the f32 inputs (both
+    kernels round their operands to bf16, so their errors here are
+    bf16's)."""
     import torch
     from iic_tpu_torch.ops.kernels import seg_joint as sj
 
@@ -1185,7 +1327,8 @@ def phase_profile(trace_dir):
             half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
             include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment)
         _profile(f"seg head {head}", step, batches, trace_dir,
-                 ("joint_partial_kernel", "joint_reduce_kernel",
+                 ("joint_fwd_mma_kernel", "jf_layout_kernel",
+                  "joint_partial_kernel", "joint_reduce_kernel",
                   "dgrad_v8_kernel", "dgrad_kernel"))
 
 

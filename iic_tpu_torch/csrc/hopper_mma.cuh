@@ -1,7 +1,8 @@
 // Inline-PTX wrappers for Hopper's (sm_90a) warpgroup tensor-core product,
 // shared by the kernels that run their products on the tensor cores
 // (joint_exp.cu X1; dgrad_common.cuh, the implicit GEMM of X8 and K2;
-// joint_exp_bwd.cu X9).
+// joint_exp_bwd.cu X9; joint_fwd_common.cuh, the stack product of K1 and
+// X7).
 //
 // A warpgroup is four consecutive warps (128 threads). `wgmma.mma_async`
 // multiplies a 64-row A tile (from shared memory, or from registers) by an
@@ -28,7 +29,10 @@
 // A register fragment (the RS form) has the same rows: a[0] holds row
 // 16 w + l / 4, k 2 (l % 4) + {0, 1}; a[1] row + 8; a[2] k + 8; a[3] both.
 // `ldmatrix_x4` with lane l pointing at row l % 16, k 8 (l / 16) of the
-// warp's 16 rows fills exactly that fragment.
+// warp's 16 rows fills exactly that fragment. From memory that holds the
+// fragment's columns as rows (8 bf16 of 8 consecutive rows each, the k
+// index outer), `ldmatrix_x4_trans` fills it with lane l pointing at
+// column (l & 7) + 8 (l >> 4), rows 8 ((l >> 3) & 1) .. + 7.
 //
 // Ordering rules the callers keep: `wgmma_fence()` before the first
 // product and whenever the accumulator or A registers were written by other
@@ -97,6 +101,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// ldmatrix_x4 with the transpose: each 8x8 matrix lands transposed, so
+// lane t holds the elements (2 (t % 4) + {0, 1}, t / 4) of the stored rows.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr)
       : "memory");
@@ -190,6 +206,44 @@ __device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// d (m64n168, f32) = A (64 x 16, registers) * B (16 x 168, shared,
+// MN-major: the transpose bit set) + d, or + 0 at scale_d = 0.
+__device__ __forceinline__ void wgmma_m64n168k16_rs_tn(
+    float (&d)[84], const uint32_t (&a)[4], uint64_t db, int scale_d = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %89, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n168k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83}, "
+      "{%84, %85, %86, %87}, %88, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 

@@ -1,7 +1,7 @@
 // Forward probes of the displacement-joint experiment tool, hand-written for
 // Hopper (sm_90a): X2, the joint forward with bf16 operands and its
 // ablations, X1, the stack-product probe on the tensor cores, and X7, the
-// joint forward with bf16 operands on K1's split-K kernel.
+// joint forward with bf16 operands on K1's kernels.
 //
 // Replaces tools/joint_kernel_exp.py: `_joint_kernel_v2` (launched by
 // `joint_fwd_v2`), `_mm_probe_kernel` (launched by `mm_probe`) and
@@ -94,15 +94,20 @@
 // (joint_common.cuh).
 //
 // X7. The TPU tool's v8 is its production K1 with the row tile `rb` as a
-// parameter: bf16 stacks, f32 accumulation. Here it is K1's own split-K
-// kernel (joint_common.cuh) instantiated on bf16 inputs: each bf16 value is
-// widened once, when the loader stores it into K1's f32 shared tiles, and
-// K1's f32 FMA loop runs unchanged. Set against X2 (bf16 tiles, widened in
-// the inner loop) and K1 (f32 loads) it measures what the inner-loop
-// widening costs. `rb` is the (n, y) row quantum of a split-K chunk (the
-// wrapper cuts the n*h rows into chunks of a multiple of rb rows, as X2's
-// does): it changes only the order of the f32 sums, never the work, and no
-// shared memory depends on it (K1's two 16 x 68 f32 tiles, 8.7 KB).
+// parameter: bf16 stacks, f32 accumulation. Here it is K1's own kernels on
+// bf16 inputs. Its tensor-core form is K1's stack product
+// (joint_fwd_common.cuh) over the same channels-last operands: `rb` is
+// what it is on the TPU, the (n, y) rows a block stages per pass, each
+// pass cut into the kernel's slabs of 16 rows x 64 pixels (a whole pass of
+// 32 or 64 rows does not fit a block beside its window), and a split-K
+// chunk is whole passes, so rb changes the order of the f32 sums only at a
+// ragged frame, never the work. Its CUDA-core form is K1's SGEMM
+// (joint_common.cuh) instantiated on bf16 inputs: each bf16 value is
+// widened once, when the loader stores it into the f32 shared tiles, and
+// `rb` is the (n, y) row quantum of a split-K chunk (the wrapper cuts the
+// n*h rows into chunks of a multiple of rb rows, as X2's does); no shared
+// memory depends on it (two 16 x 68 f32 tiles, 8.7 KB). X3 and X5 add
+// their stages in that form's order and equal it bit for bit.
 // Bound: as X2, 0.36 ms at the H100 SXM's published bf16 tensor-core peak
 // (2 * n * k^2 * S_h * S_w in-frame products), on 2 x 59 MB of bf16 input.
 //
@@ -114,6 +119,7 @@
 
 #include "hopper_mma.cuh"
 #include "joint_common.cuh"
+#include "joint_fwd_common.cuh"
 
 namespace {
 
@@ -458,9 +464,9 @@ int joint_exp_fwd_v2(const void* x1, const void* x2, float* part,
   return static_cast<int>(cudaGetLastError());
 }
 
-// X7: x1, x2 (n, k, h, w) bf16 contiguous; part (splits, kT, kT) f32
-// scratch; out (k, k, T, T) f32. The (n, y) rows are cut into `splits`
-// chunks of `rows_per_chunk` rows, a multiple of rb.
+// X7's CUDA-core form: x1, x2 (n, k, h, w) bf16 contiguous; part (splits,
+// kT, kT) f32 scratch; out (k, k, T, T) f32. The (n, y) rows are cut into
+// `splits` chunks of `rows_per_chunk` rows, a multiple of rb.
 int joint_exp_fwd_v8(const void* x1, const void* x2, float* part, float* out,
                      int n, int k, int h, int w, int half_t, int splits,
                      int rows_per_chunk, cudaStream_t stream) {
@@ -468,6 +474,22 @@ int joint_exp_fwd_v8(const void* x1, const void* x2, float* part, float* out,
       static_cast<const __nv_bfloat16*>(x1),
       static_cast<const __nv_bfloat16*>(x2), part, out, n, k, h, w, half_t,
       splits, rows_per_chunk, stream);
+}
+
+// X7's tensor-core form, K1's stack product: x1, x2 (n, k, h, w) bf16
+// contiguous; x1c, x2c (n, ceil(k/16), h, w, 16) bf16 scratch for the
+// layout pass; part (splits, kT, kT) f32 scratch; out (k, k, T, T) f32.
+// The (n, y) rows are cut into passes of rb rows of one image, the passes
+// into `splits` chunks of passes_per_chunk.
+int joint_exp_fwd_v8_mma(const void* x1, const void* x2, void* x1c,
+                         void* x2c, float* part, float* out, int n, int k,
+                         int h, int w, int half_t, int rb,
+                         int passes_per_chunk, int splits,
+                         cudaStream_t stream) {
+  return launch_joint_fwd_mma<bf16>(
+      static_cast<const bf16*>(x1), static_cast<const bf16*>(x2),
+      static_cast<bf16*>(x1c), static_cast<bf16*>(x2c), part, out, n, k, h,
+      w, half_t, rb, passes_per_chunk, splits, stream);
 }
 
 // X1: part (splits, tk, tk) f32 scratch; out (tk, tk) f32. passes_total

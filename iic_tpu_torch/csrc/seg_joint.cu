@@ -14,26 +14,39 @@
 //
 // Bound: at the main path's shapes (n=120, 128^2, T=21, k=15) K1 needs
 // 2 * n * k^2 * S_h * S_w ~ 3.6e11 FLOP, S = sum_{|d|<=h} (128 - |d|) = 2578
-// the in-frame rows (columns) over the shifts, on 2 x 118 MB of input, and
-// each K2 call the same count of multiply-adds: far above the H100's ridge,
-// so both are compute-bound. (K1 also multiplies the zeros outside the
-// frame: it issues 2 * n*h*w * (kT)^2 ~ 3.9e11.) The TPU kernels round
-// their operands to bf16 for the MXU and sum in f32; at the bf16
-// tensor-core peak (989 TFLOP/s) each needs 0.36 ms.
+// the in-frame rows (columns) over the shifts, on 2 x 118 MB of f32 input
+// (59 MB each once rounded to bf16), and each K2 call the same count of
+// multiply-adds: far above the H100's ridge, so both are compute-bound.
+// The TPU kernels round their operands to bf16 for the MXU and sum in f32,
+// and so do K1 and K2 on the card; at the bf16 tensor-core peak (989
+// TFLOP/s) each needs 0.36 ms. (K1's tensor-core form issues 5.1e11: k
+// padded to 16 channels, 6 M tiles of 4 shifts for T = 21, and the zeros
+// outside the frame.)
 //
-// K1 design. f32 FMAs on the CUDA cores (67 TFLOP/s peak) on the f32
-// operands (within f32 rounding of the conv oracle), both shifted stacks
-// built in shared memory straight from the unpadded inputs, the frame
-// edges masked in the kernel: no padded copy reaches device memory. The
-// TPU kernel carries one (kT x kT) accumulator across its sequential grid.
-// Blocks here run in parallel, so the contraction is split:
-// block (bx, by, s) owns a 64x64 output tile and the s-th chunk of
-// (n, y) rows, and writes its partial sum to part[s]. A second kernel adds
-// the partials in a fixed order (deterministic; no atomics) and writes the
-// (k, k, T, T) layout. Inside a block it is a plain shared-memory SGEMM:
-// 16-wide k-steps along q, 256 threads, 4x4 register micro-tiles. The
-// kernel lives in joint_common.cuh, templated on the input type: X7
-// (joint_exp.cu) is the same kernel on bf16 inputs.
+// K1 design. K1 computes what the TPU's `_joint_kernel` computes: x1 and
+// x2 rounded to bf16 (nearest even; the wrapper's one layout pass), exact
+// products, f32 sums. At k > 4 it is the stack product on the tensor cores
+// of joint_fwd_common.cuh: both inputs laid out channels-last in chunks of
+// 16 channels, A (the column-shifted x1 stack) from registers through
+// ldmatrix.trans, so a shift is a pointer, and B (the row-shifted x2
+// stack) read by a descriptor from a staged window of x2 rows with its
+// columns ordered (T - 1 - u, j), so the row shift needs no build either;
+// m64n168k16 wgmma in two warpgroups a block while a third stages the next
+// slab with cp.async. The TPU kernel carries one
+// (kT x kT) accumulator across its sequential grid. Blocks here run in
+// parallel, so the contraction is split into chunks of whole passes of
+// rows; each block writes its partial sum to part[s], and a second kernel
+// adds the partials in a fixed order (deterministic; no atomics) and
+// writes the (k, k, T, T) layout. The chunks are short (the wrapper's
+// K1_CHUNK_ROWS) because the tensor cores' f32 sums truncate and a joint's
+// terms are all positive. X7 (joint_exp.cu) launches the same kernel. At
+// k <= 4 the 16-channel padding issues 5.3x the work (k = 3); there K1
+// keeps its CUDA-core form, on the same bf16 operands: a plain
+// shared-memory SGEMM (joint_common.cuh, X7's CUDA-core form), block
+// (bx, by, s) a 64x64 output tile and the s-th chunk of (n, y) rows, both
+// shifted stacks built in shared memory from the unpadded inputs, 16-wide
+// k-steps along q, 256 threads, 4x4 register micro-tiles, the same split
+// and ordered reduce.
 //
 // K2 design. K2 computes what the TPU's `_dgrad_kernel` computes: the
 // adjoint and `other` rounded to bf16 (nearest even; the wrapper's one
@@ -61,6 +74,7 @@
 
 #include "dgrad_common.cuh"
 #include "joint_common.cuh"
+#include "joint_fwd_common.cuh"
 
 namespace {
 
@@ -182,14 +196,32 @@ int launch_dgrad(const T* g2d, const T* other, float* dx, int n, int k,
 
 extern "C" {
 
-// K1: x1, x2 (n, k, h, w) f32 contiguous; part (splits, kT, kT) f32 scratch;
-// out (k, k, T, T) f32. The (n, y) rows are cut into `splits` chunks of
-// `rows_per_chunk` rows.
-int seg_joint_fwd(const float* x1, const float* x2, float* part, float* out,
-                  int n, int k, int h, int w, int half_t, int splits,
-                  int rows_per_chunk, cudaStream_t stream) {
-  return launch_joint_fwd<float>(x1, x2, part, out, n, k, h, w, half_t,
-                                 splits, rows_per_chunk, stream);
+// K1 at k > 4, on the tensor cores: x1, x2 (n, k, h, w) f32 contiguous;
+// x1c, x2c (n, ceil(k/16), h, w, 16) bf16 scratch for the layout pass;
+// part (splits, kT, kT) f32 scratch; out (k, k, T, T) f32. The (n, y) rows
+// are cut into passes of rb rows of one image, and the passes into
+// `splits` chunks of passes_per_chunk.
+int seg_joint_fwd(const float* x1, const float* x2, void* x1c, void* x2c,
+                  float* part, float* out, int n, int k, int h, int w,
+                  int half_t, int rb, int passes_per_chunk, int splits,
+                  cudaStream_t stream) {
+  return launch_joint_fwd_mma<float>(x1, x2, static_cast<bf16*>(x1c),
+                                     static_cast<bf16*>(x2c), part, out, n,
+                                     k, h, w, half_t, rb, passes_per_chunk,
+                                     splits, stream);
+}
+
+// K1's CUDA-core form (k <= 4): x1, x2 (n, k, h, w) bf16 contiguous; part
+// (splits, kT, kT) f32 scratch; out (k, k, T, T) f32. The (n, y) rows are
+// cut into `splits` chunks of `rows_per_chunk` rows.
+int seg_joint_fwd_small(const void* x1, const void* x2, float* part,
+                        float* out, int n, int k, int h, int w, int half_t,
+                        int splits, int rows_per_chunk,
+                        cudaStream_t stream) {
+  return launch_joint_fwd<bf16>(static_cast<const bf16*>(x1),
+                                static_cast<const bf16*>(x2), part, out, n,
+                                k, h, w, half_t, splits, rows_per_chunk,
+                                stream);
 }
 
 // K2 at k > 4, X8's tensor-core form: gc, oc the adjoint and the other

@@ -1,7 +1,7 @@
 """Kernels of the displacement-joint experiment tool, with their plain
 PyTorch versions: the forward probes X2 (joint forward with bf16 operands,
 and its ablations), X1 (the stack-product probe), X7 (the joint forward
-with bf16 operands on K1's kernel) and X3-X6 (the same joint, with the next
+with bf16 operands on K1's kernels) and X3-X6 (the same joint, with the next
 stage fetched while the current one is multiplied), and the backward probes
 X8 (input gradient with bf16 operands) and X9 (both input gradients in one
 launch, each per-displacement partial rounded to bf16).
@@ -41,8 +41,8 @@ import torch.nn.functional as F
 from iic_tpu_torch.ops.kernels import _build
 from iic_tpu_torch.ops.kernels import seg_joint as sj
 from iic_tpu_torch.ops.kernels.seg_joint import (
-    _SMEM_BLOCK, _V8_CH, _v8_smem, dgrad_v8_operands,
-    dgrad_v8_slab, dgrad_v8_smem, displacement_joint_dense)
+    _SMEM_BLOCK, _V8_CH, _bf16_values, _stream, _v8_smem,
+    dgrad_v8_operands, dgrad_v8_slab, dgrad_v8_smem)
 
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
@@ -170,13 +170,6 @@ def _split(units, tiles, quantum=1):
 
 # ------------------------------------------------------------ plain versions
 
-def _bf16_values(x):
-    """x rounded to bf16 (nearest even, as the TPU tool's astype), in f32,
-    or in f64 for f64 input (a float64 reference for the checks)."""
-    return x.to(torch.bfloat16).to(torch.promote_types(x.dtype,
-                                                       torch.float32))
-
-
 def _bits(x):
     """The bf16 bit patterns of x as non-negative int64."""
     return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
@@ -224,18 +217,18 @@ def joint_fwd_v2_plain(x1, x2, half_t, mode="full", rb=16):
     if mode == "mm-only":
         return torch.full((k, k, t, t), float(mm_only_terms(n, h, w, rb)),
                           device=x1.device)
-    a, b = _bf16_values(x1), _bf16_values(x2)
     if mode == "aligned-copies":
-        p0 = displacement_joint_dense(a, b, 0)
+        p0 = sj.joint_fwd_bf16_plain(x1, x2, 0)
         return p0.expand(k, k, t, t).contiguous()
-    return displacement_joint_dense(a, b, half_t)
+    return sj.joint_fwd_bf16_plain(x1, x2, half_t)
 
 
 def joint_fwd_v8_plain(x1, x2, half_t, rb=16):
-    """Plain version of X7: the joint of x1, x2 rounded to bf16, f32
-    accumulation, X2 ``full``'s plain version; ``rb`` changes only the
-    kernel's summation order."""
-    return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
+    """Plain version of X7: K1's function on the card
+    (``seg_joint.joint_fwd_bf16_plain``), the joint of x1, x2 rounded to
+    bf16 with f32 accumulation; ``rb`` changes only the kernel's summation
+    order."""
+    return sj.joint_fwd_bf16_plain(x1, x2, half_t)
 
 
 def joint_fwd_v3_plain(x1, x2, half_t, rb=16, flat=True):
@@ -331,6 +324,8 @@ def _lib():
         lib.joint_exp_mm_probe_slots.restype = i
         lib.joint_exp_fwd_v8.argtypes = [p, p, p, p] + [i] * 7 + [p]
         lib.joint_exp_fwd_v8.restype = i
+        lib.joint_exp_fwd_v8_mma.argtypes = [p] * 6 + [i] * 8 + [p]
+        lib.joint_exp_fwd_v8_mma.restype = i
         lib._typed = True
     return lib
 
@@ -359,11 +354,6 @@ def _bwd_lib():
         lib.joint_exp_dgrad_fused_v7.restype = i
         lib._typed = True
     return lib
-
-
-def _stream(device):
-    with torch.cuda.device(device):
-        return torch.cuda.current_stream().cuda_stream
 
 
 def _on_cuda(name, *xs):
@@ -451,15 +441,31 @@ def _split_k_fwd(name, entry, x1, x2, half_t, rb, *flags,
     return out
 
 
-def joint_fwd_v8(x1, x2, half_t, rb=16):
+def joint_fwd_v8(x1, x2, half_t, rb=16, form=None):
     """X7: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w) with
-    both inputs rounded to bf16 and f32 accumulation, on K1's split-K
-    kernel; ``rb`` is the (n, y) row quantum of a split-K chunk."""
+    both inputs rounded to bf16 and f32 accumulation, on K1's kernels, in
+    the form ``form`` (one of ``seg_joint.K1_FORMS``; by default K1's
+    choice, ``seg_joint.k1_form``). In the tensor-core form ``rb`` is the
+    (n, y) rows of one image a block stages per pass, as on the TPU; a pass
+    of more than 16 rows does not fit a block beside its x2 window, so the
+    kernel stages it in slabs of 16 rows x 64 pixels, and a split-K chunk
+    is whole passes (about ``seg_joint.K1_CHUNK_ROWS`` rows), so at h a
+    multiple of rb, rb 16, 32 and 64 give K1's bits. In the CUDA-core form
+    ``rb`` is the (n, y) row quantum of a split-K chunk."""
+    if form is not None and form not in sj.K1_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {sj.K1_FORMS}")
     _check_shift(half_t, rb)
     if not _on_cuda("joint_fwd_v8", x1, x2):
         return joint_fwd_v8_plain(x1, x2, half_t, rb)
-    return _split_k_fwd("joint_fwd_v8", _lib().joint_exp_fwd_v8, x1, x2,
-                        half_t, rb)
+    if (form or sj.k1_form(x1.shape[1], half_t)) == "cuda-core":
+        return _split_k_fwd("joint_fwd_v8", _lib().joint_exp_fwd_v8, x1, x2,
+                            half_t, rb)
+    a = _as_input("x1", x1)
+    b = _as_input("x2", x2, tuple(x1.shape))
+    out = sj.launch_joint_fwd_mma(_lib().joint_exp_fwd_v8_mma, a, b, half_t,
+                                  rb, sj.K1_CHUNK_ROWS)
+    LAUNCHES["joint_fwd_v8"] += 1
+    return out
 
 
 def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True):

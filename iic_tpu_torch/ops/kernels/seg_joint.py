@@ -1,18 +1,20 @@
 """Displacement joint of the uncollapsed segmentation loss: the CUDA kernels
 K1 (forward) and K2 (input gradient), their plain PyTorch versions, and the
-``SegJoint`` autograd function that ties them together. K2 rounds its
-operands to bf16 on the card, as the TPU kernel does, and at k > 4 runs on
-the tensor cores: it shares X8's implicit GEMM, whose operand layouts and
-shared-memory plan are here so that the training path needs nothing of the
-experiment tool's module (``joint_exp``), which imports them from here.
+``SegJoint`` autograd function that ties them together. Both kernels round
+their operands to bf16 on the card, as the TPU kernels do, and at k > 4
+run on the tensor cores: K1 on the stack product of
+``csrc/joint_fwd_common.cuh`` (which X7 shares), K2 on X8's implicit GEMM.
+Their operand layouts and shared-memory plans are here so that the training
+path needs nothing of the experiment tool's module (``joint_exp``), which
+imports them from here.
 
 Replaces ``iic_tpu/ops/pallas/seg_joint_kernel.py``: K1 replaces
 ``_joint_kernel`` (launched by ``_joint_pallas_raw``), K2 replaces
 ``_dgrad_kernel`` (launched by ``_dgrad_pallas``), and ``SegJoint`` replaces
 the ``jax.custom_vjp`` ``displacement_joint_dense_pallas``. The kernels'
 source, with the note on what bounds them on the H100 and how their design
-answers it, is ``iic_tpu_torch/csrc/seg_joint.cu`` (K2's tensor-core form in
-``csrc/dgrad_common.cuh``).
+answers it, is ``iic_tpu_torch/csrc/seg_joint.cu`` (K1's tensor-core form in
+``csrc/joint_fwd_common.cuh``, K2's in ``csrc/dgrad_common.cuh``).
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; it never falls back.
@@ -29,10 +31,28 @@ from iic_tpu_torch.ops.kernels import _build
 # Launches of each kernel, counted where the wrapper launches it.
 LAUNCHES = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
 
-# Blocks K1 aims to put in flight: eight per SM of the H100's 132.
+# Blocks K1's CUDA-core form aims to put in flight: eight per SM of the
+# H100's 132.
 _TARGET_BLOCKS = 8 * 132
-_TILE = 64  # K1's output tile edge (csrc/seg_joint.cu BM, BN)
+_TILE = 64  # the CUDA-core form's output tile edge (csrc/joint_common.cuh)
 _SMEM_BLOCK = 232448  # shared memory a block may use on the H100
+K1_FORMS = ("wgmma", "cuda-core")
+# K1's tensor-core form (csrc/joint_fwd_common.cuh): channels of a chunk,
+# pixels of a column slab, rows of a row slab, shifts v of an M tile, core
+# matrices along N of a warpgroup, warpgroups of a block (an N tile is
+# _JF_WGS * _JF_CM / 2 shifts u), and its dynamic shared memory
+_JF_CH, _JF_PIX, _JF_ROWS, _JF_V, _JF_CM, _JF_WGS = 16, 64, 16, 4, 21, 2
+_JF_U = _JF_WGS * _JF_CM // 2
+_JF_A_PIX = _JF_PIX + _JF_V
+_JF_SMEM = ((_JF_ROWS + _JF_U - 1) * 2 * _JF_PIX * 16
+            + _JF_ROWS * 2 * _JF_A_PIX * 16)
+K1_RB = 16  # K1's pass rows: the TPU kernel's row tile (_RB)
+# The (n, y) rows of a split-K chunk of K1's tensor-core form: the tensor
+# cores' f32 sums truncate, so a chunk's error grows with its depth
+K1_CHUNK_ROWS = 128
+# Blocks of the tensor-core form past which chunks grow instead of splits
+# (bounds the partials at ~180 MB for large T)
+_K1_MAX_BLOCKS = 16 * 132
 # X8's implicit GEMM (csrc/dgrad_common.cuh): window rows, tile pixels,
 # channels of a chunk, epilogue pitch
 _V8_WIN, _V8_PIX, _V8_CH = 8, 64, 16
@@ -66,6 +86,13 @@ def _at_least_f32(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _bf16_values(x):
+    """x rounded to bf16 (nearest even, as the TPU kernels' astype), in
+    f32, or in f64 for f64 input (a float64 reference for the checks)."""
+    return x.to(torch.bfloat16).to(torch.promote_types(x.dtype,
+                                                       torch.float32))
+
+
 def displacement_joint_dense(x1, x2, half_t):
     """Plain version of K1: the (k, k, T, T) joint as a conv whose filters
     are activations, out[i,j,u,v] = sum_{n,p,q} x1[n,i,u+p-h,v+q-h] *
@@ -75,6 +102,14 @@ def displacement_joint_dense(x1, x2, half_t):
     rhs = _at_least_f32(x2).transpose(0, 1)
     with full_f32():
         return F.conv2d(lhs, rhs, padding=half_t)
+
+
+def joint_fwd_bf16_plain(x1, x2, half_t):
+    """What K1 computes on the card, as the TPU kernel does: the joint of x1
+    and x2 rounded to bf16, exact products, f32 sums (f64 for f64 input,
+    the tight check of the kernel)."""
+    return displacement_joint_dense(_bf16_values(x1), _bf16_values(x2),
+                                    half_t)
 
 
 def dgrad_plain(g2d, other, half_t):
@@ -106,8 +141,10 @@ def _lib():
     lib = _build.library("seg_joint")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.seg_joint_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.seg_joint_fwd.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.seg_joint_fwd.restype = i
+        lib.seg_joint_fwd_small.argtypes = [p, p, p, p] + [i] * 7 + [p]
+        lib.seg_joint_fwd_small.restype = i
         lib.seg_joint_dgrad.argtypes = [p, p, p] + [i] * 6 + [p]
         lib.seg_joint_dgrad.restype = i
         lib.seg_joint_dgrad_small.argtypes = [p, p, p] + [i] * 5 + [p]
@@ -117,15 +154,106 @@ def _lib():
 
 
 def _split(rows, tiles):
-    """(splits, rows_per_chunk) cutting ``rows`` (n, y) rows so that K1 puts
-    about _TARGET_BLOCKS blocks in flight."""
+    """(splits, rows_per_chunk) cutting ``rows`` (n, y) rows so that K1's
+    CUDA-core form puts about _TARGET_BLOCKS blocks in flight."""
     want = max(1, min(rows, -(-_TARGET_BLOCKS // tiles)))
     per = -(-rows // want)
     return -(-rows // per), per
 
 
-def joint_fwd(x1, x2, half_t):
-    """K1: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w)."""
+def channels_last_chunks(x):
+    """x (n, k, h, w) channels-last in chunks of 16 channels, bf16 (nearest
+    even), zero past k: (n, ceil(k/16), h, w, 16), the layout K1's and X7's
+    tensor-core form read both inputs in and K2's and X8's read ``other``
+    in. A plain permute and pad."""
+    n, k, h, w = x.shape
+    c = -(-k // _JF_CH)
+    o = F.pad(x.to(torch.bfloat16).permute(0, 2, 3, 1), (0, c * _JF_CH - k))
+    return o.reshape(n, h, w, c, _JF_CH).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def k1_tiles(k, half_t):
+    """(N tiles, M tiles) of K1's tensor-core form: per 16-channel chunk,
+    N tiles of _JF_U shifts u and M tiles of _JF_V shifts v."""
+    t = 2 * half_t + 1
+    c = -(-k // _JF_CH)
+    return c * -(-t // _JF_U), c * -(-t // _JF_V)
+
+
+def k1_plan(n, k, h, half_t, rb=K1_RB, chunk_rows=K1_CHUNK_ROWS):
+    """(passes_per_chunk, splits) of K1's tensor-core form: the passes of
+    ``rb`` rows of one image (n * ceil(h / rb)) cut into chunks of about
+    ``chunk_rows`` rows (at least one pass), or of more where the blocks
+    would pass _K1_MAX_BLOCKS."""
+    passes = n * -(-h // rb)
+    tiles = k1_tiles(k, half_t)
+    per = max(1, chunk_rows // rb,
+              -(-passes // max(1, _K1_MAX_BLOCKS // (tiles[0] * tiles[1]))))
+    return per, -(-passes // per)
+
+
+def k1_smem(form):
+    """Shared memory of a K1 block in ``form``: the tensor-core form's two
+    slab buffers, each an x2 window and x1 rows (csrc/joint_fwd_common.cuh
+    2 * JF_SMEM, whatever k, h or w), the CUDA-core form's two 16 x 68 f32
+    tiles."""
+    return 2 * _JF_SMEM if form == "wgmma" else 2 * 16 * (_TILE + 4) * 4
+
+
+def k1_form(k, half_t):
+    """K1's form on the card: the CUDA-core kernel at k <= 4, where the
+    tensor-core form pads the channels to 16 and issues 5.3x the work (at
+    k = 3); else the stack product on the tensor cores (``"wgmma"``).
+    ``half_t`` changes neither form's shared memory."""
+    return "cuda-core" if k <= 4 else "wgmma"
+
+
+def check_k1_smem(form):
+    """Refuses a K1 form whose block needs more shared memory than a block
+    can use."""
+    need = k1_smem(form)
+    if need > _SMEM_BLOCK:
+        raise ValueError(f"joint_fwd ({form}): a block needs {need} bytes "
+                         f"of shared memory, over the {_SMEM_BLOCK} a block "
+                         f"can use")
+
+
+def _stream(device):
+    with torch.cuda.device(device):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def launch_joint_fwd_mma(entry, x1, x2, half_t, rb, chunk_rows):
+    """Runs K1's tensor-core form (``entry``: K1's C entry point on f32
+    inputs, or X7's on bf16) on x1, x2 (n, k, h, w): the kernel's layout
+    pass into ``channels_last_chunks``'s layout, the stack product over
+    chunks of about ``chunk_rows`` rows in passes of ``rb`` rows
+    (``k1_plan``) and the ordered reduce. Returns the (k, k, T, T) joint,
+    or raises with the CUDA error."""
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    tk = k * t
+    per, splits = k1_plan(n, k, h, half_t, rb, chunk_rows)
+    xc = torch.empty((2, n, -(-k // _JF_CH), h, w, _JF_CH), device=x1.device,
+                     dtype=torch.bfloat16)
+    part = torch.empty((splits, tk, tk), device=x1.device)
+    out = torch.empty((k, k, t, t), device=x1.device)
+    err = entry(x1.data_ptr(), x2.data_ptr(), xc[0].data_ptr(),
+                xc[1].data_ptr(), part.data_ptr(), out.data_ptr(), n, k, h, w,
+                half_t, rb, per, splits, _stream(x1.device))
+    if err != 0:
+        raise RuntimeError(f"joint forward (wgmma) launch failed: CUDA error "
+                           f"{err}")
+    return out
+
+
+def joint_fwd(x1, x2, half_t, form=None):
+    """K1: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w). On
+    the card both inputs are rounded to bf16 and the sums run in f32, as in
+    the TPU kernel (``joint_fwd_bf16_plain``); ``form`` (one of
+    ``K1_FORMS``) overrides ``k1_form``'s choice."""
+    if form is not None and form not in K1_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {K1_FORMS}")
     if x1.device.type == "cpu" and x2.device.type == "cpu":
         return displacement_joint_dense(x1, x2, half_t)
     if x1.device.type != "cuda" or x2.device != x1.device:
@@ -133,19 +261,24 @@ def joint_fwd(x1, x2, half_t):
     _check("x1", x1)
     _check("x2", x2, x1.shape)
     n, k, h, w = x1.shape
-    t = 2 * half_t + 1
-    tk = k * t
-    tiles = (-(-tk // _TILE)) ** 2
-    splits, per = _split(n * h, tiles)
-    part = torch.empty((splits, tk, tk), device=x1.device, dtype=torch.float32)
-    out = torch.empty((k, k, t, t), device=x1.device, dtype=torch.float32)
-    with torch.cuda.device(x1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-    err = _lib().seg_joint_fwd(x1.data_ptr(), x2.data_ptr(), part.data_ptr(),
-                               out.data_ptr(), n, k, h, w, half_t, splits,
-                               per, stream)
-    if err != 0:
-        raise RuntimeError(f"seg_joint_fwd launch failed: CUDA error {err}")
+    form = form or k1_form(k, half_t)
+    check_k1_smem(form)
+    if form == "wgmma":
+        out = launch_joint_fwd_mma(_lib().seg_joint_fwd, x1, x2, half_t,
+                                   K1_RB, K1_CHUNK_ROWS)
+    else:
+        t = 2 * half_t + 1
+        tk = k * t
+        splits, per = _split(n * h, (-(-tk // _TILE)) ** 2)
+        a, b = x1.to(torch.bfloat16), x2.to(torch.bfloat16)
+        part = torch.empty((splits, tk, tk), device=x1.device)
+        out = torch.empty((k, k, t, t), device=x1.device)
+        err = _lib().seg_joint_fwd_small(
+            a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), n,
+            k, h, w, half_t, splits, per, _stream(x1.device))
+        if err != 0:
+            raise RuntimeError(f"seg_joint_fwd launch failed: CUDA error "
+                               f"{err}")
     LAUNCHES["seg_joint_fwd"] += 1
     return out
 
@@ -213,11 +346,7 @@ def dgrad_v8_operands(g2d, other, half_t, n_cols=None):
               (0, jc * _V8_CH - k, 0, 0, 0, ic * n_cols - k))
     gc = (g.reshape(t, ic, n_cols // 8, 8, t, jc, 2, 8)
           .permute(1, 5, 0, 4, 6, 2, 3, 7).contiguous())
-    o = F.pad(other.to(torch.bfloat16).permute(0, 2, 3, 1),
-              (0, jc * _V8_CH - k))  # (n, h, w, 16 jc)
-    oc = (o.reshape(n, h, w, jc, _V8_CH).permute(0, 3, 1, 2, 4)
-          .contiguous())
-    return gc, oc
+    return gc, channels_last_chunks(other)
 
 
 def _k2_small_smem(half_t):
@@ -263,8 +392,7 @@ def joint_dgrad(g2d, other, half_t, form=None):
                          f"block needs {need} bytes of shared memory, over "
                          f"the {_SMEM_BLOCK} a block can use")
     dx = torch.empty_like(other)
-    with torch.cuda.device(other.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = _stream(other.device)
     if form == "wgmma":
         gc, oc = dgrad_v8_operands(g2d, other, half_t)
         err = _lib().seg_joint_dgrad(gc.data_ptr(), oc.data_ptr(),

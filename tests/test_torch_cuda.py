@@ -1,5 +1,5 @@
-"""The port's CUDA kernels K1 / K2 (displacement joint; K2 on bf16
-operands, on the tensor cores at k > 4), K3 (fused
+"""The port's CUDA kernels K1 / K2 (displacement joint on bf16 operands,
+on the tensor cores at k > 4), K3 (fused
 clustering IID loss), X1 / X2 / X7 (the experiment tool's stack-product
 probe and bf16 joint forwards), X3-X6 (its pipelined bf16 joint forwards)
 and X8 / X9 (its bf16 input gradients) on the card, against their plain
@@ -71,6 +71,72 @@ K12_SHAPES = [
     (0, 3, 3, 8, 8), (2, 3, 4, 12, 12), (3, 2, 5, 16, 16), (2, 2, 3, 10, 7),
     (10, 4, 15, 128, 128), (10, 4, 3, 128, 96), (10, 2, 17, 40, 33),
     (4, 1, 1, 5, 70)]
+
+
+# K1 against its bf16 function in float64: the tensor cores' f32 sums
+# truncate and a joint's terms are all positive, so the error grows with a
+# chunk's depth: measured 8.4e-5 of max at 128-row chunks (k=15, n=4 and
+# 120, 128^2) on the card; the CUDA-core form rounds (2.6e-6)
+K1_F64 = {"wgmma": 2e-4, "cuda-core": 2e-5}
+K1_SHAPES = K12_SHAPES + [(1, 2, 16, 20, 33), (0, 3, 17, 12, 70),
+                          (1, 2, 6, 30, 18)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", K1_SHAPES)
+def test_k1_forms_are_the_bf16_joint(gpu, half_t, n, k, h, w):
+    """Both of K1's forms, forced at every k (the CUDA-core form serves
+    k <= 4, the tensor-core form above), compute the TPU kernel's function:
+    x1 and x2 rounded to bf16, exact products, f32 sums. Against that
+    function in float64 each is within K1_F64 of max (f32 summation only),
+    and within the JAX package's kernel contract (rtol 5e-3, atol 5e-3 *
+    max) of the f32 conv; each counts one launch."""
+    rng = np.random.default_rng(21 + k + half_t)
+    x1 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    x2 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
+    ref = sj.joint_fwd_bf16_plain(x1.double(), x2.double(), half_t)
+    ref32 = sj.displacement_joint_dense(x1, x2, half_t).cpu().numpy()
+    scale = float(ref.abs().max())
+    for form in sj.K1_FORMS:
+        sj.reset_launch_counts()
+        got = sj.joint_fwd(x1, x2, half_t, form=form)
+        assert sj.LAUNCHES["seg_joint_fwd"] == 1
+        assert got.shape == ref.shape and got.dtype == torch.float32
+        err = float((got.double() - ref).abs().max())
+        assert err <= K1_F64[form] * scale, (form, err / scale)
+        np.testing.assert_allclose(got.cpu().numpy(), ref32, rtol=5e-3,
+                                   atol=5e-3 * np.abs(ref32).max(),
+                                   err_msg=form)
+
+
+@pytest.mark.cuda
+def test_k1_chunks_and_refusals(gpu):
+    """K1's tensor-core form gives the same joint, within K1_F64, at every
+    chunk depth, and shorter chunks sit no further from float64; its C
+    entry refuses a plan whose chunks do not cover the passes, or have
+    none, with a CUDA error code."""
+    rng = np.random.default_rng(4)
+    x1 = torch.from_numpy(_maps(rng, 8, 7, 64, 64)).to(gpu)
+    x2 = torch.from_numpy(_maps(rng, 8, 7, 64, 64)).to(gpu)
+    ref = sj.joint_fwd_bf16_plain(x1.double(), x2.double(), 3)
+    scale = float(ref.abs().max())
+    errs = []
+    for rows in (16, 64, 128):
+        got = sj.launch_joint_fwd_mma(sj._lib().seg_joint_fwd, x1, x2, 3,
+                                      sj.K1_RB, rows)
+        errs.append(float((got.double() - ref).abs().max()) / scale)
+    assert max(errs) <= K1_F64["wgmma"] and errs[0] <= errs[-1], errs
+    lib = sj._lib()
+    xc = torch.empty((2, 8, 1, 64, 64, 16), device=gpu, dtype=torch.bfloat16)
+    part = torch.empty((32, 49, 49), device=gpu)
+    out = torch.empty((7, 7, 7, 7), device=gpu)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x1.data_ptr(), x2.data_ptr(), xc[0].data_ptr(), xc[1].data_ptr(),
+            part.data_ptr(), out.data_ptr(), 8, 7, 64, 64, 3, 16)
+    assert lib.seg_joint_fwd(*args, 4, 8, stream) == 0   # 32 passes
+    assert lib.seg_joint_fwd(*args, 4, 7, stream) != 0   # 28 < 32
+    assert lib.seg_joint_fwd(*args, 4, 9, stream) != 0   # an empty chunk
+    assert lib.seg_joint_fwd(*args, 0, 8, stream) != 0
 
 
 @pytest.mark.cuda
@@ -148,12 +214,16 @@ def test_k2_large_half_t(gpu):
 @pytest.mark.cuda
 def test_loss_through_kernels_matches_conv(gpu, monkeypatch):
     """The uncollapsed loss and its gradient with joint_impl="pallas" (the
-    kernels, which must launch) vs "conv": rtol 1e-3 on the loss. K2 rounds
-    the cotangent and the other input to bf16, as the TPU kernel does, so
-    the gradient is held within atol 1e-3 * max of the same loss with K2
-    replaced by that function's plain version, and within the JAX
-    package's kernel contract (rtol 5e-3, atol 5e-3 * max) of the f32 conv
-    path."""
+    kernels, which must launch) vs "conv": rtol 1e-3 on the loss. K1 rounds
+    both inputs and K2 the cotangent and the other input to bf16, as the
+    TPU kernels do. So the gradient is held within atol 1e-3 * max of the
+    same loss with K2 replaced by its function's plain version (the same
+    forward, so the same cotangent), and the loss within rtol 1e-4 of the
+    same loss with K1 replaced too; there the cotangent differs by f32
+    rounding, which can move an entry across a bf16 rounding boundary in
+    K2, so that gradient is held within one bf16 step of the adjoint,
+    atol 2^-8 * max. The gradient is held within the JAX package's kernel
+    contract (rtol 5e-3, atol 5e-3 * max) of the f32 conv path."""
     rng = np.random.default_rng(2)
     n, k, hw = 4, 6, 32
     x1 = torch.from_numpy(_maps(rng, n, k, hw, hw)).to(gpu)
@@ -179,6 +249,11 @@ def test_loss_through_kernels_matches_conv(gpu, monkeypatch):
     monkeypatch.setattr(sj, "joint_dgrad", jx.dgrad_v8_plain)
     _, grad_r = run("pallas")
     np.testing.assert_allclose(grad_k, grad_r, atol=1e-3 * np.abs(grad_r).max())
+    monkeypatch.setattr(sj, "joint_fwd", sj.joint_fwd_bf16_plain)
+    loss_r, grad_r = run("pallas")
+    np.testing.assert_allclose(loss_k, loss_r, rtol=1e-4)
+    np.testing.assert_allclose(grad_k, grad_r,
+                               atol=2 ** -8 * np.abs(grad_r).max())
 
 
 @pytest.mark.cuda
@@ -210,6 +285,8 @@ def test_wrappers_raise_on_bad_input(gpu):
         sj.joint_fwd(x, x.cpu(), 1)
     with pytest.raises(ValueError):
         sj.joint_dgrad(torch.rand(9, 9, device=gpu), x, 1, form="cudnn")
+    with pytest.raises(ValueError, match="form"):
+        sj.joint_fwd(x, x, 1, form="cudnn")
     with pytest.raises(TypeError):
         sj.joint_dgrad(torch.rand(9, 9, device=gpu), x.double(), 1)
 
@@ -452,12 +529,13 @@ def _inputs(seed, half_t, n, k, h, w, gpu):
 @pytest.mark.parametrize("rb", [16, 32, 64])
 @pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
 def test_x7_x8_match_plain(gpu, half_t, n, k, h, w, rb):
-    """X7 (joint) and X8 (dx1, dx2 through ``bwd_v8``) vs their plain
-    versions at each rb: the same bf16 operands and exact products, so only
-    the f32 summation order differs: rtol 1e-4, atol 2e-5 * max."""
+    """X7 (joint, its CUDA-core form) and X8 (dx1, dx2 through ``bwd_v8``)
+    vs their plain versions at each rb: the same bf16 operands and exact
+    products, so only the f32 summation order differs: rtol 1e-4, atol
+    2e-5 * max. (X7's tensor-core form: test_x7_forms_run_k1s_kernel.)"""
     x1, x2, g = _inputs(half_t + k, half_t, n, k, h, w, gpu)
     jx.reset_launch_counts()
-    pairs = [(jx.joint_fwd_v8(x1, x2, half_t, rb),
+    pairs = [(jx.joint_fwd_v8(x1, x2, half_t, rb, form="cuda-core"),
               jx.joint_fwd_v8_plain(x1, x2, half_t, rb))]
     g2d, g2d_swap = sj.adjoints(g)
     dx1, dx2 = jx.bwd_v8(g, x1, x2, half_t, rb)
@@ -469,6 +547,30 @@ def test_x7_x8_match_plain(gpu, half_t, n, k, h, w, rb):
         ref = ref.cpu().numpy()
         np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=1e-4,
                                    atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES + [(1, 2, 16, 32, 40)])
+def test_x7_forms_run_k1s_kernel(gpu, half_t, n, k, h, w):
+    """X7 in both forms at rb 16, 32 and 64: within K1_F64 of max of its
+    bf16 function in float64, one launch a call; the tensor-core form is
+    K1's kernel, so where the passes of rb rows cut the frame as K1's do
+    (h a multiple of rb) it equals K1 on the same bf16 operands bit for
+    bit."""
+    x1, x2, _ = _inputs(half_t + 5 * k, half_t, n, k, h, w, gpu)
+    x1b, x2b = x1.bfloat16(), x2.bfloat16()
+    ref = jx.joint_fwd_v8_plain(x1b.double(), x2b.double(), half_t)
+    scale = float(ref.abs().max())
+    k1 = sj.joint_fwd(x1, x2, half_t, form="wgmma")
+    for form in sj.K1_FORMS:
+        for rb in (16, 32, 64):
+            jx.reset_launch_counts()
+            got = jx.joint_fwd_v8(x1b, x2b, half_t, rb, form=form)
+            assert jx.LAUNCHES == {**_NO_LAUNCH, "joint_fwd_v8": 1}
+            err = float((got.double() - ref).abs().max())
+            assert err <= K1_F64[form] * scale, (form, rb, err / scale)
+            if form == "wgmma" and h % rb == 0:
+                assert torch.equal(got, k1), rb
 
 
 @pytest.mark.cuda
@@ -673,14 +775,15 @@ def test_x3_x6_match_plain(gpu, half_t, n, k, h, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
 def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
-    """X3 and X5 add the same stages in X7's order (X5's priming and
-    padding products add zeros), so at one rb they equal X7 bit for bit.
+    """X3 and X5 add the same stages in the order of X7's CUDA-core form
+    (X5's priming and padding products add zeros), so at one rb they equal
+    it bit for bit.
     X6 is X5's body on f32 inputs rounded in the kernel: it equals X5 on
     inputs rounded by the wrapper, and roll_build=True equals False, bit
     for bit."""
     x1, x2, _ = _inputs(half_t + 4 * k, half_t, n, k, h, w, gpu)
     for rb in (16, 32, 64):
-        x7 = jx.joint_fwd_v8(x1, x2, half_t, rb)
+        x7 = jx.joint_fwd_v8(x1, x2, half_t, rb, form="cuda-core")
         for flat in (True, False):
             assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, flat), x7)
         assert torch.equal(jx.joint_fwd_v5(x1, x2, half_t, rb), x7)
