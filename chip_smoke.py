@@ -9,15 +9,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
-     for both forms of K1 and K2 and the tensor-core kernels X1, X7, X8
-     and X9 print registers, stack and local memory (``cuobjdump
-     --dump-resource-usage``) and the count of HGMMA / HMMA instructions
-     and wgmma waits (all, and those for zero groups) in their SASS
-     (``--dump-sass``), and fail if a tensor-core kernel (K1 and K2 at
-     k > 4, X1, X7, X8, X9) has none or uses local memory (spills), if
-     K1's tensor-core kernel waits for zero groups after every product
-     (ptxas serialised them), or K1's CUDA-core form leaves its 80
-     registers;
+     for both forms of K1 and K2 and the tensor-core kernels X1, X7, X2's
+     three mode instantiations and its copies-only kernel, X3 (TMA-fed),
+     X8 and X9 print registers,
+     stack and local memory (``cuobjdump --dump-resource-usage``) and the
+     count of HGMMA / HMMA instructions, wgmma waits (all, and those for
+     zero groups) and TMA loads (UTMALDG) in their SASS (``--dump-sass``),
+     and fail if a tensor-core kernel (K1 and K2 at k > 4, X1, X7, X2's
+     modes but copies-only, X3, X8, X9) has none or uses local memory
+     (spills), if K1's stack product, its X2 modes or X3 wait for zero
+     groups after every product (ptxas serialised them), if K1's stack
+     product builds differently in K1's and X7's libraries, if X3 has no
+     TMA load, or K1's CUDA-core form leaves its 80 registers;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
@@ -36,11 +39,13 @@ Phases, in order; any failure raises and the exit code is non-zero:
      of max |P|, autograd gradients within rtol 1e-3, atol 1e-6; errors
      against a float64 plain version; CUDA-event times, forward and
      forward + backward;
-  5. hold X2 (the experiment tool's bf16 joint forward) against its plain
-     version at the segmentation shapes in every mode: full, rank3 and
-     aligned-copies within the JAX contract (aligned-copies also exactly
-     broadcast over (u, v)), mm-only and copies-only exactly; full's error
-     against float64; hold X1 (the stack-product probe) at the same shapes
+  5. hold X2 (the experiment tool's bf16 joint forward, on K1's stack
+     product) against its plain version at the segmentation shapes in
+     every mode: full, rank3 and aligned-copies within the JAX contract
+     (aligned-copies also exactly broadcast over (u, v)), mm-only and
+     copies-only exactly; at k=15 full and rank3 bit-equal to X7's
+     tensor-core form at rb 16, 32, 64; full's error against float64;
+     every mode's time beside X7's; hold X1 (the stack-product probe) at the same shapes
      in both forms to its plain version (tiles of ones: every entry the
      count of terms issued), exactly; CUDA-event times of each kernel, its
      plain version and the library call that computes the same function
@@ -53,14 +58,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in both forms beside K1's and X2's in the same phase; X8 beside K2
      (bit-equal to X8 at k=15) and the bf16 cuDNN conv in its phase;
      kernel, plain and library times;
-  7. hold X3-X6 (the tool's pipelined v3, v4, v5 and v6 joint forwards)
-     against X2's plain version at the same shapes within the JAX contract:
-     X3 at rb = 16, 32, 64 x flat, X4 and X5 at each rb (X3 and X5 bit
-     for bit equal to X7's CUDA-core form at that rb), X6 (f32 inputs,
-     rounded in the kernel) at both roll_build, which must agree bit for
-     bit; each kernel's error against float64; their times beside K1's,
-     X7's (both forms) and X2's in the same phase; plain and library
-     times;
+  7. run X3's TMA-fed tensor-core form in a child process under a time
+     limit (a hung mbarrier wait fails the phase); hold X3-X6 (the tool's
+     pipelined v3, v4, v5 and v6 joint forwards) against X2's plain
+     version at the same shapes within the JAX contract: X3 at rb = 16,
+     32, 64 x flat in its default form and at each rb in the other, X4 and
+     X5 at each rb (X3 bit for bit equal to X7 in the same form at that
+     rb, its tensor-core form also within K1_F64 of max of float64; X5
+     equal to X7's CUDA-core form), X6 (f32 inputs, rounded in the kernel)
+     at both roll_build, which must agree bit for bit; each kernel's error
+     against float64; their times (X3 in both forms) beside K1's, X7's
+     (both forms) and X2's in the same phase; plain and library times; at
+     k=15 X3's tensor-core form beside X7's and K1 in alternating rounds
+     (median, min, max) and the device time of each kernel their calls
+     launch;
   8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
      each per-displacement partial rounded to bf16) against its plain
      version by mean |d| / mean |ref| <= 1e-5 and max |d| <= 2e-3 max |ref|,
@@ -104,13 +115,13 @@ N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
 RTOL = 5e-3   # tests/test_pallas_kernels.py:95-96, :119-122
 LIBS = ("seg_joint", "iid_loss", "joint_exp", "joint_exp_pipe",
-        "joint_exp_bwd")
+        "joint_exp_bwd", "joint_exp_tma")
 SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "seg_joint_dgrad": "iic_tpu_torch/csrc/seg_joint.cu",
            "iid_loss_fwd": "iic_tpu_torch/csrc/iid_loss.cu",
            "mm_probe": "iic_tpu_torch/csrc/joint_exp.cu",
            "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu",
-           "joint_fwd_v3": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v3": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v4": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
            "joint_fwd_v5": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
            "joint_fwd_v6": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
@@ -142,10 +153,12 @@ PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
 # reports, by library: mangled-name key -> (tag, must use the tensor cores
 # and spill nothing, registers it must use or None, must keep its products
 # in flight). K1's CUDA-core form is held at 80 registers (its time hangs
-# on the residency they allow); its tensor-core form, which X7 shares,
-# must not wait for zero groups after every product (ptxas serialises the
-# products when registers run short); K2's tensor-core form is X8's
-# kernel, built into K2's library.
+# on the residency they allow); its tensor-core form, which X7 and X2's
+# full mode share (instantiation 0 of its modes), X2's mm-only (1) and
+# aligned-copies (2) instantiations and X3's TMA-fed form must not wait
+# for zero groups after every product (ptxas serialises the products when
+# registers run short); X2's copies-only kernel issues no product. K2's
+# tensor-core form is X8's kernel, built into K2's library.
 SASS_KERNELS = {
     "seg_joint": {"joint_fwd_mma_kernel": ("K1", True, None, True),
                   "joint_partial_kernelI13__nv_bfloat16E":
@@ -153,10 +166,22 @@ SASS_KERNELS = {
                   "15dgrad_v8_kernel": ("K2", True, None, False),
                   "12dgrad_kernelI": ("K2 k<=4", False, None, False)},
     "joint_exp": {"mm_probe_partial_kernel": ("X1", True, None, False),
-                  "joint_fwd_mma_kernel": ("X7", True, None, True)},
+                  "joint_fwd_mma_kernelILi0E": ("X7 / X2 full", True, None,
+                                                True),
+                  "joint_fwd_mma_kernelILi1E": ("X2 mm-only", True, None,
+                                                True),
+                  "joint_fwd_mma_kernelILi2E": ("X2 aligned-copies", True,
+                                                None, True),
+                  "copies_only_kernel": ("X2 copies-only", False, None,
+                                         False)},
     "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None, False),
                       "dgrad_fused_v7_kernel": ("X9", True, None, False)},
+    "joint_exp_tma": {"joint_fwd_tma_kernel": ("X3", True, None, True)},
 }
+# K1's tensor-core kernel is one template instantiation in two libraries
+# (K1's and X7's): their build reports must agree
+SAME_BUILD = (("seg_joint", "joint_fwd_mma_kernel"),
+              ("joint_exp", "joint_fwd_mma_kernelILi0E"))
 X_RB = 16  # X1-X5, X7, X8 rb in the kernel table (the TPU tool's default)
 X_RBS = (16, 32, 64)  # the rb of the tool's ablate and v8 runs
 # X9 against its plain version: each p_v is rounded to bf16, so a last-bit
@@ -248,9 +273,12 @@ def phase_build():
     kernel's registers, shared memory and spills), then report, from the
     built libraries, the registers, stack and local memory of K1 and of the
     tensor-core kernels and the count of tensor-core instructions in each
-    of those kernels' SASS; fail if K1's CUDA-core form leaves its 80
-    registers, a tensor-core kernel has no such instruction or spills, or
-    K1's tensor-core kernel has its products serialised."""
+    of those kernels' SASS (and of TMA loads in X3's); fail if K1's
+    CUDA-core form leaves its 80 registers, a tensor-core kernel has no
+    such instruction or spills, a kernel that must keep its products in
+    flight (K1's stack product and its X2 modes, X3) has them serialised,
+    K1's stack product builds differently in K1's and X7's libraries, or
+    X3 has no TMA load."""
     from concurrent.futures import ThreadPoolExecutor
     from iic_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -260,6 +288,7 @@ def phase_build():
          + ", ".join(f"(nvcc {n} {_build.BUILD_SECONDS[n]:.2f} s)"
                      for n in LIBS))
     cuobjdump = _build.cuda_tool("cuobjdump")
+    reports = {}
     for lib, kernels in SASS_KERNELS.items():
         path = str(_build.LIB_PATHS[lib])
         usage = _resource_usage(subprocess.run(
@@ -277,11 +306,16 @@ def phase_build():
                     raise AssertionError(f"no resource usage for {f} in "
                                          f"lib{lib}")
                 use, mma = usage[f], counts[f]
+                reports[(lib, key)] = (use["REG"], use.get("LOCAL", 0),
+                                       mma["HGMMA"], mma["DEPBAR"],
+                                       mma["DEPBAR0"])
                 _log(f"  {tag} {f}: {use['REG']} registers, stack "
                      f"{use.get('STACK', '?')} bytes, local "
                      f"{use.get('LOCAL', '?')} bytes; SASS HGMMA "
                      f"{mma['HGMMA']}, HMMA {mma['HMMA']}, WARPGROUP.DEPBAR "
-                     f"{mma['DEPBAR']} ({mma['DEPBAR0']} for zero groups)")
+                     f"{mma['DEPBAR']} ({mma['DEPBAR0']} for zero groups)"
+                     + (f", TMA loads (UTMALDG) {mma['UTMALDG']}"
+                        if mma["UTMALDG"] else ""))
                 if pipelined and mma["DEPBAR0"] >= mma["HGMMA"]:
                     raise AssertionError(f"{tag} {f} waits for zero groups "
                                          f"after every product: ptxas "
@@ -296,6 +330,13 @@ def phase_build():
                 if want_regs is not None and use["REG"] != want_regs:
                     raise AssertionError(f"{tag} {f} uses {use['REG']} "
                                          f"registers, not {want_regs}")
+                if lib == "joint_exp_tma" and mma["UTMALDG"] == 0:
+                    raise AssertionError(f"{tag} {f} has no TMA load in its "
+                                         f"SASS")
+    if reports[SAME_BUILD[0]] != reports[SAME_BUILD[1]]:
+        raise AssertionError(f"K1's tensor-core kernel builds differently in "
+                             f"K1's and X7's libraries: "
+                             f"{[reports[b] for b in SAME_BUILD]}")
 
 
 def _resource_usage(dump):
@@ -314,17 +355,21 @@ def _resource_usage(dump):
 
 
 def _mma_counts(sass):
-    """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n, "DEPBAR0": n}}:
-    the warpgroup (wgmma) and warp-level tensor-core instructions in each
-    function of a SASS dump, the waits on wgmma groups
-    (`WARPGROUP.DEPBAR`), and those of them that wait for zero groups in
-    flight: one of those per HGMMA means ptxas serialised the products."""
+    """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n, "DEPBAR0": n,
+    "UTMALDG": n}}: the warpgroup (wgmma) and warp-level tensor-core
+    instructions in each function of a SASS dump, the waits on wgmma groups
+    (`WARPGROUP.DEPBAR`), those of them that wait for zero groups in
+    flight (one of those per HGMMA means ptxas serialised the products),
+    and the TMA loads."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0, "DEPBAR0": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0, "DEPBAR0": 0,
+                          "UTMALDG": 0}
+        elif fn and "UTMALDG" in line:
+            counts[fn]["UTMALDG"] += 1
         elif fn and "HGMMA" in line:
             counts[fn]["HGMMA"] += 1
         elif fn and "HMMA" in line:
@@ -437,7 +482,7 @@ def phase_kernels():
             e_fwd = max(e_fwd, _compare(f"K1 {tag} vs the f32 conv", f, ref))
         if k == KS[0]:
             _k1_depth(x1, x2, ref64, scale64)
-            _k1_parts(x1, x2)
+            _kernel_parts("K1", lambda: sj.joint_fwd(x1, x2, HALF_T))
         del ref64
         got1 = sj.joint_dgrad(g2d, x2, HALF_T)
         ref1 = sj.dgrad_plain(g2d, x2, HALF_T)
@@ -539,25 +584,45 @@ def _k1_depth(x1, x2, ref64, scale64):
              + (" (the default)" if rows == sj.K1_CHUNK_ROWS else ""))
 
 
-def _k1_parts(x1, x2, calls=5):
-    """Device time of each kernel one K1 call (the path's form) launches,
-    from torch.profiler over ``calls`` calls."""
+def _kernel_parts(tag, call, calls=5):
+    """Device time of each kernel one ``call`` launches, from
+    torch.profiler over ``calls`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from iic_tpu_torch.ops.kernels import seg_joint as sj
 
-    sj.joint_fwd(x1, x2, HALF_T)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            sj.joint_fwd(x1, x2, HALF_T)
+            call()
         torch.cuda.synchronize()
     parts = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    _log("  K1's kernels, device ms a call (torch.profiler, mean of "
+    _log(f"  {tag}'s kernels, device ms a call (torch.profiler, mean of "
          f"{calls}): " + ", ".join(
              f"{_kernel_name(e.key)} x{e.count // calls} "
              f"{e.self_device_time_total / calls / 1e3:.4f}"
              for e in sorted(parts, key=lambda e: -e.self_device_time_total)))
+
+
+def _alternate(calls, rounds):
+    """Times each of ``calls`` ({tag: fn}) in turn, ``rounds`` times (a
+    reading is CUDA events, mean of 5), and logs each one's median, min and
+    max reading and, past the first, those of its ratio to the first's
+    reading of the same round."""
+    import statistics
+    ms = {tag: [] for tag in calls}
+    for _ in range(rounds):
+        for tag, fn in calls.items():
+            ms[tag].append(_time_ms(fn))
+    first = next(iter(calls))
+    for tag, v in ms.items():
+        line = (f"    {tag}: median {statistics.median(v):.4f}, min "
+                f"{min(v):.4f}, max {max(v):.4f} ms")
+        if tag != first:
+            r = [a / b for a, b in zip(v, ms[first])]
+            line += (f"; / {first}: median {statistics.median(r):.4f}, min "
+                     f"{min(r):.4f}, max {max(r):.4f}")
+        _log(line)
 
 
 def _kernel_name(key):
@@ -647,8 +712,11 @@ def _bound(name, flop, nbytes, peak):
 
 def phase_x2():
     """X2 against its plain version in every mode at the segmentation
-    shapes, its error against float64, and the times of the kernel, the
-    plain version and a bf16 cuDNN conv of the same activations-as-filters
+    shapes (mm-only and copies-only exactly, aligned-copies also exactly
+    one joint broadcast over (u, v)); at k=15 its full and rank3 bit-equal
+    to X7's tensor-core form at rb 16, 32 and 64; full's error against
+    float64; the times of every mode, X7's tensor-core form, the plain
+    version and a bf16 cuDNN conv of the same activations-as-filters
     joint. Returns the table stats (at head A's k=15, mode full)."""
     import torch
     import torch.nn.functional as F
@@ -663,7 +731,7 @@ def phase_x2():
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
         _log(f"X2 k={k}: n={N}, {HW}x{HW}, T={t}, rb={X_RB}, bf16 inputs")
         for mode in jx.MODES:
-            got = jx.joint_fwd_v2(x1b, x2b, HALF_T, mode=mode, rb=X_RB)
+            got = jx.joint_fwd_v2(x1b, x2b, HALF_T, mode, X_RB)
             ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T, mode, X_RB)
             torch.cuda.synchronize()
             if mode in ("mm-only", "copies-only"):
@@ -681,13 +749,22 @@ def phase_x2():
                     got, got[:, :, :1, :1].expand_as(got)):
                 raise AssertionError("X2 aligned-copies is not one joint "
                                      "broadcast over (u, v)")
+        if k == KS[0]:
+            for rb in X_RBS:
+                x7 = jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form="wgmma")
+                for mode in ("full", "rank3"):
+                    if not torch.equal(jx.joint_fwd_v2(
+                            x1b, x2b, HALF_T, mode, rb), x7):
+                        raise AssertionError(f"X2 {mode} rb={rb} differs "
+                                             f"from X7's wgmma form")
+            _log(f"  full and rank3 equal X7 (wgmma) bit for bit at rb "
+                 f"{X_RBS}")
+        ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
+                                            HALF_T)
         p = jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB).double()
-        for tag, a, b in (("bf16-rounded inputs", x1b, x2b),
-                          ("the f32 inputs", x1, x2)):
-            ref = sj.displacement_joint_dense(a.double(), b.double(), HALF_T)
-            _log(f"  full vs float64 of {tag}: max err / max|ref| "
-                 f"{float((p - ref).abs().max() / ref.abs().max()):.3e}")
-        del p, ref
+        _log(f"  full vs float64 of its bf16 inputs: max err / max|ref| "
+             f"{float((p - ref64).abs().max() / ref64.abs().max()):.3e}")
+        del p, ref64
 
         def library():
             return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
@@ -695,16 +772,20 @@ def phase_x2():
         lib_err = float((library().float()
                          - jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)).abs().max())
         times = {mode: _time_ms(lambda m=mode: jx.joint_fwd_v2(
-                     x1b, x2b, HALF_T, mode=m, rb=X_RB))
+                     x1b, x2b, HALF_T, m, X_RB))
                  for mode in ("full", "mm-only", "copies-only",
                               "aligned-copies")}
+        x7_ms = _time_ms(lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                 form="wgmma"))
         plain_ms = _time_ms(lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T))
         library_ms = _time_ms(library)
         _log(f"  joint_fwd_v2 k={k}: kernel "
              + ", ".join(f"{m} {ms:.3f}" for m, ms in times.items())
-             + f" ms; plain {plain_ms:.3f} ms; bf16 F.conv2d {library_ms:.3f}"
-             f" ms (its max abs err vs plain {lib_err:.3e}) (CUDA events, "
-             f"mean of 5)")
+             + " ms")
+        _log(f"  in the same phase X7 (wgmma) {x7_ms:.3f} ms (X2 full at "
+             f"{times['full'] / x7_ms:.3f}x it); plain {plain_ms:.3f} ms; "
+             f"bf16 F.conv2d {library_ms:.3f} ms (its max abs err vs plain "
+             f"{lib_err:.3e}) (CUDA events, mean of 5)")
         if k == KS[0]:
             stats.update(ms=times["full"], plain_ms=plain_ms,
                          library_ms=library_ms)
@@ -825,8 +906,8 @@ def phase_x7():
             _log(f"  joint_fwd_v8 k={k} {f}: kernel "
                  + ", ".join(f"rb={rb} {times[(f, rb)]:.3f}" for rb in X_RBS)
                  + f" ms; K1 (f32 in) {k1_ms[f]:.3f} ms")
-        _log(f"  in the same phase X2 (bf16 tiles, widened in the inner loop)"
-             f" {x2_ms:.3f} ms; plain {plain_ms:.3f} ms; bf16 F.conv2d "
+        _log(f"  in the same phase X2 (K1's stack product, full) "
+             f"{x2_ms:.3f} ms; plain {plain_ms:.3f} ms; bf16 F.conv2d "
              f"{library_ms:.3f} ms (CUDA events, mean of 5)")
         if k == KS[0]:
             stats.update(ms=times[(form, X_RB)], plain_ms=plain_ms,
@@ -840,29 +921,80 @@ def phase_x7():
     return stats
 
 
+# Alternating rounds of X7, X3 and K1 (tensor-core forms) at k=15: the
+# spread of X3's time beside theirs
+X3_ROUNDS = 10
+# X3's tensor-core form waits on mbarrier phases, and a phase mistake hangs
+# a block instead of failing: its first launches run in a child process
+# with this limit (seconds), at every shape and rb the phases below use
+X3_WATCHDOG_S = 240
+X3_WATCHDOG = """
+import torch
+from iic_tpu_torch.ops.kernels import joint_exp as jx
+gen = torch.Generator(device="cuda").manual_seed(7)
+for n, k, h, w, half_t in {shapes}:
+    x1, x2 = (torch.rand((n, k, h, w), device="cuda", generator=gen)
+              .bfloat16() for _ in range(2))
+    for rb in (16, 32, 64):
+        jx.joint_fwd_v3(x1, x2, half_t, rb, form="wgmma")
+    torch.cuda.synchronize()
+print("X3 (wgmma) ran at every shape", flush=True)
+"""
+
+
+def _x3_watchdog():
+    """Runs X3's tensor-core form at the phase's shapes and at small ragged
+    ones in a child process; fails if it does not finish in X3_WATCHDOG_S
+    (a hung mbarrier wait) or fails."""
+    import os
+    shapes = [(N, k, HW, HW, HALF_T) for k in KS] + [
+        (2, 17, 9, 20, HALF_T), (2, 5, 20, 70, 1)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-c", X3_WATCHDOG.format(shapes=shapes)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=X3_WATCHDOG_S)
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"X3 (wgmma) did not finish in {X3_WATCHDOG_S}"
+                             f" s: a block hangs (mbarrier phase)") from e
+    _log(f"X3 watchdog: {proc.stdout.strip()} in "
+         f"{time.perf_counter() - t0:.1f} s (rc {proc.returncode})")
+    if proc.returncode != 0:
+        raise AssertionError(f"X3 (wgmma) failed in its watchdog run:\n"
+                             f"{proc.stderr[-2000:]}")
+
+
 def phase_x3_x6():
     """X3-X6 against X2's plain version at the segmentation shapes (X3 at
-    each rb and flat, X4 and X5 at each rb, X3 and X5 bit-equal to X7's
-    CUDA-core form at that rb, X6 on the f32 inputs at both roll_build,
-    which must agree bit for bit), each call's error against
-    float64, and the times of X3-X6 at rb=16 beside K1's, X7's (both forms;
-    the CUDA-core form, whose order X3 and X5 follow, first and last, to
-    show drift) and X2's in the same phase, of the plain version and of
-    X2's bf16 cuDNN conv. Returns {kernel: table stats} (k=15,
-    rb=16, X3 flat, X6 roll_build=False)."""
+    each rb and flat in its default form and at each rb in the other form,
+    X4 and X5 at each rb, X6 on the f32 inputs at both roll_build, which
+    must agree bit for bit), each call's error against float64; X3 in each
+    form bit-equal to X7 in that form at that rb (its tensor-core form, fed
+    by TMA, also within K1_F64 of max of its bf16 function in float64; its
+    first launches under a watchdog), X5 to X7's CUDA-core form; the times
+    of X3 (both forms), X4-X6 at rb=16 beside K1's, X7's (both forms; the
+    CUDA-core form first and last, to show drift) and X2's in the same
+    phase, of the plain version and of X2's bf16 cuDNN conv; at k=15, X3's
+    tensor-core form beside X7's and K1 in alternating rounds, and each
+    one's kernels from the profiler. Returns {kernel: table stats} (k=15,
+    rb=16, X3 flat in its default form, X6 roll_build=False)."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
     from iic_tpu_torch.ops.kernels import seg_joint as sj
 
+    _x3_watchdog()
     gen = torch.Generator(device="cuda").manual_seed(6)
     stats = {name: {"max_abs_err": 0.0} for name in X_PIPE}
     t = 2 * HALF_T + 1
     for k in KS:
         x1, x2 = _softmax_pair(gen, k)
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
+        x3_form = sj.k1_form(k, HALF_T)
+        other = next(f for f in jx.X_FORMS if f != x3_form)
         _log(f"X3-X6 k={k}: n={N}, {HW}x{HW}, T={t}; X3-X5 on bf16 inputs, "
-             f"X6 on their f32 originals")
+             f"X6 on their f32 originals; X3's default form {x3_form}")
         ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)
         ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
                                             HALF_T)
@@ -870,34 +1002,45 @@ def phase_x3_x6():
         _log(f"  plain f32 vs float64 of the bf16 inputs: max err / max|ref| "
              f"{float((ref.double() - ref64).abs().max()) / scale:.3e}")
         calls = (
-            [("joint_fwd_v3", f"rb={rb} flat={flat}",
+            [("joint_fwd_v3", x3_form, f"rb={rb} flat={flat} {x3_form}",
               lambda rb=rb, flat=flat: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
                                                        flat))
              for rb in X_RBS for flat in (True, False)]
-            + [(name, f"rb={rb}", lambda name=name, rb=rb: getattr(jx, name)(
-                x1b, x2b, HALF_T, rb))
+            + [("joint_fwd_v3", other, f"rb={rb} {other}",
+                lambda rb=rb: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
+                                              form=other))
+               for rb in X_RBS]
+            + [(name, "cuda-core", f"rb={rb}",
+                lambda name=name, rb=rb: getattr(jx, name)(x1b, x2b, HALF_T,
+                                                           rb))
                for name in ("joint_fwd_v4", "joint_fwd_v5") for rb in X_RBS]
-            + [("joint_fwd_v6", f"roll_build={roll}",
+            + [("joint_fwd_v6", "cuda-core", f"roll_build={roll}",
                 lambda roll=roll: jx.joint_fwd_v6(x1, x2, HALF_T, roll))
                for roll in (False, True)])
         x6 = {}
-        x7 = {rb: jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form="cuda-core")
-              for rb in X_RBS}
-        for name, tag, call in calls:
+        x7 = {(f, rb): jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form=f)
+              for f in jx.X_FORMS for rb in X_RBS}
+        for name, form, tag, call in calls:
             got = call()
             torch.cuda.synchronize()
             err = _compare(f"{name} {tag}", got, ref)
-            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
-            _log(f"    vs float64: max err / max|ref| "
-                 f"{float((got.double() - ref64).abs().max()) / scale:.3e}")
+            if name != "joint_fwd_v3" or form == x3_form:
+                stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                                 err)
+            e64 = float((got.double() - ref64).abs().max()) / scale
+            _log(f"    vs float64: max err / max|ref| {e64:.3e}")
             if name == "joint_fwd_v6":
                 x6[tag] = got
             elif name in ("joint_fwd_v3", "joint_fwd_v5"):
                 rb = int(tag.split()[0].removeprefix("rb="))
-                if not torch.equal(got, x7[rb]):
+                if not torch.equal(got, x7[(form, rb)]):
                     raise AssertionError(f"{name} {tag} differs from X7's "
-                                         f"CUDA-core form")
-        _log("  X3 and X5 equal X7's CUDA-core form at each rb bit for bit")
+                                         f"{form} form")
+                if form == "wgmma" and e64 > K1_F64:
+                    raise AssertionError(f"{name} {tag} is off its bf16 "
+                                         f"function ({e64:.3e} > {K1_F64})")
+        _log("  X3 equals X7 in the same form, X5 X7's CUDA-core form, at "
+             "each rb bit for bit")
         if not torch.equal(x6["roll_build=True"], x6["roll_build=False"]):
             raise AssertionError("X6 roll_build=True differs from False")
         _log("  X6 roll_build=True equals roll_build=False bit for bit")
@@ -914,19 +1057,39 @@ def phase_x3_x6():
             "K1": lambda: sj.joint_fwd(x1, x2, HALF_T),
             "X2": lambda: jx.joint_fwd_v2(x1b, x2b, HALF_T, rb=X_RB),
             "joint_fwd_v3": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB),
+            f"X3 {other}": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB,
+                                                   form=other),
             "joint_fwd_v4": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v5": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v6": lambda: jx.joint_fwd_v6(x1, x2, HALF_T),
             "X6 roll_build": lambda: jx.joint_fwd_v6(x1, x2, HALF_T, True),
+            "X7 wgmma again": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                      form="wgmma"),
+            "K1 again": lambda: sj.joint_fwd(x1, x2, HALF_T),
             "X7 cuda-core again": lambda: jx.joint_fwd_v8(
                 x1b, x2b, HALF_T, X_RB, form="cuda-core"),
             "plain": lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T),
             "bf16 F.conv2d": library}
         ms = {tag: _time_ms(fn) for tag, fn in timed.items()}
-        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5): "
+        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5; X3 = "
+             f"{x3_form}): "
              + ", ".join(f"{tag.replace('joint_fwd_v', 'X')} {v:.3f}"
                          for tag, v in ms.items()) + " ms")
         if k == KS[0]:
+            # X3's tensor-core form against X7's (the same bf16 operands,
+            # layout pass and reduce; only the GEMM kernel differs) and K1
+            # (f32 inputs), in alternating rounds, then each call's kernels
+            x3_calls = {
+                "X7 wgmma": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
+                                                    form="wgmma"),
+                "X3 wgmma": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB,
+                                                    form="wgmma"),
+                "K1": lambda: sj.joint_fwd(x1, x2, HALF_T)}
+            _log(f"  X3 beside X7 and K1, k={k}, rb={X_RB}, {X3_ROUNDS} "
+                 f"alternating rounds:")
+            _alternate(x3_calls, X3_ROUNDS)
+            for tag, call in x3_calls.items():
+                _kernel_parts(tag, call)
             flop = _joint_flop(N, k, HW, HW, HALF_T)
             for name in X_PIPE:
                 stats[name].update(ms=ms[name], plain_ms=ms["plain"],

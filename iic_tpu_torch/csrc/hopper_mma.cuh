@@ -40,11 +40,22 @@
 // into shared memory, before the barrier after which a product reads it;
 // no register of a product in flight is written until a `wgmma_wait` has
 // retired it.
+//
+// The Tensor Memory Accelerator (TMA) and its barriers (X3,
+// joint_exp_tma.cu): one thread asks for a box of a tensor described by a
+// `CUtensorMap` (a `const __grid_constant__` kernel parameter) to be copied
+// into shared memory; the copy completes on an `mbarrier` in shared memory,
+// which the thread first arms with the box's bytes (`arrive.expect_tx`).
+// An mbarrier counts its phases: a wait names the parity of the phase it
+// waits for, so a ring of two buffers waits on (use >> 1) & 1. Boxes that
+// reach outside the tensor (negative coordinates, or past its end) are
+// filled with zeros by the hardware.
 
 #pragma once
 
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -133,6 +144,70 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// An mbarrier in shared memory that completes a phase after `count`
+// arrivals (and, once armed, the transaction bytes).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised mbarriers visible to the other threads and to the
+// async proxy (TMA), before the barrier that publishes them.
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival that also arms the barrier's phase with `bytes` of
+// transactions (the TMA copies that complete on it).
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: the box of the 4-D tensor `map` at coordinates (c0, c1, c2, c3),
+// innermost first, into shared memory at `dst` (16-byte aligned); the copy
+// completes its bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_addr(bar))
+      : "memory");
 }
 
 // d (m64n160, f32) += A (64 x 16, shared, K-major) * B (16 x 160, shared;

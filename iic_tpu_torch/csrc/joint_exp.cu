@@ -20,60 +20,43 @@
 // the in-frame rows (columns) over the shifts, on 2 x 59 MB of bf16 input:
 // far above the H100's ridge, so compute-bound (0.36 ms at the 989 TFLOP/s
 // bf16 tensor-core peak). Like K1 it also multiplies the zeros outside the
-// frame, 2 * n*h*w * (kT)^2 ~ 3.9e11 FLOP issued. X2 and X7 run the product
-// as f32 FMAs on the CUDA cores (67 TFLOP/s peak): each bf16 pair is widened
-// in registers, so the tiles in shared memory hold half the bytes of K1's.
+// frame, 2 * n*h*w * (kT)^2 ~ 3.9e11 FLOP issued. X2 and X7 run it on the
+// tensor cores as K1 does (X7's CUDA-core form: f32 FMAs, 67 TFLOP/s peak).
 // X1 issues the TPU probe's count of products, 2 * (kT)^2 * n*(t_hi -
 // t_lo)*rb*128 ~ 4.4e11 FLOP at rb=16, over no input at all, so only the
 // tensor cores' issue rate bounds it (0.44 ms); it runs on them (wgmma,
 // hopper_mma.cuh).
 //
-// X2 design. K1's structure: block (bx, by, s) owns a 64x64 tile of the
-// (kT x kT) output and the s-th chunk of the (n, y) rows, and writes its
-// partial sum to part[s]; a second kernel adds the partials in chunk order
-// (deterministic, no atomics) and scatters them into (k, k, T, T). A pass
-// stages, for the tile's 64 A rows and 64 B rows, `rb` image rows x 8
-// columns of the contraction (depth 8*rb) as bf16 in shared memory, built
-// straight from the unpadded inputs with the frame edges masked: so `rb` is
-// the image rows one block stages per shared-memory pass, and a pass needs
-// 2 * 64 * (8*rb + 2) * 2 bytes (33 KB at rb=16, 132 KB at rb=64; rb=128
-// does not fit and is refused). Both tiles are contraction-contiguous
-// ((M, K) and (N, K), the TPU tool's "mk-nk"), rows padded by two bf16 so
-// that the 16 rows of B a warp reads at one k-step fall in 16 distinct
-// banks. Each thread keeps a 4x4 micro-tile (rows tr + 16a, columns
-// tc + 16b) and widens two bf16 of each operand per load.
-//
-// The TPU kernel cuts its B window into three 16-row BlockSpec blocks and
-// builds the stacks with static slices because Mosaic cannot lower a
-// dynamic sublane slice of a bf16 block; nothing here needs that, so the
-// windows are gone and every shift is a plain masked index.
-//
-// Modes are instantiations of the one kernel body and differ only in what
-// they skip:
-//   full            loads, builds and product ("rank3" is the same launch:
-//                   here the contraction over (rb, 128) and over rb*128 is
-//                   one loop);
-//   mm-only         no global loads and no builds: the product runs over
-//                   tiles filled with bf16 1.0 once at block start, so each
-//                   entry of P is the count of contraction terms issued,
-//                   ceil(n*h / rb) * ceil(w / 8) * 8*rb (the wrapper cuts
-//                   the rows into chunks of whole passes), exact in f32
-//                   while it stays under 2^24;
-//   copies-only     loads and builds, no product. Each thread reads back
-//                   what it staged and adds the bf16 bit patterns as
-//                   unsigned 32-bit integers; per stack row, the sums go
-//                   through shared then global atomics (blocks of the first
-//                   tile column publish A rows, of the first tile row B
-//                   rows). Integer addition modulo 2^32 is exact and
-//                   commutative, so the checksum depends neither on the
-//                   split count nor on the block order:
+// X2 is K1's stack product (joint_fwd_common.cuh) on the tensor cores, on
+// bf16 operands, with `rb` the rows of a pass as in X7's. Its modes:
+//   full            X7's launch at the same rb, so it equals X7 bit for bit
+//                   ("rank3" is the same launch: here the contraction over
+//                   (rb, 128) and over rb*128 is one loop);
+//   mm-only         the kernel's kJfMmOnly instantiation: no layout pass and
+//                   no staging, the products over buffers of bf16 1.0, so
+//                   each entry of P is the count of contraction terms
+//                   issued, rows x 16-pixel k16 steps x 16 summed over the
+//                   slabs, n * h * ceil(w/16) * 16 whatever rb (1,966,080
+//                   at the tool's shapes, exact in f32 under 2^24);
+//   copies-only     the layout pass and K1's staging (jf_stage, jf_next)
+//                   and no product: copies_only_kernel below, whose product
+//                   warpgroups read back what was staged and add the bf16
+//                   bit patterns as unsigned 32-bit integers; integer
+//                   addition modulo 2^32 is exact and commutative, so the
+//                   checksum depends neither on the chunks nor on the block
+//                   order:
 //                     S_A[(v,i)] = sum_{n,y,q} bits(x1[n,i,y,q+v-h])
 //                     S_B[(u,j)] = sum_{n,y,q} bits(x2[n,j,y+h-u,q])
 //                     P[i,j,u,v] = float((S_A[(v,i)] + S_B[(u,j)]) mod 2^32)
 //                   with bits() the 16-bit pattern and 0 outside the frame;
-//   aligned-copies  the full kernel with every shift at zero: P[:, :, u, v]
-//                   is the zero-displacement joint for every (u, v), exactly
-//                   the same value in each.
+//   aligned-copies  the kernel's kJfAligned instantiation, every shift at
+//                   zero: P[:, :, u, v] is the zero-displacement joint for
+//                   every (u, v), exactly the same value in each.
+//
+// The TPU kernel cuts its B window into three 16-row BlockSpec blocks and
+// builds the stacks with static slices because Mosaic cannot lower a
+// dynamic sublane slice of a bf16 block; nothing here needs that: a shift
+// is an address in the staged slab.
 //
 // X1 is the stack product alone on Hopper's tensor cores. Block (bx, by, s)
 // owns a 64 x 160 tile of the (kT, kT) output (kT = 315 at the tool's
@@ -105,7 +88,7 @@
 // (joint_common.cuh) instantiated on bf16 inputs: each bf16 value is
 // widened once, when the loader stores it into the f32 shared tiles, and
 // `rb` is the (n, y) row quantum of a split-K chunk (the wrapper cuts the
-// n*h rows into chunks of a multiple of rb rows, as X2's does); no shared
+// n*h rows into chunks of a multiple of rb rows); no shared
 // memory depends on it (two 16 x 68 f32 tiles, 8.7 KB). X3 and X5 add
 // their stages in that form's order and equal it bit for bit.
 // Bound: as X2, 0.36 ms at the H100 SXM's published bf16 tensor-core peak
@@ -123,170 +106,177 @@
 
 namespace {
 
-constexpr int TILE = 64;  // output tile edge
-constexpr int BQ = 8;     // image columns per pass
-
-enum Mode { kFull = 0, kMmOnly = 1, kCopiesOnly = 2, kAligned = 3 };
-
-__host__ __device__ inline int pitch(int rb) { return BQ * rb + 2; }
-
-// X2's dynamic shared memory: the A and B tiles, (64, 8*rb + 2) bf16 each.
-__host__ __device__ inline size_t stage_bytes(int rb) {
-  return 2 * sizeof(__nv_bfloat16) * TILE * pitch(rb);
-}
-
-// acc[a][b] += sum_{kq < depth} A[tr + 16a][kq] * B[tc + 16b][kq]; A and B
-// are (M, K) and (N, K) with pitch lda.
-__device__ __forceinline__ void product(const __nv_bfloat16* __restrict__ As,
-                                        const __nv_bfloat16* __restrict__ Bs,
-                                        int depth, int lda, int tr, int tc,
-                                        float (&acc)[4][4]) {
-#pragma unroll 2
-  for (int kq = 0; kq < depth; kq += 2) {
-    float2 a[4], b[4];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      a[s] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          As + (tr + 16 * s) * lda + kq));
-      b[s] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-          Bs + (tc + 16 * s) * lda + kq));
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        acc[p][q] = fmaf(a[p].x, b[q].x, acc[p][q]);
-        acc[p][q] = fmaf(a[p].y, b[q].y, acc[p][q]);
-      }
-  }
-}
-
-// Fills the staged tiles with bf16 1.0 (0x3F80): a product over them adds
-// one per contraction term.
-__device__ __forceinline__ void fill_ones(__nv_bfloat16* s, size_t bytes) {
-  unsigned* w = reinterpret_cast<unsigned*>(s);
-  for (size_t e = threadIdx.x; e < bytes / 4; e += kThreads)
-    w[e] = 0x3F803F80u;
-}
+constexpr int BQ = 8;  // image columns per X1 pass (the TPU tool's)
 
 // ------------------------------------------------------------------- X2
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-joint_v2_partial_kernel(const __nv_bfloat16* __restrict__ x1,
-                        const __nv_bfloat16* __restrict__ x2,
-                        float* __restrict__ part, unsigned* __restrict__ chk,
-                        int k, int h, int w, int half_t, int rb,
-                        int rows_total, int rows_per_chunk) {
+// copies-only's shared words after the two slab buffers: the window's row
+// sums (JF_WIN_ROWS x 16 channels), then the block's S_A (4 shifts x 16)
+// and S_B (JF_U shifts x 16) totals.
+constexpr int CK_SUMS = JF_WIN_ROWS * JF_CH;
+constexpr int CK_TOTALS = JF_V * JF_CH + JF_U * JF_CH;
+constexpr int CK_SMEM = 2 * JF_SMEM + 4 * (CK_SUMS + CK_TOTALS);
+
+// The bf16 bit patterns of the 8 channels in `v` added to words[0 .. 8)
+// (channel c at bits 16 (c & 1) of word c / 2).
+__device__ __forceinline__ void add_bits(unsigned (&words)[8],
+                                         const uint4& v) {
+  const unsigned in[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    words[2 * c] += in[c] & 0xFFFFu;
+    words[2 * c + 1] += in[c] >> 16;
+  }
+}
+
+// The 256 threads that read back (named barrier 1).
+__device__ __forceinline__ void bar_readers() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// A reading thread's checksum words over its chunk. a[e]: S_A of shift
+// v0 + pt / 64, channel 8 ((pt / 32) & 1) + e; b[0], b[1]: S_B of the
+// (u', j) pairs pt and pt + 256 of the N tile's JF_U x 16.
+struct Checksum {
+  unsigned a[8];
+  unsigned b[2];
+};
+
+// Adds the staged slab `s` in `buf` to thread pt's words: S_A from the x1
+// pixels q + v - v0 of the rows (do_a), S_B from the row sums of the
+// window's rows + 20 staged rows in `rs` (do_b); pixels q of the slab at
+// or past w count nothing. Output rows y0 .. y0+15 read window rows
+// u' .. u'+15 at shift u', so one sum a staged row and a range sum a shift.
+__device__ __forceinline__ void checksum_slab(Checksum& c,
+                                              const unsigned char* buf,
+                                              unsigned* rs, const JfSlab& s,
+                                              int pt, int w, bool do_a,
+                                              bool do_b) {
+  const int qmax = min(JF_PIX, w - s.q0);
+  if (do_a) {
+    const int shift = pt >> 6, half = (pt >> 5) & 1;
+    for (int r = 0; r < s.rows; ++r)
+      for (int q = pt & 31; q < qmax; q += 32)
+        add_bits(c.a, *reinterpret_cast<const uint4*>(
+                          buf + JF_A_OFF + r * JF_A_ROW + half * JF_A_HALF
+                          + (q + shift) * 16));
+  }
+  if (!do_b) return;
+  for (int e = pt; e < CK_SUMS; e += 256) rs[e] = 0u;
+  bar_readers();
+  // row sums: (row, half, quarter of the pixels) a thread at a time
+  for (int e = pt; e < (s.rows + JF_U - 1) * 8; e += 256) {
+    const int row = e >> 3, half = (e >> 2) & 1, q0 = 16 * (e & 3);
+    unsigned sum[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
+    for (int q = q0; q < min(q0 + 16, qmax); ++q)
+      add_bits(sum, *reinterpret_cast<const uint4*>(
+                        buf + row * JF_ROW + half * JF_HALF + q * 16));
+#pragma unroll
+    for (int ch = 0; ch < 8; ++ch)
+      atomicAdd(&rs[row * JF_CH + 8 * half + ch], sum[ch]);
+  }
+  bar_readers();
+  // shift u' (pair p = 16 u' + j) reads window rows u' .. u' + rows - 1
+  for (int r = 0; r < s.rows; ++r) {
+    c.b[0] += rs[(r + (pt >> 4)) * JF_CH + (pt & 15)];
+    if (pt + 256 < JF_U * JF_CH)
+      c.b[1] += rs[(r + ((pt + 256) >> 4)) * JF_CH + (pt & 15)];
+  }
+}
+
+// X2 copies-only: joint_fwd_mma_kernel's grid, slab walk and staging, its
+// product warpgroups reading back each staged slab instead of multiplying
+// it. Blocks of the first N tile publish S_A, of the first M tile S_B,
+// through shared, then global, atomics into `part` read as the (2 kT) u32
+// checksum, which the caller zeroes.
+__global__ void __launch_bounds__(JF_THREADS, 1)
+copies_only_kernel(const bf16* __restrict__ x1c,
+                   const bf16* __restrict__ x2c, float* __restrict__ part,
+                   int k, int h, int w, int half_t, int rb, int passes_total,
+                   int passes_per_chunk) {
   const int t = 2 * half_t + 1;
   const int tk = k * t;
-  const int depth = BQ * rb;
-  const int lda = pitch(rb);
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * TILE;
-  const int n0 = blockIdx.x * TILE;
-  const int r_begin = blockIdx.z * rows_per_chunk;
-  const int r_end = min(r_begin + rows_per_chunk, rows_total);
-  const size_t plane = static_cast<size_t>(h) * w;
+  const int chunks = (k + JF_CH - 1) / JF_CH;
+  const int m_tiles = (t + JF_V - 1) / JF_V;
+  const int n_tiles = (t + JF_U - 1) / JF_U;
+  const int ic = blockIdx.y / m_tiles;
+  const int v0 = (blockIdx.y - ic * m_tiles) * JF_V;
+  const int jc = blockIdx.x / n_tiles;
+  const int up0 = (blockIdx.x - jc * n_tiles) * JF_U;
+  const int p_begin = blockIdx.z * passes_per_chunk;
+  const int p_end = min(p_begin + passes_per_chunk, passes_total);
+  const int passes_per_image = (h + rb - 1) / rb;
 
+  // two slab buffers, then the row sums and the block's totals
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + TILE * lda;
-  // Per stack row of this tile: input channel (-1 past kT) and shift.
-  __shared__ int a_chan[TILE], a_shift[TILE], b_chan[TILE], b_shift[TILE];
-  __shared__ unsigned row_sum[2][TILE];  // copies-only
+  const uint32_t base = smem_addr(smem);
+  unsigned* rs = reinterpret_cast<unsigned*>(smem + 2 * JF_SMEM);
+  unsigned* tot = rs + CK_SUMS;
+  const int tid = threadIdx.x;
+  const bool stager = tid >= JF_WGS * 128;
+  for (int e = tid; e < CK_TOTALS; e += JF_THREADS) tot[e] = 0u;
+  Checksum sums = {};
 
-  if (tid < TILE) {
-    const int m = m0 + tid;
-    const int nn = n0 + tid;
-    a_chan[tid] = m < tk ? stack_chan(m, tk, k) : -1;
-    b_chan[tid] = nn < tk ? stack_chan(nn, tk, k) : -1;
-    a_shift[tid] = MODE == kAligned ? 0 : a_shift_of(m, tk, k, half_t);
-    b_shift[tid] = MODE == kAligned ? 0 : b_shift_of(nn, tk, k, half_t);
-    row_sum[0][tid] = row_sum[1][tid] = 0u;
+  // the chunk's first slab: its pass's first row, column 0
+  JfSlab s{p_begin, p_begin / passes_per_image, 0, 0, 0, 0};
+  s.wy = (p_begin - s.img * passes_per_image) * rb;
+  s.rows = p_begin < p_end ? min(JF_ROWS, min(s.wy + rb, h) - s.wy) : 0;
+  s.steps = (min(JF_PIX, w) + 15) / 16;
+  if (stager && s.rows) {
+    jf_stage(base, x1c, x2c, s, tid - JF_WGS * 128, ic, jc, chunks, v0, up0,
+             h, w, half_t);
+    cp_async_commit();
+    cp_async_wait_all();
   }
-  if (MODE == kMmOnly) fill_ones(As, stage_bytes(rb));
   __syncthreads();
-
-  // Loader role: 64 threads sweep the pass's depth, four rows at a time.
-  const int kk = tid & 63;
-  const int mrow = tid >> 6;
-  // Compute role: rows tr + 16a, columns tc + 16b.
-  const int tr = tid / 16;
-  const int tc = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  unsigned sum_a[16], sum_b[16];
-#pragma unroll
-  for (int s = 0; s < 16; ++s) sum_a[s] = sum_b[s] = 0u;
-
-  for (int r0 = r_begin; r0 < r_end; r0 += rb) {
-    for (int q0 = 0; q0 < w; q0 += BQ) {
-      if (MODE != kMmOnly) {
-        for (int kidx = kk; kidx < depth; kidx += 64) {
-          const int r = r0 + kidx / BQ;
-          const int q = q0 + kidx % BQ;
-          const bool ok = r < r_end && q < w;
-          const int img = ok ? r / h : 0;
-          const int y = ok ? r - img * h : 0;
-          const __nv_bfloat16* x1r = x1 + static_cast<size_t>(img) * k * plane
-                                     + static_cast<size_t>(y) * w;
-          const __nv_bfloat16* x2n = x2 + static_cast<size_t>(img) * k * plane;
-#pragma unroll 4
-          for (int s = 0; s < 16; ++s) {
-            const int mm = mrow + 4 * s;
-            __nv_bfloat16 av = __float2bfloat16(0.f);
-            const int ca = a_chan[mm];
-            const int col = q + a_shift[mm];
-            if (ok && ca >= 0 && col >= 0 && col < w)
-              av = x1r[static_cast<size_t>(ca) * plane + col];
-            As[mm * lda + kidx] = av;
-            __nv_bfloat16 bv = __float2bfloat16(0.f);
-            const int cb = b_chan[mm];
-            const int row = y + b_shift[mm];
-            if (ok && cb >= 0 && row >= 0 && row < h)
-              bv = x2n[static_cast<size_t>(cb) * plane
-                       + static_cast<size_t>(row) * w + q];
-            Bs[mm * lda + kidx] = bv;
-          }
-        }
+  int cur = 0;
+  while (s.rows) {
+    // the staging warpgroup fills the other buffer with the next slab
+    // while the others read this one back; the barrier ends both
+    const JfSlab nx = jf_next(s, p_end, rb, passes_per_image, h, w);
+    if (stager) {
+      if (nx.rows) {
+        jf_stage(base + (cur ^ 1) * JF_SMEM, x1c, x2c, nx,
+                 tid - JF_WGS * 128, ic, jc, chunks, v0, up0, h, w, half_t);
+        cp_async_commit();
+        cp_async_wait_all();
       }
-      __syncthreads();
-      if (MODE == kCopiesOnly) {
-        for (int kidx = kk; kidx < depth; kidx += 64) {
-#pragma unroll
-          for (int s = 0; s < 16; ++s) {
-            const int mm = mrow + 4 * s;
-            sum_a[s] += __bfloat16_as_ushort(As[mm * lda + kidx]);
-            sum_b[s] += __bfloat16_as_ushort(Bs[mm * lda + kidx]);
-          }
-        }
-      } else {
-        product(As, Bs, depth, lda, tr, tc, acc);
-      }
-      __syncthreads();
-    }
-  }
-
-  if (MODE == kCopiesOnly) {
-#pragma unroll
-    for (int s = 0; s < 16; ++s) {
-      atomicAdd(&row_sum[0][mrow + 4 * s], sum_a[s]);
-      atomicAdd(&row_sum[1][mrow + 4 * s], sum_b[s]);
+    } else {
+      checksum_slab(sums, smem + cur * JF_SMEM, rs, s, tid, w,
+                    blockIdx.x == 0, blockIdx.y == 0);
     }
     __syncthreads();
-    if (tid < TILE) {
-      if (blockIdx.x == 0 && m0 + tid < tk)
-        atomicAdd(&chk[m0 + tid], row_sum[0][tid]);
-      if (blockIdx.y == 0 && n0 + tid < tk)
-        atomicAdd(&chk[tk + n0 + tid], row_sum[1][tid]);
-    }
-    return;
+    s = nx;
+    cur ^= 1;
   }
-  store_partial(part, tk, m0 + tr, n0 + tc, 16, acc);
+  if (stager) return;
+
+  // the block's totals, then the (2 kT) checksum words: S_A[(v, i)] at
+  // v k + i, S_B[(u, j)] at kT + u k + j
+  if (blockIdx.x == 0)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      atomicAdd(&tot[(tid >> 6) * JF_CH + 8 * ((tid >> 5) & 1) + e],
+                sums.a[e]);
+  if (blockIdx.y == 0) {
+    atomicAdd(&tot[JF_V * JF_CH + tid], sums.b[0]);
+    if (tid + 256 < JF_U * JF_CH)
+      atomicAdd(&tot[JF_V * JF_CH + tid + 256], sums.b[1]);
+  }
+  bar_readers();
+  unsigned* chk = reinterpret_cast<unsigned*>(part);
+  for (int e = tid; e < CK_TOTALS; e += 256) {
+    if (e < JF_V * JF_CH) {
+      const int v = v0 + e / JF_CH, i = ic * JF_CH + e % JF_CH;
+      if (blockIdx.x == 0 && v < t && i < k)
+        atomicAdd(&chk[v * k + i], tot[e]);
+    } else {
+      const int p = e - JF_V * JF_CH;
+      const int u = t - 1 - (up0 + p / JF_CH), j = jc * JF_CH + p % JF_CH;
+      if (blockIdx.y == 0 && u >= 0 && j < k)
+        atomicAdd(&chk[tk + u * k + j], tot[e]);
+    }
+  }
 }
 
 // copies-only: P[i,j,u,v] = float((S_A[(v,i)] + S_B[(u,j)]) mod 2^32).
@@ -298,22 +288,6 @@ checksum_kernel(const unsigned* __restrict__ chk, float* __restrict__ out,
   if (e >= tk * tk) return;
   out[scatter_index(e, k, t)] =
       __uint2float_rn(chk[e / tk] + chk[tk + e % tk]);
-}
-
-template <int MODE>
-int launch_v2(const __nv_bfloat16* x1, const __nv_bfloat16* x2, float* part,
-              unsigned* chk, int n, int k, int h, int w, int half_t, int rb,
-              int splits, int rows_per_chunk, cudaStream_t stream) {
-  const int tk = k * (2 * half_t + 1);
-  const size_t smem = stage_bytes(rb);
-  cudaError_t err = cudaFuncSetAttribute(
-      joint_v2_partial_kernel<MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return refused(err);
-  dim3 grid((tk + TILE - 1) / TILE, (tk + TILE - 1) / TILE, splits);
-  joint_v2_partial_kernel<MODE><<<grid, kThreads, smem, stream>>>(
-      x1, x2, part, chk, k, h, w, half_t, rb, n * h, rows_per_chunk);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------------------- X1
@@ -417,46 +391,56 @@ int launch_probe(float* part, int tk, int rb, int passes_total,
 
 extern "C" {
 
-// X2: x1, x2 (n, k, h, w) bf16 contiguous; part (splits, kT, kT) f32
-// scratch; chk (2 kT) u32 scratch (copies-only); out (k, k, T, T) f32.
-// mode: 0 full, 1 mm-only, 2 copies-only, 3 aligned-copies. The (n, y) rows
-// are cut into `splits` chunks of `rows_per_chunk` rows, a multiple of rb.
-int joint_exp_fwd_v2(const void* x1, const void* x2, float* part,
-                     unsigned* chk, float* out, int n, int k, int h, int w,
-                     int half_t, int rb, int mode, int splits,
-                     int rows_per_chunk, cudaStream_t stream) {
-  const auto* a = static_cast<const __nv_bfloat16*>(x1);
-  const auto* b = static_cast<const __nv_bfloat16*>(x2);
+// X2, K1's stack product in `mode` (0 full, 1 mm-only, 2 copies-only, 3
+// aligned-copies): x1, x2 (n, k, h, w) bf16 contiguous; x1c, x2c (n,
+// ceil(k/16), h, w, 16) bf16 scratch for the layout pass; part (splits,
+// kT, kT) f32 scratch; chk (2 kT) u32 scratch (copies-only); out (k, k, T,
+// T) f32. The passes of rb rows are cut into `splits` chunks of
+// passes_per_chunk, as X7's.
+int joint_exp_fwd_v2(const void* x1, const void* x2, void* x1c, void* x2c,
+                     float* part, unsigned* chk, float* out, int n, int k,
+                     int h, int w, int half_t, int rb, int mode,
+                     int passes_per_chunk, int splits, cudaStream_t stream) {
+  const auto* a = static_cast<const bf16*>(x1);
+  const auto* b = static_cast<const bf16*>(x2);
+  auto* ac = static_cast<bf16*>(x1c);
+  auto* bc = static_cast<bf16*>(x2c);
   const int t = 2 * half_t + 1;
   const int tk = k * t;
   int err;
   switch (mode) {
-    case kFull:
-      err = launch_v2<kFull>(a, b, part, chk, n, k, h, w, half_t, rb, splits,
-                             rows_per_chunk, stream);
+    case 0:
+      return launch_joint_fwd_mma<bf16>(a, b, ac, bc, part, out, n, k, h, w,
+                                        half_t, rb, passes_per_chunk, splits,
+                                        stream);
+    case 1:
+      err = launch_jf_partials<bf16, kJfMmOnly>(a, b, ac, bc, part, n, k, h,
+                                                w, half_t, rb,
+                                                passes_per_chunk, splits,
+                                                stream);
       break;
-    case kMmOnly:
-      err = launch_v2<kMmOnly>(a, b, part, chk, n, k, h, w, half_t, rb,
-                               splits, rows_per_chunk, stream);
-      break;
-    case kCopiesOnly: {
+    case 2: {
       cudaError_t e = cudaMemsetAsync(chk, 0, sizeof(unsigned) * 2 * tk,
                                       stream);
       if (e != cudaSuccess) return refused(e);
-      err = launch_v2<kCopiesOnly>(a, b, part, chk, n, k, h, w, half_t, rb,
-                                   splits, rows_per_chunk, stream);
+      err = launch_jf_grid<bf16>(copies_only_kernel, CK_SMEM, true, a, b, ac,
+                                 bc, reinterpret_cast<float*>(chk), n, k, h,
+                                 w, half_t, rb, passes_per_chunk, splits,
+                                 stream);
       break;
     }
-    case kAligned:
-      err = launch_v2<kAligned>(a, b, part, chk, n, k, h, w, half_t, rb,
-                                splits, rows_per_chunk, stream);
+    case 3:
+      err = launch_jf_partials<bf16, kJfAligned>(a, b, ac, bc, part, n, k, h,
+                                                 w, half_t, rb,
+                                                 passes_per_chunk, splits,
+                                                 stream);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != 0) return err;
   const int blocks = (tk * tk + kThreads - 1) / kThreads;
-  if (mode == kCopiesOnly)
+  if (mode == 2)
     checksum_kernel<<<blocks, kThreads, 0, stream>>>(chk, out, k, t);
   else
     joint_reduce_kernel<<<blocks, kThreads, 0, stream>>>(part, out, splits, k,

@@ -1,8 +1,10 @@
 // K1's stack product on Hopper's tensor cores (wgmma, hopper_mma.cuh), for
 // the displacement joint of bf16 operands. Shared by seg_joint.cu (K1, the
-// training path's joint forward, at k > 4) and joint_exp.cu (X7, the
+// training path's joint forward, at k > 4), joint_exp.cu (X7, the
 // experiment tool's `joint_fwd_v8`, which is K1 with the pass rows `rb` as
-// a parameter).
+// a parameter, and X2, whose modes are instantiations of the one kernel
+// but for copies-only, which walks and stages its slabs) and
+// joint_exp_tma.cu (X3's tensor-core form, the same GEMM fed by TMA).
 //
 //   P[(v,i),(u,j)] = sum_{n,y,q} x1[n,i,y,q+v-h] * x2[n,j,y+h-u,q]
 //
@@ -66,6 +68,21 @@
 // 6 M tiles x 336 columns x 16 x 2 FLOP per pixel, 5.1e11 FLOP at the
 // main path's shapes (n = 120, 128^2): 0.51 ms at the H100 SXM's 989
 // TFLOP/s bf16 peak, against the in-frame work's 0.363 ms (seg_joint.cu).
+//
+// Modes (X2's ablations, joint_exp.cu), compile-time instantiations of the
+// one kernel; K1 and X7 are kJfFull, the default (X2's copies-only, which
+// issues no product, is a kernel of joint_exp.cu over jf_stage/jf_next):
+//   kJfMmOnly   no staging and no layout pass: both buffers are filled with
+//               bf16 1.0 once, at block start, and the product warpgroups
+//               issue every product of the chunk over them, so each entry
+//               of a partial is the count of terms issued, rows x k16
+//               steps x 16 summed over the block's slabs;
+//   kJfAligned  kJfFull with every shift at the zero displacement: x1 is
+//               staged from the slab's own columns and read at no warp
+//               offset, the window from the slab's own rows, and warpgroup
+//               g reads channel half g with an N stride (SBO) of 0, so every
+//               one of its 21 core matrices along N is the same one: each
+//               (u, v) entry sums the same terms in the same order.
 
 #pragma once
 
@@ -103,6 +120,8 @@ constexpr int JF_SMEM = JF_A_OFF + JF_ROWS * JF_A_ROW;  // 108,544 bytes
 constexpr int JF_ACC = JF_CM * 4;       // accumulators a thread
 
 static_assert(JF_WGS * JF_CM % 2 == 0, "an N tile holds whole shifts");
+
+enum JfMode { kJfFull = 0, kJfMmOnly = 1, kJfAligned = 2 };
 
 // One k16 step of a warpgroup: load A into `a` once at most kWait product
 // groups are in flight (so the one that last read `a` has retired), then
@@ -194,8 +213,9 @@ __device__ __forceinline__ void jf_stage(uint32_t buf,
 // The products of the staged slab `s`: for each row, `steps` k16 steps,
 // one A fragment a step, so three product groups stay in flight
 // (kChecked, for a ragged last column slab, tests each step against
-// `steps` and waits for every group before reloading a fragment).
-template <bool kChecked>
+// `steps` and waits for every group before reloading a fragment). kSbo is
+// the N stride of B's core matrices (0 in aligned-copies).
+template <bool kChecked, uint32_t kSbo = JF_HALF>
 __device__ __forceinline__ void jf_products(float (&acc)[JF_ACC],
                                             uint32_t a_lane,
                                             const unsigned char* b_base,
@@ -205,7 +225,7 @@ __device__ __forceinline__ void jf_products(float (&acc)[JF_ACC],
     const uint32_t a_row = a_lane + r * JF_A_ROW;
     // B: LBO 128 (the next 8 pixels), SBO one channel half (the next
     // core matrix along N)
-    const uint64_t db = smem_desc(b_base + r * JF_ROW, 128, JF_HALF);
+    const uint64_t db = smem_desc(b_base + r * JF_ROW, 128, kSbo);
 #pragma unroll
     for (int st = 0; st < JF_STEPS; ++st) {
       if (!kChecked)
@@ -219,11 +239,13 @@ __device__ __forceinline__ void jf_products(float (&acc)[JF_ACC],
   wgmma_wait<0>();
 }
 
+template <int kMode = kJfFull>
 __global__ void __launch_bounds__(JF_THREADS, 1)
 joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
                      const bf16* __restrict__ x2c, float* __restrict__ part,
                      int k, int h, int w, int half_t, int rb,
                      int passes_total, int passes_per_chunk) {
+  constexpr bool kAligned = kMode == kJfAligned;
   const int t = 2 * half_t + 1;
   const int tk = k * t;
   const int chunks = (k + JF_CH - 1) / JF_CH;
@@ -236,6 +258,10 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
   const int p_begin = blockIdx.z * passes_per_chunk;
   const int p_end = min(p_begin + passes_per_chunk, passes_total);
   const int passes_per_image = (h + rb - 1) / rb;
+  // the shifts the slabs are staged at: aligned-copies stages x1 from the
+  // slab's own columns (v0 - h = 0) and the window from its own rows
+  const int v0_staged = kAligned ? half_t : v0;
+  const int up0_staged = kAligned ? half_t : up0;
 
   // two slab buffers, each the x2 window then the x1 rows
   extern __shared__ __align__(16) unsigned char smem[];
@@ -248,9 +274,18 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
   // this lane's ldmatrix.trans row: pixel (lane & 7) + 8 (lane >> 4) of a
   // step, shifted by the warp's v - v0, channel half (lane >> 3) & 1
   const uint32_t a_lane = JF_A_OFF + ((lane >> 3) & 1) * JF_A_HALF
-                          + (warp + (lane & 7) + 8 * (lane >> 4)) * 16;
-  // this warpgroup's first core matrix along N
-  const int b_lane = wg * JF_CM * JF_HALF;
+                          + ((kAligned ? 0 : warp) + (lane & 7)
+                             + 8 * (lane >> 4)) * 16;
+  // this warpgroup's first core matrix along N (aligned-copies: its
+  // channel half of the row)
+  const int b_lane = kAligned ? wg * JF_HALF : wg * JF_CM * JF_HALF;
+
+  if constexpr (kMode == kJfMmOnly) {
+    unsigned* words = reinterpret_cast<unsigned*>(smem);
+    for (int e = tid; e < 2 * JF_SMEM / 4; e += JF_THREADS)
+      words[e] = 0x3F803F80u;  // bf16 1.0, 1.0
+    fence_proxy_async();
+  }
 
   float acc[JF_ACC];
 #pragma unroll
@@ -262,9 +297,9 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
   s.wy = (p_begin - s.img * passes_per_image) * rb;
   s.rows = p_begin < p_end ? min(JF_ROWS, min(s.wy + rb, h) - s.wy) : 0;
   s.steps = (min(JF_PIX, w) + 15) / 16;
-  if (stager && s.rows) {
-    jf_stage(base, x1c, x2c, s, tid - JF_WGS * 128, ic, jc, chunks, v0, up0,
-             h, w, half_t);
+  if (kMode != kJfMmOnly && stager && s.rows) {
+    jf_stage(base, x1c, x2c, s, tid - JF_WGS * 128, ic, jc, chunks,
+             v0_staged, up0_staged, h, w, half_t);
     cp_async_commit();
     cp_async_wait_all();
     fence_proxy_async();
@@ -276,9 +311,10 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
     // while the others multiply this one; the barrier ends both
     const JfSlab nx = jf_next(s, p_end, rb, passes_per_image, h, w);
     if (stager) {
-      if (nx.rows) {
+      if (kMode != kJfMmOnly && nx.rows) {
         jf_stage(base + (cur ^ 1) * JF_SMEM, x1c, x2c, nx,
-                 tid - JF_WGS * 128, ic, jc, chunks, v0, up0, h, w, half_t);
+                 tid - JF_WGS * 128, ic, jc, chunks, v0_staged, up0_staged,
+                 h, w, half_t);
         cp_async_commit();
         cp_async_wait_all();
         fence_proxy_async();
@@ -286,10 +322,11 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
     } else {
       const unsigned char* b_base = smem + cur * JF_SMEM + b_lane;
       const uint32_t a_base = base + cur * JF_SMEM + a_lane;
+      constexpr uint32_t kSbo = kAligned ? 0 : JF_HALF;
       if (s.steps == JF_STEPS)
-        jf_products<false>(acc, a_base, b_base, s);
+        jf_products<false, kSbo>(acc, a_base, b_base, s);
       else
-        jf_products<true>(acc, a_base, b_base, s);
+        jf_products<true, kSbo>(acc, a_base, b_base, s);
     }
     __syncthreads();
     s = nx;
@@ -305,8 +342,11 @@ joint_fwd_mma_kernel(const bf16* __restrict__ x1c,
 #pragma unroll
   for (int c = 0; c < JF_CM; ++c) {
     const int ct = wg * JF_CM + c;  // core matrix of the N tile
-    const int u = t - 1 - (up0 + ct / 2);
-    const int j0 = jc * JF_CH + 8 * (ct & 1) + 2 * (lane % 4);
+    // aligned-copies: warpgroup wg's core matrix c is shift u' = c of
+    // channel half wg
+    const int u = t - 1 - (up0 + (kAligned ? c : ct / 2));
+    const int j0 = jc * JF_CH + 8 * (kAligned ? wg : ct & 1)
+                   + 2 * (lane % 4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = i_lo + 8 * (e >> 1);
@@ -359,16 +399,22 @@ int launch_jf_layout(const T* x, bf16* xc, int n, int k, int h, int w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1's tensor-core form on x1, x2 (n, k, h, w), f32 (K1) or bf16 (X7): the
-// layout pass into x1c, x2c ((n, ceil(k/16), h, w, 16) bf16 scratch), the
-// partials of every chunk of `passes_per_chunk` passes of rb rows (the
-// passes of an image first) into part (splits, kT, kT) f32 scratch, then
-// their ordered reduce into out (k, k, T, T).
+// A kernel over the stack product's grid and slab walk: joint_fwd_mma_kernel
+// and X2's copies-only (joint_exp.cu).
+using JfKernel = void (*)(const bf16*, const bf16*, float*, int, int, int,
+                          int, int, int, int);
+
+// Launches `kernel` with `smem` bytes of dynamic shared memory over the
+// stack product's grid on x1, x2 (n, k, h, w), f32 (K1) or bf16 (X7, X2):
+// the layout pass into x1c, x2c ((n, ceil(k/16), h, w, 16) bf16 scratch;
+// skipped unless `layout`), then a block for each N tile, M tile and chunk
+// of `passes_per_chunk` passes of rb rows (the passes of an image first),
+// writing into part ((splits, kT, kT) f32 scratch for the partials).
 template <typename T>
-int launch_joint_fwd_mma(const T* x1, const T* x2, bf16* x1c, bf16* x2c,
-                         float* part, float* out, int n, int k, int h, int w,
-                         int half_t, int rb, int passes_per_chunk,
-                         int splits, cudaStream_t stream) {
+int launch_jf_grid(JfKernel kernel, int smem, bool layout, const T* x1,
+                   const T* x2, bf16* x1c, bf16* x2c, float* part, int n,
+                   int k, int h, int w, int half_t, int rb,
+                   int passes_per_chunk, int splits, cudaStream_t stream) {
   if (n < 1 || k < 1 || h < 1 || w < 1 || half_t < 0 || rb < 1
       || passes_per_chunk < 1 || splits < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -377,20 +423,48 @@ int launch_joint_fwd_mma(const T* x1, const T* x2, bf16* x1c, bf16* x2c,
       || static_cast<long long>(splits - 1) * passes_per_chunk >= passes)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      joint_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      2 * JF_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return refused(err);
-  int e = launch_jf_layout<T>(x1, x1c, n, k, h, w, stream);
-  if (e == 0) e = launch_jf_layout<T>(x2, x2c, n, k, h, w, stream);
-  if (e != 0) return e;
+  if (layout) {
+    int e = launch_jf_layout<T>(x1, x1c, n, k, h, w, stream);
+    if (e == 0) e = launch_jf_layout<T>(x2, x2c, n, k, h, w, stream);
+    if (e != 0) return e;
+  }
   const int t = 2 * half_t + 1;
   const int chunks = (k + JF_CH - 1) / JF_CH;
   dim3 grid(chunks * ((t + JF_U - 1) / JF_U),
             chunks * ((t + JF_V - 1) / JF_V), splits);
-  joint_fwd_mma_kernel<<<grid, JF_THREADS, 2 * JF_SMEM, stream>>>(
-      x1c, x2c, part, k, h, w, half_t, rb, passes, passes_per_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, JF_THREADS, smem, stream>>>(x1c, x2c, part, k, h, w, half_t,
+                                             rb, passes, passes_per_chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The partials of the stack product in mode kMode (launch_jf_grid; no
+// layout pass in mm-only).
+template <typename T, int kMode = kJfFull>
+int launch_jf_partials(const T* x1, const T* x2, bf16* x1c, bf16* x2c,
+                       float* part, int n, int k, int h, int w, int half_t,
+                       int rb, int passes_per_chunk, int splits,
+                       cudaStream_t stream) {
+  return launch_jf_grid<T>(joint_fwd_mma_kernel<kMode>, 2 * JF_SMEM,
+                           kMode != kJfMmOnly, x1, x2, x1c, x2c, part, n, k,
+                           h, w, half_t, rb, passes_per_chunk, splits,
+                           stream);
+}
+
+// K1's tensor-core form on x1, x2 (n, k, h, w), f32 (K1) or bf16 (X7): the
+// partials (launch_jf_partials, kJfFull), then their ordered reduce into
+// out (k, k, T, T).
+template <typename T>
+int launch_joint_fwd_mma(const T* x1, const T* x2, bf16* x1c, bf16* x2c,
+                         float* part, float* out, int n, int k, int h, int w,
+                         int half_t, int rb, int passes_per_chunk,
+                         int splits, cudaStream_t stream) {
+  const int e = launch_jf_partials<T>(x1, x2, x1c, x2c, part, n, k, h, w,
+                                      half_t, rb, passes_per_chunk, splits,
+                                      stream);
+  if (e != 0) return e;
+  const int t = 2 * half_t + 1;
   const int tk = k * t;
   joint_reduce_kernel<<<(tk * tk + kThreads - 1) / kThreads, kThreads, 0,
                         stream>>>(part, out, splits, k, t, 1);

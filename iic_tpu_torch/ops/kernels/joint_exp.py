@@ -14,8 +14,13 @@ Replaces the nine kernels of ``tools/joint_kernel_exp.py``: X2 replaces
 ``bwd_v8``) and X9 ``_dgrad_kernel_v7`` (``dgrad_fused_v7``). The kernels'
 sources, with the note on what bounds them on the H100, how their design
 answers it and the exact definition of each mode, are
-``iic_tpu_torch/csrc/joint_exp.cu`` (X1, X2, X7),
-``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (X3-X6) and
+``iic_tpu_torch/csrc/joint_exp.cu`` (X1, X2, X7; X2 and X7's
+tensor-core form are K1's stack product in ``csrc/joint_fwd_common.cuh``,
+X2's modes instantiations of its kernel but copies-only, which walks and
+stages its slabs),
+``iic_tpu_torch/csrc/joint_exp_tma.cu`` (X3's tensor-core form: K1's stack
+product fed by TMA through a parity-indexed mbarrier ring),
+``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (X3's CUDA-core form, X4-X6) and
 ``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9; X8's kernel is the
 implicit GEMM of ``csrc/dgrad_common.cuh``, which K2 shares, and whose
 operand layout and shared-memory plan ``seg_joint`` holds).
@@ -51,30 +56,37 @@ LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
 
 MODES = ("full", "rank3", "mm-only", "copies-only", "aligned-copies")
 FORMS = ("mk-nk", "mk-kn")
-# csrc/joint_exp.cu Mode; "rank3" is the "full" launch on this card
+# X3's forms: K1's stack product on the tensor cores, fed by TMA, or its
+# first kernel on the CUDA cores; by default K1's (seg_joint.k1_form: the
+# CUDA-core pipeline at k <= 4)
+X_FORMS = sj.K1_FORMS
+# csrc/joint_exp.cu joint_exp_fwd_v2's modes; "rank3" is the "full" launch
+# on this card
 _MODE_IDS = {"full": 0, "rank3": 0, "mm-only": 1, "copies-only": 2,
              "aligned-copies": 3}
 _WL = 128        # the TPU tool's lane width: X1's row tiles are rb x 128
-_TILE = 64       # X2's and K1's output tile edge (csrc/joint_exp.cu TILE)
-_BQ = 8          # image columns per shared-memory pass (BQ)
-# X2's limit: less its kernel's 1.5 KB of static tables
-_SMEM_LIMIT = _SMEM_BLOCK - 1536
+_TILE = 64       # the CUDA-core kernels' output tile edge (joint_common.cuh)
+_BQ = 8          # image columns per X1 pass (csrc/joint_exp.cu BQ)
 _PROBE_M, _PROBE_N = 64, 160  # X1's output tile (csrc/joint_exp.cu PROBE_*)
 _PROBE_GUARD = 1024           # zeroed bytes after each X1 tile
 _V7_RB = 16    # X9's tile rows (the TPU tool's _RB)
 _V9_COLS = 16  # X9's N at every k (csrc/joint_exp_bwd.cu V9_COLS)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
+# X3's tensor-core form (csrc/joint_exp_tma.cu): the TMA boxes (channels,
+# pixels, rows, images x chunks) of an x1 channel half (the slab's rows)
+# and of an x2 one (its window), and a slot's byte offsets: the halves'
+# windows [half][row][pixel][8], then the halves' x1 rows, 68 pixels each
+X3_BOX_A = (8, sj._JF_A_PIX, sj._JF_ROWS, 1)
+X3_BOX_B = (8, sj._JF_PIX, sj._JF_ROWS + sj._JF_U - 1, 1)
+_XT_WIN = X3_BOX_B[1] * X3_BOX_B[2] * 16
+_XT_A_ROW = X3_BOX_A[1] * 16
+_XT_A_OFF = 2 * _XT_WIN
+_XT_A_HALF = X3_BOX_A[2] * _XT_A_ROW
 
 
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def stage_bytes(rb):
-    """X2's dynamic shared memory (csrc/joint_exp.cu stage_bytes): the A
-    and B tiles, (64, 8*rb + 2) bf16 each."""
-    return 2 * 2 * _TILE * (_BQ * rb + 2)
 
 
 def probe_smem(rb):
@@ -103,12 +115,16 @@ def _check_smem(name, need, limit=_SMEM_BLOCK):
                          f"memory, over the {limit} a block can use")
 
 
+def _check_form(form):
+    if form not in X_FORMS:
+        raise ValueError(f"form {form!r}: expected one of {X_FORMS}")
+
+
 def check_args(half_t, rb):
     """X2's limits: the TPU tool's asserts (2*half_t <= 128 and 2*half_t <=
-    2*rb) and this card's: one pass of rb rows must fit a block's shared
-    memory."""
+    2*rb). The card adds none: K1's stack product stages slabs of 16 rows
+    whatever rb (``seg_joint.k1_smem``)."""
     _check_shift(half_t, rb)
-    _check_smem(f"rb={rb}: a pass", stage_bytes(rb), _SMEM_LIMIT)
 
 
 def check_probe(half_t, rb, form):
@@ -196,18 +212,19 @@ def copies_checksum(x1, x2, half_t):
     return (total % 2 ** 32).to(torch.float64).to(torch.float32)
 
 
-def mm_only_terms(n, h, w, rb):
-    """The contraction terms X2 ``mm-only`` issues per output entry: a
-    pass per rb rows (the rows are cut into chunks of whole passes) and per
-    8 columns, each of depth 8*rb."""
-    return -(-n * h // rb) * -(-w // _BQ) * _BQ * rb
+def mm_only_terms(n, h, w):
+    """The contraction terms X2 ``mm-only`` issues per output entry: K1's
+    slab walk, rows x 16-pixel k16 steps x 16 summed over the slabs. The
+    passes of rb rows of one image cover each row once and a row's column
+    slabs its ceil(w/16) steps, so n * h * ceil(w/16) * 16 whatever rb."""
+    return n * h * -(-w // 16) * 16
 
 
 def joint_fwd_v2_plain(x1, x2, half_t, mode="full", rb=16):
     """Plain version of X2: the (k, k, T, T) joint of x1, x2 rounded to
     bf16, accumulated in f32 (f64 for f64 input), for ``mode`` (see the
-    module docstring). Only ``mm-only`` depends on ``rb``: its entries are
-    ``mm_only_terms``, exact in f32 up to 2^24."""
+    module docstring). ``mm-only``'s entries are ``mm_only_terms``, exact
+    in f32 up to 2^24; no mode depends on ``rb``."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     n, k, h, w = x1.shape
@@ -215,7 +232,7 @@ def joint_fwd_v2_plain(x1, x2, half_t, mode="full", rb=16):
     if mode == "copies-only":
         return copies_checksum(x1, x2, half_t)
     if mode == "mm-only":
-        return torch.full((k, k, t, t), float(mm_only_terms(n, h, w, rb)),
+        return torch.full((k, k, t, t), float(mm_only_terms(n, h, w)),
                           device=x1.device)
     if mode == "aligned-copies":
         p0 = sj.joint_fwd_bf16_plain(x1, x2, 0)
@@ -233,8 +250,9 @@ def joint_fwd_v8_plain(x1, x2, half_t, rb=16):
 
 def joint_fwd_v3_plain(x1, x2, half_t, rb=16, flat=True):
     """Plain version of X3: X2 ``full``'s plain version. X3 multiplies the
-    same bf16 operands into the same f32 joint; ``rb`` and ``flat`` change
-    only the kernel's summation order and the TPU's stack layout."""
+    same bf16 operands into the same f32 joint in either form; ``rb`` and
+    ``flat`` change only the kernel's summation order and the TPU's stack
+    layout."""
     return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
 
 
@@ -316,7 +334,7 @@ def _lib():
     lib = _build.library("joint_exp")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.joint_exp_fwd_v2.argtypes = [p, p, p, p, p] + [i] * 9 + [p]
+        lib.joint_exp_fwd_v2.argtypes = [p] * 7 + [i] * 9 + [p]
         lib.joint_exp_fwd_v2.restype = i
         lib.joint_exp_mm_probe.argtypes = [p, p] + [i] * 6 + [p]
         lib.joint_exp_mm_probe.restype = i
@@ -326,6 +344,16 @@ def _lib():
         lib.joint_exp_fwd_v8.restype = i
         lib.joint_exp_fwd_v8_mma.argtypes = [p] * 6 + [i] * 8 + [p]
         lib.joint_exp_fwd_v8_mma.restype = i
+        lib._typed = True
+    return lib
+
+
+def _tma_lib():
+    lib = _build.library("joint_exp_tma")
+    if not getattr(lib, "_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.joint_exp_fwd_v3_tma.argtypes = [p] * 6 + [i] * 8 + [p]
+        lib.joint_exp_fwd_v3_tma.restype = i
         lib._typed = True
     return lib
 
@@ -384,8 +412,8 @@ def _as_input(name, x, shape=None, to=torch.bfloat16):
 def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
     """X2: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w) with
     both inputs rounded to bf16 and f32 accumulation, or one of its
-    ablations (``mode``). ``rb`` is the image rows a block stages per
-    shared-memory pass."""
+    ablations (``mode``), on K1's stack product: ``rb`` is the rows of a
+    pass, as in X7's, and full and rank3 are X7's tensor-core launch."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: expected one of {MODES}")
     check_args(half_t, rb)
@@ -393,19 +421,17 @@ def joint_fwd_v2(x1, x2, half_t, mode="full", rb=16):
         return joint_fwd_v2_plain(x1, x2, half_t, mode, rb)
     a = _as_input("x1", x1)
     b = _as_input("x2", x2, tuple(x1.shape))
-    n, k, h, w = x1.shape
-    t = 2 * half_t + 1
-    tk = k * t
-    splits, per = _split(n * h, (-(-tk // _TILE)) ** 2, rb)
-    part = torch.empty((splits, tk, tk), device=x1.device)
+    tk = x1.shape[1] * (2 * half_t + 1)
     chk = torch.empty((2 * tk,), device=x1.device, dtype=torch.int32)
-    out = torch.empty((k, k, t, t), device=x1.device)
-    err = _lib().joint_exp_fwd_v2(
-        a.data_ptr(), b.data_ptr(), part.data_ptr(), chk.data_ptr(),
-        out.data_ptr(), n, k, h, w, half_t, rb, _MODE_IDS[mode], splits, per,
-        _stream(x1.device))
-    if err != 0:
-        raise RuntimeError(f"joint_fwd_v2 launch failed: CUDA error {err}")
+
+    # X7's launch (plan, scratch, reduce) with the mode and the copies-only
+    # checksum words added
+    def entry(x1p, x2p, x1c, x2c, part, out, *dims_plan):
+        *dims, per, splits, stream = dims_plan
+        return _lib().joint_exp_fwd_v2(x1p, x2p, x1c, x2c, part,
+                                       chk.data_ptr(), out, *dims,
+                                       _MODE_IDS[mode], per, splits, stream)
+    out = sj.launch_joint_fwd_mma(entry, a, b, half_t, rb, sj.K1_CHUNK_ROWS)
     LAUNCHES["joint_fwd_v2"] += 1
     return out
 
@@ -468,16 +494,31 @@ def joint_fwd_v8(x1, x2, half_t, rb=16, form=None):
     return out
 
 
-def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True):
+def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True, form=None):
     """X3: X7's joint with the next stage fetched into the other slot of a
     shared-memory double buffer, indexed by parity, while the current one
-    is multiplied. ``flat`` names the TPU's stack layout, one launch here
-    (csrc/joint_exp_pipe.cu); ``rb`` is the row quantum of a chunk."""
+    is multiplied, in the form ``form`` (one of ``X_FORMS``; by default
+    ``seg_joint.k1_form``'s). ``flat`` names the TPU's stack layout, one
+    launch here.
+    Tensor cores (csrc/joint_exp_tma.cu): K1's stack product over X7's plan
+    (``rb`` the rows of a pass), each slab brought by TMA into a slot whose
+    mbarrier phase is the slab's parity; it equals X7's tensor-core form
+    bit for bit. CUDA cores (csrc/joint_exp_pipe.cu): ``rb`` is the row
+    quantum of a chunk, and it equals X7's CUDA-core form bit for bit."""
+    form = form or sj.k1_form(x1.shape[1], half_t)
+    _check_form(form)
     _check_shift(half_t, rb)
     if not _on_cuda("joint_fwd_v3", x1, x2):
         return joint_fwd_v3_plain(x1, x2, half_t, rb, flat)
-    return _split_k_fwd("joint_fwd_v3", _pipe_lib().joint_exp_fwd_v3, x1,
-                        x2, half_t, rb)
+    if form == "cuda-core":
+        return _split_k_fwd("joint_fwd_v3", _pipe_lib().joint_exp_fwd_v3, x1,
+                            x2, half_t, rb)
+    a = _as_input("x1", x1)
+    b = _as_input("x2", x2, tuple(x1.shape))
+    out = sj.launch_joint_fwd_mma(_tma_lib().joint_exp_fwd_v3_tma, a, b,
+                                  half_t, rb, sj.K1_CHUNK_ROWS)
+    LAUNCHES["joint_fwd_v3"] += 1
+    return out
 
 
 def joint_fwd_v4(x1, x2, half_t, rb=16):

@@ -225,11 +225,12 @@ def _stream(device):
 
 def launch_joint_fwd_mma(entry, x1, x2, half_t, rb, chunk_rows):
     """Runs K1's tensor-core form (``entry``: K1's C entry point on f32
-    inputs, or X7's on bf16) on x1, x2 (n, k, h, w): the kernel's layout
-    pass into ``channels_last_chunks``'s layout, the stack product over
-    chunks of about ``chunk_rows`` rows in passes of ``rb`` rows
+    inputs, or X7's or X3's on bf16) on x1, x2 (n, k, h, w): the kernel's
+    layout pass into ``channels_last_chunks``'s layout, the stack product
+    over chunks of about ``chunk_rows`` rows in passes of ``rb`` rows
     (``k1_plan``) and the ordered reduce. Returns the (k, k, T, T) joint,
-    or raises with the CUDA error."""
+    or raises with the CUDA error (a negative code: minus the CUresult of
+    a refused tensor map)."""
     n, k, h, w = x1.shape
     t = 2 * half_t + 1
     tk = k * t
@@ -241,6 +242,9 @@ def launch_joint_fwd_mma(entry, x1, x2, half_t, rb, chunk_rows):
     err = entry(x1.data_ptr(), x2.data_ptr(), xc[0].data_ptr(),
                 xc[1].data_ptr(), part.data_ptr(), out.data_ptr(), n, k, h, w,
                 half_t, rb, per, splits, _stream(x1.device))
+    if err < 0:
+        raise RuntimeError(f"joint forward (wgmma): tensor map refused, "
+                           f"CUresult {-err}")
     if err != 0:
         raise RuntimeError(f"joint forward (wgmma) launch failed: CUDA error "
                            f"{err}")

@@ -408,31 +408,63 @@ X2_SHAPES = [(2, 3, 3, 8, 8), (3, 2, 5, 16, 16), (2, 2, 3, 10, 7),
 def test_x2_matches_plain(gpu, half_t, n, k, h, w):
     """X2 in every mode vs its plain version. full, rank3 and
     aligned-copies: the same bf16 operands and exact products, so only the
-    f32 summation order differs: rtol 1e-4, atol 1e-5 * max (inside the JAX
-    package's rtol 5e-3 contract). mm-only and copies-only are exact."""
+    f32 summation order differs, and the tensor cores' f32 sums truncate:
+    within K1_F64 of max of the bf16 function in float64. mm-only and
+    copies-only are exact."""
     rng = np.random.default_rng(half_t + k)
     x1 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
     x2 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
-    for mode in jx.MODES:
-        got = jx.joint_fwd_v2(x1, x2, half_t, mode=mode).cpu().numpy()
-        ref = jx.joint_fwd_v2_plain(x1, x2, half_t, mode).cpu().numpy()
-        assert got.shape == ref.shape
-        if mode in ("mm-only", "copies-only"):
-            np.testing.assert_array_equal(got, ref, err_msg=mode)
-        else:
-            np.testing.assert_allclose(got, ref, rtol=1e-4,
-                                       atol=1e-5 * np.abs(ref).max(),
-                                       err_msg=mode)
     t = 2 * half_t + 1
+    for mode in jx.MODES:
+        got = jx.joint_fwd_v2(x1, x2, half_t, mode=mode)
+        ref = jx.joint_fwd_v2_plain(x1, x2, half_t, mode)
+        assert got.shape == ref.shape == (k, k, t, t)
+        if mode in ("mm-only", "copies-only"):
+            np.testing.assert_array_equal(got.cpu().numpy(),
+                                          ref.cpu().numpy(), err_msg=mode)
+        else:
+            ref64 = jx.joint_fwd_v2_plain(x1.double(), x2.double(), half_t,
+                                          mode)
+            err = float((got.double() - ref64).abs().max())
+            assert err <= K1_F64["wgmma"] * float(ref64.abs().max()), mode
     aligned = jx.joint_fwd_v2(x1, x2, half_t, mode="aligned-copies")
     assert torch.equal(aligned, aligned[:, :, :1, :1].expand(k, k, t, t))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES + [
+    (1, 2, 5, 20, 70), (10, 1, 17, 9, 20), (10, 2, 5, 18, 33)])
+def test_x2_x3_tensor_core_forms_run_k1s_products(gpu, half_t, n, k, h, w):
+    """X2's full and rank3 are X7's tensor-core launch, and X3's tensor-core form issues the same products in the same
+    order, fed by TMA: each equals X7 ("wgmma") on the same bf16 operands
+    bit for bit at rb 16, 32 and 64; X2's aligned-copies is the zero-shift
+    joint in every (u, v), within K1_F64 of max of it in float64; one
+    launch a call."""
+    x1, x2, _ = _inputs(half_t + 7 * k, half_t, n, k, h, w, gpu)
+    x1b, x2b = x1.bfloat16(), x2.bfloat16()
+    for rb in (16, 32, 64):
+        x7 = jx.joint_fwd_v8(x1b, x2b, half_t, rb, form="wgmma")
+        for mode in ("full", "rank3"):
+            jx.reset_launch_counts()
+            got = jx.joint_fwd_v2(x1b, x2b, half_t, mode, rb)
+            assert jx.LAUNCHES == {**_NO_LAUNCH, "joint_fwd_v2": 1}
+            assert torch.equal(got, x7), (mode, rb)
+        jx.reset_launch_counts()
+        got = jx.joint_fwd_v3(x1b, x2b, half_t, rb, form="wgmma")
+        assert jx.LAUNCHES == {**_NO_LAUNCH, "joint_fwd_v3": 1}
+        assert torch.equal(got, x7), rb
+    ref = sj.joint_fwd_bf16_plain(x1b.double(), x2b.double(), 0)
+    aligned = jx.joint_fwd_v2(x1b, x2b, half_t, "aligned-copies")
+    err = float((aligned[:, :, 0, 0].double() - ref[:, :, 0, 0]).abs().max())
+    assert err <= K1_F64["wgmma"] * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_x2_rb_and_input_type(gpu):
     """rb changes the passes, not the joint (within f32 summation order);
-    bf16 inputs give exactly what their f32 originals give; one launch is
-    counted per call."""
+    bf16 inputs give exactly what their f32 originals give; copies-only's
+    checksum and mm-only's count of terms (K1's slab walk covers each row
+    once) are the same at every rb; one launch is counted per call."""
     rng = np.random.default_rng(9)
     x1 = torch.from_numpy(_maps(rng, 3, 7, 64, 64)).to(gpu)
     x2 = torch.from_numpy(_maps(rng, 3, 7, 64, 64)).to(gpu)
@@ -446,7 +478,7 @@ def test_x2_rb_and_input_type(gpu):
     assert torch.equal(same, outs[0])
     assert torch.equal(jx.joint_fwd_v2(x1, x2, 10, mode="copies-only", rb=16),
                        jx.joint_fwd_v2(x1, x2, 10, mode="copies-only", rb=64))
-    for rb in (16, 32, 64):  # the count of terms issued, per rb
+    for rb in (16, 32, 64):  # the count of terms issued, at each rb
         assert torch.equal(
             jx.joint_fwd_v2(x1[:1], x2[:1], 10, mode="mm-only", rb=rb),
             jx.joint_fwd_v2_plain(x1[:1], x2[:1], 10, "mm-only", rb))
@@ -478,8 +510,8 @@ def test_x1_counts_the_terms(gpu, form, n, k, h, half_t, rb):
 @pytest.mark.cuda
 def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     """Bad input raises before a launch; a launch the C entry points refuse
-    (an unknown mode, a pass over the shared memory, X1 at an odd rb)
-    returns a CUDA error code."""
+    (X2 in an unknown mode or over a plan that misses passes, X1 over the
+    shared memory or at an odd rb) returns a CUDA error code."""
     x = torch.rand(2, 3, 8, 8, device=gpu)
     with pytest.raises(TypeError):
         jx.joint_fwd_v2(x.double(), x.double(), 2)
@@ -490,8 +522,6 @@ def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     with pytest.raises(ValueError):
         jx.joint_fwd_v2(x, x[:1].contiguous(), 2)
     with pytest.raises(ValueError, match="shared memory"):
-        jx.joint_fwd_v2(x, x, 2, rb=128)
-    with pytest.raises(ValueError, match="shared memory"):
         jx.mm_probe(2, 3, 8, 2, 128, "mk-nk", gpu)
     with pytest.raises(ValueError, match="even"):
         jx.mm_probe(2, 3, 8, 2, 17, "mk-kn", gpu)
@@ -499,10 +529,13 @@ def test_x1_x2_refuse_what_they_cannot_launch(gpu):
     xb = x.bfloat16()
     part = torch.empty(64 * 64 * 64, device=gpu)
     stream = torch.cuda.current_stream().cuda_stream
+    # X2: an unknown mode; in each mode, a plan whose chunks miss passes
     args = (xb.data_ptr(), xb.data_ptr(), part.data_ptr(), part.data_ptr(),
-            part.data_ptr(), 2, 3, 8, 8, 2)
-    assert lib.joint_exp_fwd_v2(*args, 16, 7, 1, 16, stream) != 0
-    assert lib.joint_exp_fwd_v2(*args, 128, 0, 1, 16, stream) != 0
+            part.data_ptr(), part.data_ptr(), part.data_ptr(), 2, 3, 8, 8, 2,
+            16)
+    assert lib.joint_exp_fwd_v2(*args, 7, 2, 1, stream) != 0
+    for mode in range(4):
+        assert lib.joint_exp_fwd_v2(*args, mode, 1, 1, stream) != 0
     assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 128,
                                   0, 1, 1, 1, stream) != 0
     assert lib.joint_exp_mm_probe(part.data_ptr(), part.data_ptr(), 15, 17,
@@ -785,7 +818,8 @@ def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
     for rb in (16, 32, 64):
         x7 = jx.joint_fwd_v8(x1, x2, half_t, rb, form="cuda-core")
         for flat in (True, False):
-            assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, flat), x7)
+            assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, flat,
+                                               form="cuda-core"), x7)
         assert torch.equal(jx.joint_fwd_v5(x1, x2, half_t, rb), x7)
     x6 = jx.joint_fwd_v6(x1, x2, half_t)
     assert torch.equal(x6, jx.joint_fwd_v5(x1.bfloat16(), x2.bfloat16(),
@@ -827,3 +861,9 @@ def test_x3_x6_refuse_what_they_cannot_launch(gpu):
         assert entry(xb.data_ptr(), xb.data_ptr(), *args, 0, 16, stream) != 0
     assert lib.joint_exp_fwd_v6(x.data_ptr(), x.data_ptr(), *args, 1, 0, 16,
                                 stream) != 0
+    # X3's tensor-core form: no chunks, or chunks that miss passes
+    tma = jx._tma_lib().joint_exp_fwd_v3_tma
+    for per, splits in ((1, 0), (1, 1)):
+        assert tma(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
+                   part.data_ptr(), part.data_ptr(), part.data_ptr(), 2, 3,
+                   8, 8, 2, 16, per, splits, stream) != 0

@@ -116,15 +116,16 @@ def test_copies_only_is_the_bit_checksum(n, k, h, w, half_t):
 
 def test_mm_only_and_mm_probe_count_the_terms():
     """Both multiply tiles of bf16 ones: every entry is the count of
-    contraction terms issued. mm-only: one pass per rb rows (whole passes
-    per chunk) and per 8 columns, of depth 8*rb; the probe: the TPU probe's
-    n * (t_hi - t_lo) tiles of rb * 128."""
+    contraction terms issued. mm-only: rows x 16-pixel k16 steps x 16 over
+    K1's slabs, whatever rb; the probe: the TPU probe's n * (t_hi - t_lo)
+    tiles of rb * 128."""
     x = torch.rand(2, 3, 8, 8)
-    p = jx.joint_fwd_v2(x, x, 2, "mm-only", rb=3)
-    assert p.shape == (3, 3, 5, 5)
-    assert torch.all(p == 6 * 1 * 8 * 3)  # ceil(16/3) row passes, 1 column
-    assert jx.mm_only_terms(120, 128, 128, 16) == 120 * 128 * 128
-    assert jx.mm_only_terms(1, 10, 9, 4) == 3 * 2 * 8 * 4
+    for rb in (3, 5):
+        p = jx.joint_fwd_v2(x, x, 2, "mm-only", rb=rb)
+        assert p.shape == (3, 3, 5, 5)
+        assert torch.all(p == 2 * 8 * 1 * 16)  # 16 rows, one k16 step each
+    assert jx.mm_only_terms(120, 128, 128) == 120 * 128 * 8 * 16
+    assert jx.mm_only_terms(1, 10, 9) == 10 * 1 * 16
     for form in jx.FORMS:
         out = jx.mm_probe(2, 7, 16, 10, 16, form, "cpu")
         assert out.shape == (147, 147) and out.dtype == torch.float32
@@ -151,17 +152,14 @@ def test_wrappers_refuse_what_the_jax_tool_asserts(half_t, rb):
 
 
 def test_wrappers_refuse_what_shared_memory_cannot_hold():
-    """X2: a pass of rb rows must fit a block's 227 KB: rb=64 does (132
-    KB), rb=128 does not. X1: its (64 + 160) x 8*rb bf16 tiles and two
-    1 KB guards must fit: rb=64 does (231,424 bytes), rb=66 does not; and
-    rb must be even. Refused before any launch, on every device."""
-    assert jx.stage_bytes(16) == 2 * 64 * 130 * 2
-    assert jx.stage_bytes(64) < 232448 - 1536 < jx.stage_bytes(128)
+    """X1: its (64 + 160) x 8*rb bf16 tiles and two 1 KB guards must fit
+    a block's 227 KB: rb=64 does (231,424 bytes), rb=66 does not; and rb
+    must be even. Refused before any launch, on every device. X2, on K1's
+    stack product, stages slabs of 16 rows whatever rb: rb=128 is taken."""
     assert jx.probe_smem(16) == (64 + 160) * 128 * 2 + 2048 == 59392
     assert jx.probe_smem(64) == 231424 <= 232448 < jx.probe_smem(66)
     x = torch.rand(1, 2, 8, 8)
-    with pytest.raises(ValueError, match="shared memory"):
-        jx.joint_fwd_v2(x, x, 2, rb=128)
+    assert jx.joint_fwd_v2(x, x, 2, rb=128).shape == (2, 2, 5, 5)
     with pytest.raises(ValueError, match="shared memory"):
         jx.mm_probe(1, 2, 8, 2, 128, "mk-kn", "cpu")
     with pytest.raises(ValueError, match="shared memory"):
@@ -253,3 +251,155 @@ def test_tool_bwd_conv_is_the_joint_vjp():
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-5 * float(b.abs().max()))
+
+
+# ------------------------------------- X2's tensor-core form, restated
+
+def k1_slabs(n, h, w, rb, chunk_rows=sj.K1_CHUNK_ROWS, half_t=0, k=1):
+    """K1's slab walk (csrc/joint_fwd_common.cuh jf_next) for every chunk
+    of ``sj.k1_plan``: yields (chunk, image, first row, rows, first pixel,
+    k16 steps), passes of rb rows of one image cut into slabs of 16 rows x
+    64 pixels, a pass's row slabs before the next pass."""
+    per, splits = sj.k1_plan(n, k, h, half_t, rb, chunk_rows)
+    pph = -(-h // rb)
+    passes = n * pph
+    assert (splits - 1) * per < passes <= splits * per
+    for z in range(splits):
+        for p in range(z * per, min(z * per + per, passes)):
+            img, yb = divmod(p, pph)
+            for wy in range(yb * rb, min(yb * rb + rb, h), sj._JF_ROWS):
+                rows = min(sj._JF_ROWS, yb * rb + rb - wy, h - wy)
+                for q0 in range(0, w, sj._JF_PIX):
+                    yield z, img, wy, rows, q0, -(-min(sj._JF_PIX, w - q0)
+                                                   // 16)
+
+
+@pytest.mark.parametrize("n,h,w,rb", [(120, 128, 128, 16), (120, 128, 128, 64),
+                                      (1, 10, 9, 4), (2, 20, 70, 16),
+                                      (3, 33, 130, 32)])
+def test_mm_only_terms_follow_k1s_slab_walk(n, h, w, rb):
+    """mm-only's count is rows x k16 steps x 16 summed over K1's slab walk,
+    which covers every row once whatever rb. At the tool's default it is
+    1,966,080, under 2^24 (exact in f32)."""
+    walk = sum(rows * steps * 16
+               for *_, rows, _, steps in k1_slabs(n, h, w, rb))
+    assert jx.mm_only_terms(n, h, w) == walk
+    if (n, h, w) == (120, 128, 128):
+        assert walk == 1966080 < 2 ** 24
+
+
+def _bits64(x):
+    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+
+def _x2_copies_restated(x1, x2, half_t, rb):
+    """X2 copies-only (csrc/joint_exp.cu copies_only_kernel) restated from what its blocks stage: for each block (N tile,
+    M tile, chunk) and each slab of ``k1_slabs``, the x1 rows at pixels
+    q0 + v0 - h .. + 66 and the window of rows + 20 x2 rows from wy - h +
+    up0, both channels-last (``sj.channels_last_chunks``), zero outside the
+    frame; S_A of shift v0 + s from pixels q + s of the rows (blocks of the
+    first N tile), S_B of shift u' from the window's row sums over rows
+    u' .. u' + rows - 1 (blocks of the first M tile), pixels q past w
+    masked; all in int64 modulo 2^32."""
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    tk = k * t
+    b1 = _bits64(sj.channels_last_chunks(x1))  # (n, chunks, h, w, 16)
+    b2 = _bits64(sj.channels_last_chunks(x2))
+    chunks = b1.shape[1]
+    m_tiles, n_tiles = -(-t // sj._JF_V), -(-t // sj._JF_U)
+    chk = torch.zeros(2 * tk, dtype=torch.int64)
+    slabs = list(k1_slabs(n, h, w, rb, half_t=half_t, k=k))
+    for bx in range(chunks * n_tiles):
+        jc, up0 = bx // n_tiles, (bx % n_tiles) * sj._JF_U
+        for by in range(chunks * m_tiles):
+            ic, v0 = by // m_tiles, (by % m_tiles) * sj._JF_V
+            s_a = torch.zeros(sj._JF_V, 16, dtype=torch.int64)
+            s_b = torch.zeros(sj._JF_U, 16, dtype=torch.int64)
+            for _, img, wy, rows, q0, _ in slabs:
+                qmax = min(sj._JF_PIX, w - q0)
+                if bx == 0:
+                    xx = q0 + v0 - half_t + torch.arange(sj._JF_A_PIX - 1)
+                    ok = ((xx >= 0) & (xx < w))[None, :, None]
+                    rows1 = torch.where(
+                        ok, b1[img, ic, wy:wy + rows][:, xx.clamp(0, w - 1)],
+                        0)  # (rows, 67, 16)
+                    for sh in range(sj._JF_V):
+                        s_a[sh] += rows1[:, sh:sh + qmax].sum(dim=(0, 1))
+                if by == 0:
+                    yy = wy - half_t + up0 + torch.arange(rows + sj._JF_U - 1)
+                    ok = ((yy >= 0) & (yy < h))[:, None, None]
+                    win = torch.where(
+                        ok, b2[img, jc][yy.clamp(0, h - 1), q0:q0 + qmax],
+                        0)
+                    row_sums = win.sum(dim=1)  # (rows + 20, 16)
+                    for up in range(sj._JF_U):
+                        s_b[up] += row_sums[up:up + rows].sum(dim=0)
+            for sh in range(sj._JF_V):
+                for c in range(16):
+                    v, i = v0 + sh, ic * 16 + c
+                    if bx == 0 and v < t and i < k:
+                        chk[v * k + i] += s_a[sh, c]
+            for up in range(sj._JF_U):
+                for c in range(16):
+                    u, j = t - 1 - (up0 + up), jc * 16 + c
+                    if by == 0 and u >= 0 and j < k:
+                        chk[tk + u * k + j] += s_b[up, c]
+    chk %= 2 ** 32
+    e = torch.arange(tk * tk)
+    total = (chk[e // tk] + chk[tk + e % tk]) % 2 ** 32
+    return (total.to(torch.float64).to(torch.float32)
+            .reshape(t, k, t, k).permute(1, 3, 2, 0))
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t,rb", [
+    (2, 5, 20, 70, 1, 16), (1, 17, 9, 20, 10, 16), (2, 3, 18, 33, 10, 32),
+    (1, 4, 12, 8, 11, 16)])
+def test_x2_mma_copies_only_restatement(n, k, h, w, half_t, rb):
+    """X2 copies-only, restated from its slab walk, row
+    sums and range sums over the staged layouts, equals the order-free
+    checksum that defines the mode (``copies_checksum``) exactly: two
+    channel chunks (k=17), two N tiles (half_t 11), ragged rows, columns
+    and slabs, rb 16 and 32."""
+    rng = np.random.default_rng(n + k + h + w)
+    x1 = torch.from_numpy(rng.standard_normal((n, k, h, w)).astype(np.float32))
+    x2 = torch.from_numpy(rng.random((n, k, h, w)).astype(np.float32))
+    got = _x2_copies_restated(x1, x2, half_t, rb)
+    assert torch.equal(got, jx.copies_checksum(x1, x2, half_t))
+
+
+def test_x3_form_argument_and_x2_x3_limits():
+    """X3 takes ``form`` in X_FORMS and refuses anything else on every
+    device; its default is K1's choice (the CUDA-core pipeline at k <= 4).
+    X2 has one form, K1's stack product. Both keep the
+    TPU tool's asserts and add no rb limit of their own on the tensor
+    cores (slabs of 16 rows)."""
+    assert jx.X_FORMS == ("wgmma", "cuda-core")
+    x = torch.rand(1, 2, 8, 8)
+    with pytest.raises(ValueError, match="form"):
+        jx.joint_fwd_v3(x, x, 2, rb=16, form="cudnn")
+    for fn, kw in [(jx.joint_fwd_v2, {})] + [
+            (jx.joint_fwd_v3, {"form": f}) for f in jx.X_FORMS]:
+        with pytest.raises(ValueError, match="2\\*half_t"):
+            fn(x, x, 10, rb=8, **kw)
+        with pytest.raises(ValueError, match="2\\*half_t"):
+            fn(x, x, 65, rb=80, **kw)
+    jx.check_args(10, 128)
+    assert jx.joint_fwd_v3(x, x, 2, rb=128, form="wgmma").shape == (2, 2, 5,
+                                                                     5)
+
+
+def test_cpu_wrappers_take_plain_in_every_form():
+    """On CPU tensors X2 (every mode) and X3 (either form) return their
+    plain versions and count no launch."""
+    jx.reset_launch_counts()
+    rng = np.random.default_rng(3)
+    x1, x2 = (torch.from_numpy(_softmax_maps(rng, 2, 5, 12, 20))
+              for _ in range(2))
+    for mode in jx.MODES:
+        assert torch.equal(jx.joint_fwd_v2(x1, x2, 3, mode, rb=8),
+                           jx.joint_fwd_v2_plain(x1, x2, 3, mode, 8))
+    for form in jx.X_FORMS:
+        assert torch.equal(jx.joint_fwd_v3(x1, x2, 3, 8, form=form),
+                           jx.joint_fwd_v3_plain(x1, x2, 3, 8))
+    assert set(jx.LAUNCHES.values()) == {0}

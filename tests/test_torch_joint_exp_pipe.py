@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from iic_tpu_torch.ops.kernels import joint_exp as jx
+from iic_tpu_torch.ops.kernels import seg_joint as sj
 from iic_tpu_torch.tools import joint_kernel_exp as tool
-from test_torch_joint_exp import _softmax_maps, jax_tool
+from test_torch_joint_exp import _softmax_maps, jax_tool, k1_slabs
 
 SIZES = [(2, 7, 16, 10), (2, 5, 16, 3)]  # n, k, h, half_t
 
@@ -150,3 +151,137 @@ def test_tool_pipelined_runs_on_cpu(capsys, run, variants):
             assert err < 1e-5, rec  # f32 rounding
         else:
             assert err < 1e-2, rec  # bf16 rounding (about 6e-4)
+
+
+def _tma_box(xv, c0, c1, c2, c3, box):
+    """What a TMA load of ``box`` (channels, pixels, rows, 1) at
+    coordinates (c0, c1, c2, c3) of the 4-D tensor map over ``xv`` (n
+    chunks, h, w, 16) lands in shared memory: [row][pixel][channel], every
+    element whose coordinate lies before or past the tensor zero."""
+    chans, pix, rows, _ = box
+    z, h, w, ch = xv.shape
+    r = (c2 + torch.arange(rows))[:, None, None]
+    p = (c1 + torch.arange(pix))[None, :, None]
+    c = (c0 + torch.arange(chans))[None, None, :]
+    ok = (r >= 0) & (r < h) & (p >= 0) & (p < w) & (c < ch) & (0 <= c3 < z)
+    vals = xv[min(max(c3, 0), z - 1), r.clamp(0, h - 1), p.clamp(0, w - 1),
+              c.clamp(0, ch - 1)]
+    return torch.where(ok, vals, torch.zeros(()))
+
+
+def _x3_tma_restated(x1, x2, half_t, rb=16, chunk_rows=sj.K1_CHUNK_ROWS):
+    """X3's tensor-core form (csrc/joint_exp_tma.cu) restated in plain
+    PyTorch from the boxes its TMA loads bring: for each block (N tile, M
+    tile, chunk of ``sj.k1_plan``) and each slab of K1's walk, a slot built
+    from the four boxes of ``jx.X3_BOX_B`` (x2 window at (q0, wy - h +
+    up0)) and ``jx.X3_BOX_A`` (x1 rows at (q0 + v0 - h, wy)), each channel
+    half at channel 0 or 8, over the tensor maps (16, w, h, n chunks) of
+    the channels-last chunks, zero outside; A gathered at the ldmatrix.trans
+    addresses of the [half][row][68 pixels][8] rows, B at the core matrices
+    of warpgroup g's descriptor (start: half g's window, row r; LBO 128
+    bytes along K, SBO one window row along N), one (64 x 16) @ (16 x 168)
+    product per warpgroup, row and k16 step; column 8 c + jj of warpgroup g
+    stored at u' = up0 + c, j = 16 jc + 8 g + jj, u = T - 1 - u'; the
+    partials added in chunk order."""
+    n, k, h, w = x1.shape
+    t = 2 * half_t + 1
+    tk = k * t
+    nv, nu, cm = sj._JF_V, sj._JF_U, sj._JF_CM
+    x1v = sj.channels_last_chunks(x1).float().flatten(0, 1)
+    x2v = sj.channels_last_chunks(x2).float().flatten(0, 1)
+    chunks = -(-k // sj._JF_CH)
+    m_tiles, n_tiles = -(-t // nv), -(-t // nu)
+    per, splits = sj.k1_plan(n, k, h, half_t, rb, chunk_rows)
+    buf_bytes = jx._XT_A_OFF + 2 * jx._XT_A_HALF
+    assert buf_bytes == sj._JF_SMEM  # K1's buffer, rearranged
+
+    # byte offsets of A[16 warp + c][kk] from a row's start, and of
+    # B[kq][col] from a warpgroup's descriptor start
+    warp, c16, kk = torch.meshgrid(torch.arange(nv), torch.arange(16),
+                                   torch.arange(16), indexing="ij")
+    a_off = ((c16 // 8) * jx._XT_A_HALF + (warp + kk % 8 + 8 * (kk // 8)) * 16
+             + 2 * (c16 % 8)).reshape(64, 16)
+    kq, col = torch.meshgrid(torch.arange(16), torch.arange(8 * cm),
+                             indexing="ij")
+    row_b = sj._JF_PIX * 16  # one window row of one half: also the SBO
+    b_off = (col // 8) * row_b + (kq // 8) * 128 + (kq % 8) * 16 \
+        + 2 * (col % 8)
+
+    part = torch.zeros(splits, tk, tk)
+    slabs = list(k1_slabs(n, h, w, rb, chunk_rows, half_t, k))
+    for bx in range(chunks * n_tiles):
+        jc, up0 = bx // n_tiles, (bx % n_tiles) * nu
+        for by in range(chunks * m_tiles):
+            ic, v0 = by // m_tiles, (by % m_tiles) * nv
+            acc = torch.zeros(splits, 2, 64, 8 * cm)
+            for z, img, wy, rows, q0, steps in slabs:
+                slot = torch.zeros(buf_bytes // 2)
+                for c in range(2):
+                    win = _tma_box(x2v, 8 * c, q0, wy - half_t + up0,
+                                   img * chunks + jc, jx.X3_BOX_B)
+                    o = c * jx._XT_WIN // 2
+                    slot[o:o + win.numel()] = win.flatten()
+                    a = _tma_box(x1v, 8 * c, q0 + v0 - half_t, wy,
+                                 img * chunks + ic, jx.X3_BOX_A)
+                    o = (jx._XT_A_OFF + c * jx._XT_A_HALF) // 2
+                    slot[o:o + a.numel()] = a.flatten()
+                for ry in range(rows):
+                    for st in range(steps):
+                        a = slot[(jx._XT_A_OFF + ry * jx._XT_A_ROW + 256 * st
+                                  + a_off) // 2]
+                        for g in range(2):
+                            b = slot[(g * jx._XT_WIN + ry * row_b + 256 * st
+                                      + b_off) // 2]
+                            acc[z, g] += a @ b
+            m_loc, col2 = torch.meshgrid(torch.arange(64),
+                                         torch.arange(8 * cm), indexing="ij")
+            for g in range(2):
+                v, i = v0 + m_loc // 16, ic * 16 + m_loc % 16
+                u = t - 1 - (up0 + col2 // 8)
+                j = jc * 16 + 8 * g + col2 % 8
+                ok = (v < t) & (u >= 0) & (i < k) & (j < k)
+                for z in range(splits):
+                    part[z][(v * k + i)[ok], (u * k + j)[ok]] = acc[z, g][ok]
+    out = part[0].clone()
+    for z in range(1, splits):
+        out += part[z]
+    return out.reshape(t, k, t, k).permute(1, 3, 2, 0)
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t,rb,chunk_rows", [
+    (2, 5, 20, 70, 1, 16, 128), (1, 17, 9, 20, 10, 16, 128),
+    (2, 5, 18, 33, 10, 32, 16), (1, 17, 12, 66, 1, 16, 16)])
+def test_x3_tma_restatement_matches_jax_v3(n, k, h, w, half_t, rb,
+                                           chunk_rows):
+    """X3's tensor-core form restated over its TMA boxes and shared-memory
+    layout (the [half][row][pixel][8] window, the (half, u') N order, the
+    zero fill of boxes before and past the frame, the column map back to
+    (u', j)) vs the TPU tool's ``joint_fwd_v3`` (interpret mode): the same
+    bf16 operands and exact products, f32 sums in another order: atol
+    1e-5 * max. Ragged h and w (not multiples of 16 and 64), k = 5 and 17
+    (two channel chunks), half_t 1 and 10, rb 16 and 32, one and several
+    chunks."""
+    rng = np.random.default_rng(7 * k + w)
+    x1, x2 = (_softmax_maps(rng, n, k, h, w) for _ in range(2))
+    ref = np.asarray(jax_tool.joint_fwd_v3(jnp.asarray(x1), jnp.asarray(x2),
+                                           half_t, rb=rb))
+    got = _x3_tma_restated(torch.from_numpy(x1), torch.from_numpy(x2),
+                           half_t, rb, chunk_rows).numpy()
+    t = 2 * half_t + 1
+    assert got.shape == ref.shape == (k, k, t, t)
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+
+
+def test_x3_tma_boxes_fill_a_slot():
+    """The four boxes of a slab fill one slot of K1's 108,544 bytes, each
+    destination 128-byte aligned; a box's innermost extent is 16 bytes (a
+    channel half), as the unswizzled TMA needs, and no box dimension passes
+    256."""
+    bytes_b = 2 * np.prod(jx.X3_BOX_B)
+    bytes_a = 2 * np.prod(jx.X3_BOX_A)
+    assert bytes_b == jx._XT_WIN == 36864 and bytes_a == jx._XT_A_HALF
+    assert 2 * (bytes_a + bytes_b) == sj._JF_SMEM == 108544
+    for off in (0, jx._XT_WIN, jx._XT_A_OFF, jx._XT_A_OFF + jx._XT_A_HALF):
+        assert off % 128 == 0
+    assert 2 * jx.X3_BOX_A[0] == 2 * jx.X3_BOX_B[0] == 16
+    assert max(jx.X3_BOX_A + jx.X3_BOX_B) <= 256
