@@ -10,17 +10,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
      for both forms of K1 and K2 and the tensor-core kernels X1, X7, X2's
-     three mode instantiations and its copies-only kernel, X3 (TMA-fed),
-     X8 and X9 print registers,
-     stack and local memory (``cuobjdump --dump-resource-usage``) and the
-     count of HGMMA / HMMA instructions, wgmma waits (all, and those for
-     zero groups) and TMA loads (UTMALDG) in their SASS (``--dump-sass``),
-     and fail if a tensor-core kernel (K1 and K2 at k > 4, X1, X7, X2's
-     modes but copies-only, X3, X8, X9) has none or uses local memory
-     (spills), if K1's stack product, its X2 modes or X3 wait for zero
-     groups after every product (ptxas serialised them), if K1's stack
-     product builds differently in K1's and X7's libraries, if X3 has no
-     TMA load, or K1's CUDA-core form leaves its 80 registers;
+     three mode instantiations and its copies-only kernel, the TMA-fed
+     kernels of X3, X5 / X6 and X6's roll_build, X8 and X9 print
+     registers, stack and local memory (``cuobjdump
+     --dump-resource-usage``) and the count of HGMMA / HMMA instructions,
+     wgmma waits (all, and those for zero groups) and, for the TMA-fed
+     kernels, TMA loads (UTMALDG), lane shuffles (SHFL) and byte permutes
+     (PRMT) in their SASS (``--dump-sass``), and fail if a tensor-core
+     kernel (K1 and K2 at k > 4, X1, X7, X2's modes but copies-only, X3,
+     X5 / X6, X8, X9) has none or uses local memory (spills), if K1's
+     stack product, its X2 modes or a TMA-fed kernel wait for zero groups
+     after every product (ptxas serialised them), if K1's stack product
+     builds differently in K1's and X7's libraries, if a TMA-fed kernel
+     has no TMA load or passes 200 registers, if roll_build's kernel has
+     no SHFL or PRMT, or K1's CUDA-core form leaves its 80 registers;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
@@ -58,18 +61,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in both forms beside K1's and X2's in the same phase; X8 beside K2
      (bit-equal to X8 at k=15) and the bf16 cuDNN conv in its phase;
      kernel, plain and library times;
-  7. run X3's TMA-fed tensor-core form in a child process under a time
-     limit (a hung mbarrier wait fails the phase); hold X3-X6 (the tool's
+  7. run the TMA-fed tensor-core forms of X3, X5 and X6 (both
+     roll_build) in a child process under a time limit (a hung mbarrier
+     wait fails the phase), at the phase's shapes and at ragged ones whose
+     chunks walk 1, 2, 3 and more slabs, each bit-equal to X7's
+     tensor-core form (X6 to X5 on rounded inputs); hold X3-X6 (the tool's
      pipelined v3, v4, v5 and v6 joint forwards) against X2's plain
      version at the same shapes within the JAX contract: X3 at rb = 16,
-     32, 64 x flat in its default form and at each rb in the other, X4 and
-     X5 at each rb (X3 bit for bit equal to X7 in the same form at that
-     rb, its tensor-core form also within K1_F64 of max of float64; X5
-     equal to X7's CUDA-core form), X6 (f32 inputs, rounded in the kernel)
-     at both roll_build, which must agree bit for bit; each kernel's error
-     against float64; their times (X3 in both forms) beside K1's, X7's
-     (both forms) and X2's in the same phase; plain and library times; at
-     k=15 X3's tensor-core form beside X7's and K1 in alternating rounds
+     32, 64 x flat in its default form and at each rb in the other, X4 at
+     each rb, X5 at each rb in each form, X6 (f32 inputs, rounded in the
+     kernel) at both roll_build in each form (X3 and X5 bit for bit equal
+     to X7 in the same form at that rb, X6 to X5 on the rounded inputs and
+     roll_build=True to False; the tensor-core forms also within K1_F64 of
+     max of float64); each kernel's error against float64; their times
+     (X3, X5 and X6 in both forms) beside K1's, X7's (both forms) and X2's
+     in the same phase; plain and library times; at k=15 the tensor-core
+     forms of X3, X5 and X6 beside X7's and K1 in alternating rounds
      (median, min, max) and the device time of each kernel their calls
      launch;
   8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
@@ -123,8 +130,8 @@ SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu",
            "joint_fwd_v3": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v4": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
-           "joint_fwd_v5": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
-           "joint_fwd_v6": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v5": "iic_tpu_torch/csrc/joint_exp_tma.cu",
+           "joint_fwd_v6": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v8": "iic_tpu_torch/csrc/joint_exp.cu",
            "dgrad_v8": "iic_tpu_torch/csrc/joint_exp_bwd.cu",
            "dgrad_fused_v7": "iic_tpu_torch/csrc/joint_exp_bwd.cu"}
@@ -155,10 +162,11 @@ PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
 # in flight). K1's CUDA-core form is held at 80 registers (its time hangs
 # on the residency they allow); its tensor-core form, which X7 and X2's
 # full mode share (instantiation 0 of its modes), X2's mm-only (1) and
-# aligned-copies (2) instantiations and X3's TMA-fed form must not wait
-# for zero groups after every product (ptxas serialises the products when
-# registers run short); X2's copies-only kernel issues no product. K2's
-# tensor-core form is X8's kernel, built into K2's library.
+# aligned-copies (2) instantiations and the TMA-fed forms of X3, X5 / X6
+# (the pair kernel) and X6's roll_build (its kRoll instantiation) must not
+# wait for zero groups after every product (ptxas serialises the products
+# when registers run short); X2's copies-only kernel issues no product.
+# K2's tensor-core form is X8's kernel, built into K2's library.
 SASS_KERNELS = {
     "seg_joint": {"joint_fwd_mma_kernel": ("K1", True, None, True),
                   "joint_partial_kernelI13__nv_bfloat16E":
@@ -176,8 +184,17 @@ SASS_KERNELS = {
                                          False)},
     "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None, False),
                       "dgrad_fused_v7_kernel": ("X9", True, None, False)},
-    "joint_exp_tma": {"joint_fwd_tma_kernel": ("X3", True, None, True)},
+    "joint_exp_tma": {"joint_fwd_tma_kernel": ("X3", True, None, True),
+                      "joint_fwd_tma_pair_kernelILb0E": ("X5 / X6", True,
+                                                         None, True),
+                      "joint_fwd_tma_pair_kernelILb1E": ("X6 roll_build",
+                                                         True, None, True)},
 }
+# The TMA-fed kernels' register ceiling (one block of 256 threads an SM,
+# no spills), and the kernel whose A operand is rolled in registers: its
+# SASS must hold lane shuffles and byte permutes
+TMA_MAX_REGS = 200
+ROLLED = "joint_fwd_tma_pair_kernelILb1E"
 # K1's tensor-core kernel is one template instantiation in two libraries
 # (K1's and X7's): their build reports must agree
 SAME_BUILD = (("seg_joint", "joint_fwd_mma_kernel"),
@@ -273,12 +290,14 @@ def phase_build():
     kernel's registers, shared memory and spills), then report, from the
     built libraries, the registers, stack and local memory of K1 and of the
     tensor-core kernels and the count of tensor-core instructions in each
-    of those kernels' SASS (and of TMA loads in X3's); fail if K1's
-    CUDA-core form leaves its 80 registers, a tensor-core kernel has no
-    such instruction or spills, a kernel that must keep its products in
-    flight (K1's stack product and its X2 modes, X3) has them serialised,
-    K1's stack product builds differently in K1's and X7's libraries, or
-    X3 has no TMA load."""
+    of those kernels' SASS (and of TMA loads, lane shuffles and byte
+    permutes in the TMA-fed ones); fail if K1's CUDA-core form leaves its
+    80 registers, a tensor-core kernel has no such instruction or spills,
+    a kernel that must keep its products in flight (K1's stack product
+    and its X2 modes, the TMA-fed kernels) has them serialised, K1's stack
+    product builds differently in K1's and X7's libraries, a TMA-fed
+    kernel has no TMA load or passes TMA_MAX_REGS registers, or X6's
+    roll_build kernel no shuffle or permute."""
     from concurrent.futures import ThreadPoolExecutor
     from iic_tpu_torch.ops.kernels import _build
     t0 = time.perf_counter()
@@ -314,8 +333,9 @@ def phase_build():
                      f"{use.get('LOCAL', '?')} bytes; SASS HGMMA "
                      f"{mma['HGMMA']}, HMMA {mma['HMMA']}, WARPGROUP.DEPBAR "
                      f"{mma['DEPBAR']} ({mma['DEPBAR0']} for zero groups)"
-                     + (f", TMA loads (UTMALDG) {mma['UTMALDG']}"
-                        if mma["UTMALDG"] else ""))
+                     + (f", TMA loads (UTMALDG) {mma['UTMALDG']}, SHFL "
+                        f"{mma['SHFL']}, PRMT {mma['PRMT']}"
+                        if lib == "joint_exp_tma" else ""))
                 if pipelined and mma["DEPBAR0"] >= mma["HGMMA"]:
                     raise AssertionError(f"{tag} {f} waits for zero groups "
                                          f"after every product: ptxas "
@@ -333,6 +353,13 @@ def phase_build():
                 if lib == "joint_exp_tma" and mma["UTMALDG"] == 0:
                     raise AssertionError(f"{tag} {f} has no TMA load in its "
                                          f"SASS")
+                if lib == "joint_exp_tma" and use["REG"] > TMA_MAX_REGS:
+                    raise AssertionError(f"{tag} {f} uses {use['REG']} "
+                                         f"registers, over {TMA_MAX_REGS}")
+                if key == ROLLED and not (mma["SHFL"] and mma["PRMT"]):
+                    raise AssertionError(f"{tag} {f} does not roll A in "
+                                         f"registers: SHFL {mma['SHFL']}, "
+                                         f"PRMT {mma['PRMT']}")
     if reports[SAME_BUILD[0]] != reports[SAME_BUILD[1]]:
         raise AssertionError(f"K1's tensor-core kernel builds differently in "
                              f"K1's and X7's libraries: "
@@ -356,20 +383,25 @@ def _resource_usage(dump):
 
 def _mma_counts(sass):
     """{mangled kernel: {"HGMMA": n, "HMMA": n, "DEPBAR": n, "DEPBAR0": n,
-    "UTMALDG": n}}: the warpgroup (wgmma) and warp-level tensor-core
-    instructions in each function of a SASS dump, the waits on wgmma groups
-    (`WARPGROUP.DEPBAR`), those of them that wait for zero groups in
-    flight (one of those per HGMMA means ptxas serialised the products),
-    and the TMA loads."""
+    "UTMALDG": n, "SHFL": n, "PRMT": n}}: the warpgroup (wgmma) and
+    warp-level tensor-core instructions in each function of a SASS dump,
+    the waits on wgmma groups (`WARPGROUP.DEPBAR`), those of them that wait
+    for zero groups in flight (one of those per HGMMA means ptxas
+    serialised the products), the TMA loads, and the lane shuffles and
+    byte permutes (X6's roll_build)."""
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
             counts[fn] = {"HGMMA": 0, "HMMA": 0, "DEPBAR": 0, "DEPBAR0": 0,
-                          "UTMALDG": 0}
+                          "UTMALDG": 0, "SHFL": 0, "PRMT": 0}
         elif fn and "UTMALDG" in line:
             counts[fn]["UTMALDG"] += 1
+        elif fn and re.search(r"\bSHFL\.", line):
+            counts[fn]["SHFL"] += 1
+        elif fn and re.search(r"\bPRMT\b", line):
+            counts[fn]["PRMT"] += 1
         elif fn and "HGMMA" in line:
             counts[fn]["HGMMA"] += 1
         elif fn and "HMMA" in line:
@@ -921,80 +953,107 @@ def phase_x7():
     return stats
 
 
-# Alternating rounds of X7, X3 and K1 (tensor-core forms) at k=15: the
-# spread of X3's time beside theirs
+# Alternating rounds of X7, X3, X5, X6 and K1 (tensor-core forms) at k=15:
+# the spread of each TMA-fed form's time beside theirs
 X3_ROUNDS = 10
-# X3's tensor-core form waits on mbarrier phases, and a phase mistake hangs
-# a block instead of failing: its first launches run in a child process
-# with this limit (seconds), at every shape and rb the phases below use
-X3_WATCHDOG_S = 240
-X3_WATCHDOG = """
+# The TMA-fed forms of X3, X5 and X6 wait on mbarrier phases, and a phase
+# mistake hangs a block instead of failing: their first launches run in a
+# child process with this limit (seconds), at every shape and rb the phases
+# below use and at small ragged ones whose chunks walk 1, 2, 3 and 7 slabs
+# (the last from the middle of an image); the child also holds each
+# against X7's tensor-core form bit for bit
+TMA_WATCHDOG_S = 300
+TMA_WATCHDOG = """
 import torch
 from iic_tpu_torch.ops.kernels import joint_exp as jx
 gen = torch.Generator(device="cuda").manual_seed(7)
 for n, k, h, w, half_t in {shapes}:
     x1, x2 = (torch.rand((n, k, h, w), device="cuda", generator=gen)
-              .bfloat16() for _ in range(2))
+              for _ in range(2))
+    x1b, x2b = x1.bfloat16(), x2.bfloat16()
     for rb in (16, 32, 64):
-        jx.joint_fwd_v3(x1, x2, half_t, rb, form="wgmma")
-    torch.cuda.synchronize()
-print("X3 (wgmma) ran at every shape", flush=True)
+        x7 = jx.joint_fwd_v8(x1b, x2b, half_t, rb, form="wgmma")
+        for name in ("joint_fwd_v3", "joint_fwd_v5"):
+            got = getattr(jx, name)(x1b, x2b, half_t, rb, form="wgmma")
+            torch.cuda.synchronize()
+            assert torch.equal(got, x7), (name, n, k, h, w, half_t, rb)
+    x5 = jx.joint_fwd_v5(x1b, x2b, half_t, 16, form="wgmma")
+    for roll in (False, True):
+        got = jx.joint_fwd_v6(x1, x2, half_t, roll, form="wgmma")
+        torch.cuda.synchronize()
+        assert torch.equal(got, x5), ("joint_fwd_v6", roll, n, k, h, w)
+print("X3, X5, X6 (wgmma) ran at every shape, each bit-equal to X7",
+      flush=True)
 """
 
 
-def _x3_watchdog():
-    """Runs X3's tensor-core form at the phase's shapes and at small ragged
-    ones in a child process; fails if it does not finish in X3_WATCHDOG_S
-    (a hung mbarrier wait) or fails."""
+def _tma_watchdog():
+    """Runs the TMA-fed forms of X3, X5 and X6 (both roll_build) at the
+    phase's shapes and at small ragged ones in a child process, each held
+    to X7's tensor-core form bit for bit (X6 to X5 on rounded inputs);
+    fails if the child does not finish in TMA_WATCHDOG_S (a hung mbarrier
+    wait) or fails."""
     import os
     shapes = [(N, k, HW, HW, HALF_T) for k in KS] + [
-        (2, 17, 9, 20, HALF_T), (2, 5, 20, 70, 1)]
+        (2, 17, 9, 20, HALF_T), (2, 5, 20, 70, 1), (1, 17, 9, 20, HALF_T),
+        (1, 5, 40, 20, 3), (3, 5, 200, 20, 3)]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [sys.executable, "-c", X3_WATCHDOG.format(shapes=shapes)],
+            [sys.executable, "-c", TMA_WATCHDOG.format(shapes=shapes)],
             cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=X3_WATCHDOG_S)
+            capture_output=True, text=True, timeout=TMA_WATCHDOG_S)
     except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"X3 (wgmma) did not finish in {X3_WATCHDOG_S}"
-                             f" s: a block hangs (mbarrier phase)") from e
-    _log(f"X3 watchdog: {proc.stdout.strip()} in "
+        raise AssertionError(f"X3/X5/X6 (wgmma) did not finish in "
+                             f"{TMA_WATCHDOG_S} s: a block hangs (mbarrier "
+                             f"phase)") from e
+    _log(f"TMA watchdog: {proc.stdout.strip()} in "
          f"{time.perf_counter() - t0:.1f} s (rc {proc.returncode})")
     if proc.returncode != 0:
-        raise AssertionError(f"X3 (wgmma) failed in its watchdog run:\n"
-                             f"{proc.stderr[-2000:]}")
+        raise AssertionError(f"X3/X5/X6 (wgmma) failed in their watchdog "
+                             f"run:\n{proc.stderr[-2000:]}")
+
+
+# The kernels with both forms; X4 runs on the CUDA cores alone
+X_FORMED = ("joint_fwd_v3", "joint_fwd_v5", "joint_fwd_v6")
 
 
 def phase_x3_x6():
     """X3-X6 against X2's plain version at the segmentation shapes (X3 at
-    each rb and flat in its default form and at each rb in the other form,
-    X4 and X5 at each rb, X6 on the f32 inputs at both roll_build, which
-    must agree bit for bit), each call's error against float64; X3 in each
-    form bit-equal to X7 in that form at that rb (its tensor-core form, fed
-    by TMA, also within K1_F64 of max of its bf16 function in float64; its
-    first launches under a watchdog), X5 to X7's CUDA-core form; the times
-    of X3 (both forms), X4-X6 at rb=16 beside K1's, X7's (both forms; the
-    CUDA-core form first and last, to show drift) and X2's in the same
-    phase, of the plain version and of X2's bf16 cuDNN conv; at k=15, X3's
-    tensor-core form beside X7's and K1 in alternating rounds, and each
-    one's kernels from the profiler. Returns {kernel: table stats} (k=15,
-    rb=16, X3 flat in its default form, X6 roll_build=False)."""
+    each rb and flat in its default form, X3 and X5 at each rb in each
+    form, X4 at each rb, X6 on the f32 inputs at both roll_build in each
+    form, which must agree bit for bit), each call's error against
+    float64; X3 and X5 in each form bit-equal to X7 in that form at that rb
+    and X6 to X5 on the rounded inputs (their tensor-core forms, fed by
+    TMA, also within K1_F64 of max of their bf16 function in float64; their
+    first launches under a watchdog); the times of X3, X5 and X6 (both
+    forms) and X4 at rb=16 beside K1's, X7's (both forms; the CUDA-core
+    form first and last, to show drift) and X2's in the same phase, of the
+    plain version and of X2's bf16 cuDNN conv; at k=15, the tensor-core
+    forms of X3, X5 and X6 (both roll_build) beside X7's and K1 in
+    alternating rounds, and each one's kernels from the profiler; X5 on
+    the kpad run's inputs padded to 16 channels, and the tool's kpad16
+    call with its padding. Returns
+    {kernel: table stats} (k=15, rb=16, each kernel in its default form,
+    X3 flat, X6 roll_build=False)."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
     from iic_tpu_torch.ops.kernels import seg_joint as sj
+    from iic_tpu_torch.tools import joint_kernel_exp as tool
 
-    _x3_watchdog()
+    _tma_watchdog()
     gen = torch.Generator(device="cuda").manual_seed(6)
     stats = {name: {"max_abs_err": 0.0} for name in X_PIPE}
     t = 2 * HALF_T + 1
     for k in KS:
         x1, x2 = _softmax_pair(gen, k)
         x1b, x2b = x1.bfloat16(), x2.bfloat16()
-        x3_form = sj.k1_form(k, HALF_T)
-        other = next(f for f in jx.X_FORMS if f != x3_form)
+        form = sj.k1_form(k, HALF_T)
+        other = next(f for f in jx.X_FORMS if f != form)
         _log(f"X3-X6 k={k}: n={N}, {HW}x{HW}, T={t}; X3-X5 on bf16 inputs, "
-             f"X6 on their f32 originals; X3's default form {x3_form}")
+             f"X6 on their f32 originals; the default form of X3, X5 and X6 "
+             f"{form}")
         ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)
         ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
                                             HALF_T)
@@ -1002,7 +1061,7 @@ def phase_x3_x6():
         _log(f"  plain f32 vs float64 of the bf16 inputs: max err / max|ref| "
              f"{float((ref.double() - ref64).abs().max()) / scale:.3e}")
         calls = (
-            [("joint_fwd_v3", x3_form, f"rb={rb} flat={flat} {x3_form}",
+            [("joint_fwd_v3", form, f"rb={rb} flat={flat} {form}",
               lambda rb=rb, flat=flat: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
                                                        flat))
              for rb in X_RBS for flat in (True, False)]
@@ -1010,45 +1069,60 @@ def phase_x3_x6():
                 lambda rb=rb: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
                                               form=other))
                for rb in X_RBS]
-            + [(name, "cuda-core", f"rb={rb}",
-                lambda name=name, rb=rb: getattr(jx, name)(x1b, x2b, HALF_T,
-                                                           rb))
-               for name in ("joint_fwd_v4", "joint_fwd_v5") for rb in X_RBS]
-            + [("joint_fwd_v6", "cuda-core", f"roll_build={roll}",
-                lambda roll=roll: jx.joint_fwd_v6(x1, x2, HALF_T, roll))
-               for roll in (False, True)])
+            + [("joint_fwd_v4", "cuda-core", f"rb={rb}",
+                lambda rb=rb: jx.joint_fwd_v4(x1b, x2b, HALF_T, rb))
+               for rb in X_RBS]
+            + [("joint_fwd_v5", f, f"rb={rb} {f}",
+                lambda rb=rb, f=f: jx.joint_fwd_v5(x1b, x2b, HALF_T, rb,
+                                                   form=f))
+               for f in jx.X_FORMS for rb in X_RBS]
+            + [("joint_fwd_v6", f, f"roll_build={roll} {f}",
+                lambda roll=roll, f=f: jx.joint_fwd_v6(x1, x2, HALF_T, roll,
+                                                       form=f))
+               for f in jx.X_FORMS for roll in (False, True)])
         x6 = {}
         x7 = {(f, rb): jx.joint_fwd_v8(x1b, x2b, HALF_T, rb, form=f)
               for f in jx.X_FORMS for rb in X_RBS}
-        for name, form, tag, call in calls:
+        for name, f, tag, call in calls:
             got = call()
             torch.cuda.synchronize()
             err = _compare(f"{name} {tag}", got, ref)
-            if name != "joint_fwd_v3" or form == x3_form:
+            if name not in X_FORMED or f == form:
                 stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
                                                  err)
             e64 = float((got.double() - ref64).abs().max()) / scale
             _log(f"    vs float64: max err / max|ref| {e64:.3e}")
+            if f == "wgmma" and e64 > K1_F64:
+                raise AssertionError(f"{name} {tag} is off its bf16 "
+                                     f"function ({e64:.3e} > {K1_F64})")
             if name == "joint_fwd_v6":
                 x6[tag] = got
             elif name in ("joint_fwd_v3", "joint_fwd_v5"):
                 rb = int(tag.split()[0].removeprefix("rb="))
-                if not torch.equal(got, x7[(form, rb)]):
+                if not torch.equal(got, x7[(f, rb)]):
                     raise AssertionError(f"{name} {tag} differs from X7's "
-                                         f"{form} form")
-                if form == "wgmma" and e64 > K1_F64:
-                    raise AssertionError(f"{name} {tag} is off its bf16 "
-                                         f"function ({e64:.3e} > {K1_F64})")
-        _log("  X3 equals X7 in the same form, X5 X7's CUDA-core form, at "
-             "each rb bit for bit")
-        if not torch.equal(x6["roll_build=True"], x6["roll_build=False"]):
-            raise AssertionError("X6 roll_build=True differs from False")
-        _log("  X6 roll_build=True equals roll_build=False bit for bit")
-        del ref, ref64, x6, x7, got
+                                         f"{f} form")
+        _log("  X3 and X5 equal X7 in the same form at each rb bit for bit")
+        for f in jx.X_FORMS:
+            x5 = jx.joint_fwd_v5(x1b, x2b, HALF_T, 16, form=f)
+            if not torch.equal(x6[f"roll_build=False {f}"], x5):
+                raise AssertionError(f"X6 ({f}) differs from X5 on the "
+                                     f"rounded inputs")
+            if not torch.equal(x6[f"roll_build=True {f}"],
+                               x6[f"roll_build=False {f}"]):
+                raise AssertionError(f"X6 ({f}) roll_build=True differs "
+                                     f"from False")
+        _log("  X6 equals X5 on the rounded inputs, and roll_build=True "
+             "equals roll_build=False, bit for bit in each form")
+        del ref, ref64, x6, x7, got, x5
 
         def library():
             return F.conv2d(x1b.transpose(0, 1), x2b.transpose(0, 1),
                             padding=HALF_T)
+        # the tool's kpad run: X5 on the inputs zero-padded to 16 channels,
+        # the padding outside the timing, and the tool's whole kpad16 call
+        # on the f32 inputs (padding, X5, slice)
+        x1p, x2p = (F.pad(x, (0, 0, 0, 0, 0, 16 - k)) for x in (x1b, x2b))
         timed = {
             "X7 cuda-core": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
                                                     form="cuda-core"),
@@ -1061,8 +1135,18 @@ def phase_x3_x6():
                                                    form=other),
             "joint_fwd_v4": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB),
             "joint_fwd_v5": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB),
+            f"X5 {other}": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB,
+                                                   form=other),
+            "X5 k=16 padded": lambda: jx.joint_fwd_v5(x1p, x2p, HALF_T,
+                                                      X_RB),
+            "kpad16(X5)": lambda: tool.kpad16(x1, x2, HALF_T,
+                                              jx.joint_fwd_v5),
             "joint_fwd_v6": lambda: jx.joint_fwd_v6(x1, x2, HALF_T),
             "X6 roll_build": lambda: jx.joint_fwd_v6(x1, x2, HALF_T, True),
+            f"X6 {other}": lambda: jx.joint_fwd_v6(x1, x2, HALF_T,
+                                                   form=other),
+            f"X6 {other} roll_build": lambda: jx.joint_fwd_v6(
+                x1, x2, HALF_T, True, form=other),
             "X7 wgmma again": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
                                                       form="wgmma"),
             "K1 again": lambda: sj.joint_fwd(x1, x2, HALF_T),
@@ -1071,24 +1155,31 @@ def phase_x3_x6():
             "plain": lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T),
             "bf16 F.conv2d": library}
         ms = {tag: _time_ms(fn) for tag, fn in timed.items()}
-        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5; X3 = "
-             f"{x3_form}): "
+        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5; X3, X5, X6 = "
+             f"{form}): "
              + ", ".join(f"{tag.replace('joint_fwd_v', 'X')} {v:.3f}"
                          for tag, v in ms.items()) + " ms")
         if k == KS[0]:
-            # X3's tensor-core form against X7's (the same bf16 operands,
-            # layout pass and reduce; only the GEMM kernel differs) and K1
-            # (f32 inputs), in alternating rounds, then each call's kernels
-            x3_calls = {
+            # the TMA-fed forms against X7's tensor-core form (the same
+            # bf16 operands, layout pass and reduce; only the GEMM kernel
+            # differs; X6's layout pass reads f32) and K1 (f32 inputs), in
+            # alternating rounds, then each call's kernels
+            ring_calls = {
                 "X7 wgmma": lambda: jx.joint_fwd_v8(x1b, x2b, HALF_T, X_RB,
                                                     form="wgmma"),
                 "X3 wgmma": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB,
                                                     form="wgmma"),
+                "X5 wgmma": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB,
+                                                    form="wgmma"),
+                "X6 wgmma": lambda: jx.joint_fwd_v6(x1, x2, HALF_T,
+                                                    form="wgmma"),
+                "X6 wgmma roll_build": lambda: jx.joint_fwd_v6(
+                    x1, x2, HALF_T, True, form="wgmma"),
                 "K1": lambda: sj.joint_fwd(x1, x2, HALF_T)}
-            _log(f"  X3 beside X7 and K1, k={k}, rb={X_RB}, {X3_ROUNDS} "
-                 f"alternating rounds:")
-            _alternate(x3_calls, X3_ROUNDS)
-            for tag, call in x3_calls.items():
+            _log(f"  X3, X5, X6 beside X7 and K1, k={k}, rb={X_RB}, "
+                 f"{X3_ROUNDS} alternating rounds:")
+            _alternate(ring_calls, X3_ROUNDS)
+            for tag, call in ring_calls.items():
                 _kernel_parts(tag, call)
             flop = _joint_flop(N, k, HW, HW, HALF_T)
             for name in X_PIPE:
@@ -1099,7 +1190,7 @@ def phase_x3_x6():
                 stats[name].update(_bound(name, flop,
                                           in_bytes + (k * t) ** 2 * 4,
                                           PEAK_BF16))
-        del x1, x2, x1b, x2b
+        del x1, x2, x1b, x2b, x1p, x2p
         torch.cuda.empty_cache()
     return stats
 

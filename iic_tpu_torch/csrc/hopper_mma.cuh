@@ -2,7 +2,7 @@
 // shared by the kernels that run their products on the tensor cores
 // (joint_exp.cu X1; dgrad_common.cuh, the implicit GEMM of X8 and K2;
 // joint_exp_bwd.cu X9; joint_fwd_common.cuh, the stack product of K1 and
-// X7).
+// X7; joint_exp_tma.cu, that product fed by TMA for X3, X5 and X6).
 //
 // A warpgroup is four consecutive warps (128 threads). `wgmma.mma_async`
 // multiplies a 64-row A tile (from shared memory, or from registers) by an
@@ -41,7 +41,7 @@
 // no register of a product in flight is written until a `wgmma_wait` has
 // retired it.
 //
-// The Tensor Memory Accelerator (TMA) and its barriers (X3,
+// The Tensor Memory Accelerator (TMA) and its barriers (X3, X5, X6,
 // joint_exp_tma.cu): one thread asks for a box of a tensor described by a
 // `CUtensorMap` (a `const __grid_constant__` kernel parameter) to be copied
 // into shared memory; the copy completes on an `mbarrier` in shared memory,
@@ -101,6 +101,12 @@ __device__ __forceinline__ void wgmma_fence_operand(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
+// The same for a 32-bit register: whatever is computed from it (an A
+// fragment built in registers) is computed after this point.
+__device__ __forceinline__ void wgmma_fence_operand(uint32_t& r) {
+  asm volatile("" : "+r"(r)::"memory");
+}
+
 // Makes this thread's generic-proxy writes to shared memory (st.shared,
 // cp.async) visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -125,6 +131,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4],
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
       : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// Two 8x8 matrices with the transpose (lanes 0-15 give the row addresses,
+// 8i..8i+7 those of matrix i, which lands in a[i]).
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&a)[2],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(a[0]), "=r"(a[1])
       : "r"(addr)
       : "memory");
 }

@@ -1,7 +1,9 @@
 // Pipelined forward probes of the displacement-joint experiment tool,
 // hand-written for Hopper (sm_90a): X3, X4, X5 and X6, the joint forward
 // with bf16 operands whose next stage is fetched while the FMAs run on the
-// current one.
+// current one, on the CUDA cores: X4's only form, and the `form="cuda-core"`
+// of X3, X5 and X6 (their default at k <= 4; their tensor-core forms are
+// joint_exp_tma.cu).
 //
 // Replaces tools/joint_kernel_exp.py: `_joint_kernel_v3` (launched by
 // `joint_fwd_v3`), `_joint_kernel_v4` (`joint_fwd_v4`), `_joint_kernel_v5`

@@ -18,9 +18,12 @@ answers it and the exact definition of each mode, are
 tensor-core form are K1's stack product in ``csrc/joint_fwd_common.cuh``,
 X2's modes instantiations of its kernel but copies-only, which walks and
 stages its slabs),
-``iic_tpu_torch/csrc/joint_exp_tma.cu`` (X3's tensor-core form: K1's stack
-product fed by TMA through a parity-indexed mbarrier ring),
-``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (X3's CUDA-core form, X4-X6) and
+``iic_tpu_torch/csrc/joint_exp_tma.cu`` (the tensor-core forms of X3, X5
+and X6: K1's stack product fed by TMA through a two-slot mbarrier ring,
+X3's slot and phase the slab's parity, X5's and X6's two slabs an iteration
+from static slots),
+``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (the CUDA-core forms of X3, X5 and
+X6, and X4) and
 ``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9; X8's kernel is the
 implicit GEMM of ``csrc/dgrad_common.cuh``, which K2 shares, and whose
 operand layout and shared-memory plan ``seg_joint`` holds).
@@ -56,9 +59,9 @@ LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
 
 MODES = ("full", "rank3", "mm-only", "copies-only", "aligned-copies")
 FORMS = ("mk-nk", "mk-kn")
-# X3's forms: K1's stack product on the tensor cores, fed by TMA, or its
-# first kernel on the CUDA cores; by default K1's (seg_joint.k1_form: the
-# CUDA-core pipeline at k <= 4)
+# The forms of X3, X5 and X6: K1's stack product on the tensor cores, fed
+# by TMA, or their first kernels on the CUDA cores; by default K1's
+# (seg_joint.k1_form: the CUDA-core pipelines at k <= 4)
 X_FORMS = sj.K1_FORMS
 # csrc/joint_exp.cu joint_exp_fwd_v2's modes; "rank3" is the "full" launch
 # on this card
@@ -70,12 +73,14 @@ _BQ = 8          # image columns per X1 pass (csrc/joint_exp.cu BQ)
 _PROBE_M, _PROBE_N = 64, 160  # X1's output tile (csrc/joint_exp.cu PROBE_*)
 _PROBE_GUARD = 1024           # zeroed bytes after each X1 tile
 _V7_RB = 16    # X9's tile rows (the TPU tool's _RB)
+_V6_RB = 16    # X6's rows of a pass (the TPU tool's _RB)
 _V9_COLS = 16  # X9's N at every k (csrc/joint_exp_bwd.cu V9_COLS)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
-# X3's tensor-core form (csrc/joint_exp_tma.cu): the TMA boxes (channels,
-# pixels, rows, images x chunks) of an x1 channel half (the slab's rows)
-# and of an x2 one (its window), and a slot's byte offsets: the halves'
-# windows [half][row][pixel][8], then the halves' x1 rows, 68 pixels each
+# The tensor-core forms of X3, X5 and X6 (csrc/joint_exp_tma.cu): the TMA
+# boxes (channels, pixels, rows, images x chunks) of an x1 channel half
+# (the slab's rows) and of an x2 one (its window), and a slot's byte
+# offsets: the halves' windows [half][row][pixel][8], then the halves' x1
+# rows, 68 pixels each
 X3_BOX_A = (8, sj._JF_A_PIX, sj._JF_ROWS, 1)
 X3_BOX_B = (8, sj._JF_PIX, sj._JF_ROWS + sj._JF_U - 1, 1)
 _XT_WIN = X3_BOX_B[1] * X3_BOX_B[2] * 16
@@ -352,8 +357,12 @@ def _tma_lib():
     lib = _build.library("joint_exp_tma")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.joint_exp_fwd_v3_tma.argtypes = [p] * 6 + [i] * 8 + [p]
-        lib.joint_exp_fwd_v3_tma.restype = i
+        for v in ("v3", "v5"):
+            fn = getattr(lib, f"joint_exp_fwd_{v}_tma")
+            fn.argtypes = [p] * 6 + [i] * 8 + [p]
+            fn.restype = i
+        lib.joint_exp_fwd_v6_tma.argtypes = [p] * 6 + [i] * 9 + [p]
+        lib.joint_exp_fwd_v6_tma.restype = i
         lib._typed = True
     return lib
 
@@ -467,6 +476,18 @@ def _split_k_fwd(name, entry, x1, x2, half_t, rb, *flags,
     return out
 
 
+def _tma_fwd(name, entry, x1, x2, half_t, rb, to=torch.bfloat16):
+    """Launches a TMA-fed tensor-core form (X3, X5, X6; csrc/joint_exp_tma.cu)
+    on x1, x2 converted to ``to``: K1's layout pass, the stack product over
+    X7's plan in passes of ``rb`` rows, the ordered reduce
+    (``seg_joint.launch_joint_fwd_mma``)."""
+    a = _as_input("x1", x1, to=to)
+    b = _as_input("x2", x2, tuple(x1.shape), to=to)
+    out = sj.launch_joint_fwd_mma(entry, a, b, half_t, rb, sj.K1_CHUNK_ROWS)
+    LAUNCHES[name] += 1
+    return out
+
+
 def joint_fwd_v8(x1, x2, half_t, rb=16, form=None):
     """X7: the (k, k, T, T) displacement joint of x1, x2 (n, k, h, w) with
     both inputs rounded to bf16 and f32 accumulation, on K1's kernels, in
@@ -513,12 +534,8 @@ def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True, form=None):
     if form == "cuda-core":
         return _split_k_fwd("joint_fwd_v3", _pipe_lib().joint_exp_fwd_v3, x1,
                             x2, half_t, rb)
-    a = _as_input("x1", x1)
-    b = _as_input("x2", x2, tuple(x1.shape))
-    out = sj.launch_joint_fwd_mma(_tma_lib().joint_exp_fwd_v3_tma, a, b,
-                                  half_t, rb, sj.K1_CHUNK_ROWS)
-    LAUNCHES["joint_fwd_v3"] += 1
-    return out
+    return _tma_fwd("joint_fwd_v3", _tma_lib().joint_exp_fwd_v3_tma, x1, x2,
+                    half_t, rb)
 
 
 def joint_fwd_v4(x1, x2, half_t, rb=16):
@@ -531,28 +548,57 @@ def joint_fwd_v4(x1, x2, half_t, rb=16):
                         x2, half_t, rb)
 
 
-def joint_fwd_v5(x1, x2, half_t, rb=16):
-    """X5: two stages per loop iteration in straight-line code with static
-    slots, an even stage count per chunk (an odd one padded with an
-    all-zero stage) and a zeroed odd slot priming the pipeline."""
+def joint_fwd_v5(x1, x2, half_t, rb=16, form=None):
+    """X5: X3's joint with two stages an iteration in straight-line code
+    from two static slots and an even stage count, in the form ``form``
+    (one of ``X_FORMS``; by default ``seg_joint.k1_form``'s).
+    Tensor cores (csrc/joint_exp_tma.cu): K1's stack product over X7's plan
+    (``rb`` the rows of a pass), the even slab of an iteration from slot 0
+    and the odd one from slot 1, both brought by TMA; the absent odd slab
+    of an odd count is skipped. It equals X7's tensor-core form bit for
+    bit. CUDA cores (csrc/joint_exp_pipe.cu): an odd stage count padded
+    with an all-zero stage and a zeroed odd slot priming the pipeline;
+    ``rb`` is the row quantum of a chunk, and it equals X7's CUDA-core form
+    bit for bit."""
+    form = form or sj.k1_form(x1.shape[1], half_t)
+    _check_form(form)
     _check_shift(half_t, rb)
     if not _on_cuda("joint_fwd_v5", x1, x2):
         return joint_fwd_v5_plain(x1, x2, half_t, rb)
-    return _split_k_fwd("joint_fwd_v5", _pipe_lib().joint_exp_fwd_v5, x1,
-                        x2, half_t, rb)
+    if form == "cuda-core":
+        return _split_k_fwd("joint_fwd_v5", _pipe_lib().joint_exp_fwd_v5, x1,
+                            x2, half_t, rb)
+    return _tma_fwd("joint_fwd_v5", _tma_lib().joint_exp_fwd_v5_tma, x1, x2,
+                    half_t, rb)
 
 
-def joint_fwd_v6(x1, x2, half_t, roll_build=False):
-    """X6: X5's pipeline on f32 inputs, rounded to bf16 in the kernel as
-    they are staged (bf16 inputs are widened to f32 first, exactly); rb is
-    fixed at 16. ``roll_build`` builds each column-shifted A row from the
-    one before by a lane shuffle, with the same result bit for bit."""
+def joint_fwd_v6(x1, x2, half_t, roll_build=False, form=None):
+    """X6: X5's pipeline on f32 inputs, rounded to bf16 in the kernels
+    (bf16 inputs are widened to f32 first, exactly); rb is fixed at 16. In
+    the form ``form`` (one of ``X_FORMS``; by default
+    ``seg_joint.k1_form``'s). Tensor cores: K1's layout pass on the f32
+    inputs, then X5's kernel, so it equals X5 on inputs the wrapper
+    rounds; ``roll_build`` launches the instantiation in which each warp
+    rolls the A fragment of the M tile's first shift by its own shift in
+    registers (lane shuffles and byte permutes). CUDA cores: each
+    column-shifted A row built from the one before by a lane shuffle. In
+    either form ``roll_build`` gives the same result bit for bit."""
+    form = form or sj.k1_form(x1.shape[1], half_t)
+    _check_form(form)
     _check_lanes(half_t)
     if not _on_cuda("joint_fwd_v6", x1, x2):
         return joint_fwd_v6_plain(x1, x2, half_t, roll_build)
-    return _split_k_fwd("joint_fwd_v6", _pipe_lib().joint_exp_fwd_v6, x1,
-                        x2, half_t, 16, int(bool(roll_build)),
-                        to=torch.float32)
+    if form == "cuda-core":
+        return _split_k_fwd("joint_fwd_v6", _pipe_lib().joint_exp_fwd_v6, x1,
+                            x2, half_t, _V6_RB, int(bool(roll_build)),
+                            to=torch.float32)
+
+    def entry(*args):
+        *args, stream = args
+        return _tma_lib().joint_exp_fwd_v6_tma(*args, int(bool(roll_build)),
+                                               stream)
+    return _tma_fwd("joint_fwd_v6", entry, x1, x2, half_t, _V6_RB,
+                    to=torch.float32)
 
 
 def dgrad_v8(g2d, other, half_t, rb=16):

@@ -778,20 +778,26 @@ def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
             stream) != 0
 
 
-# X3 at every rb and flat, X4 and X5 at every rb, X6 at both roll_build
+# X3 at every rb and flat in its default form and at every rb in each
+# form, X4 at every rb, X5 at every rb in each form, X6 at both roll_build
+# in each form
 PIPE = ([("joint_fwd_v3", {"rb": rb, "flat": flat})
          for rb in (16, 32, 64) for flat in (True, False)]
-        + [(name, {"rb": rb}) for name in ("joint_fwd_v4", "joint_fwd_v5")
+        + [(name, {"rb": rb, "form": f})
+           for name in ("joint_fwd_v3", "joint_fwd_v5") for f in jx.X_FORMS
            for rb in (16, 32, 64)]
-        + [("joint_fwd_v6", {"roll_build": roll}) for roll in (False, True)])
+        + [("joint_fwd_v4", {"rb": rb}) for rb in (16, 32, 64)]
+        + [("joint_fwd_v6", {"roll_build": roll, "form": f})
+           for f in jx.X_FORMS for roll in (False, True)])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
 def test_x3_x6_match_plain(gpu, half_t, n, k, h, w):
-    """X3-X6 vs X2's plain version: the same bf16 operands (X6 rounds its
-    f32 inputs itself) and exact products, so only the f32 summation order
-    differs: rtol 1e-4, atol 2e-5 * max. One launch is counted per call."""
+    """X3-X6 (X3, X5 and X6 in both forms) vs X2's plain version: the same
+    bf16 operands (X6 rounds its f32 inputs itself) and exact products, so
+    only the f32 summation order differs: rtol 1e-4, atol 2e-5 * max. One
+    launch is counted per call."""
     x1, x2, _ = _inputs(half_t + 3 * k, half_t, n, k, h, w, gpu)
     ref = jx.joint_fwd_v2_plain(x1, x2, half_t).cpu().numpy()
     t = 2 * half_t + 1
@@ -808,49 +814,61 @@ def test_x3_x6_match_plain(gpu, half_t, n, k, h, w):
 @pytest.mark.cuda
 @pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
 def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
-    """X3 and X5 add the same stages in the order of X7's CUDA-core form
-    (X5's priming and padding products add zeros), so at one rb they equal
-    it bit for bit.
-    X6 is X5's body on f32 inputs rounded in the kernel: it equals X5 on
-    inputs rounded by the wrapper, and roll_build=True equals False, bit
-    for bit."""
+    """In each form X3 and X5 add the same terms in the order of X7 in
+    that form, so at one rb they equal it bit for bit: on the CUDA cores
+    the same stages (X5's priming and padding products add zeros), on the
+    tensor cores K1's products in K1's order, fed by TMA (X3 one slab at a
+    time, X5 two from static slots). The form is named in every call: the
+    default is the tensor cores at k > 4. In each form X6 equals X5 on
+    inputs the wrapper rounds, and roll_build=True equals False, bit for
+    bit."""
     x1, x2, _ = _inputs(half_t + 4 * k, half_t, n, k, h, w, gpu)
-    for rb in (16, 32, 64):
-        x7 = jx.joint_fwd_v8(x1, x2, half_t, rb, form="cuda-core")
-        for flat in (True, False):
-            assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, flat,
-                                               form="cuda-core"), x7)
-        assert torch.equal(jx.joint_fwd_v5(x1, x2, half_t, rb), x7)
-    x6 = jx.joint_fwd_v6(x1, x2, half_t)
-    assert torch.equal(x6, jx.joint_fwd_v5(x1.bfloat16(), x2.bfloat16(),
-                                           half_t, 16))
-    assert torch.equal(jx.joint_fwd_v6(x1, x2, half_t, roll_build=True), x6)
+    for form in jx.X_FORMS:
+        for rb in (16, 32, 64):
+            x7 = jx.joint_fwd_v8(x1, x2, half_t, rb, form=form)
+            x3 = jx.joint_fwd_v3(x1, x2, half_t, rb, form=form)
+            assert torch.equal(x3, x7), (form, rb)
+            assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, False,
+                                               form=form), x7), (form, rb)
+            x5 = jx.joint_fwd_v5(x1, x2, half_t, rb, form=form)
+            assert torch.equal(x5, x7) and torch.equal(x5, x3), (form, rb)
+        x6 = jx.joint_fwd_v6(x1, x2, half_t, form=form)
+        assert torch.equal(x6, jx.joint_fwd_v5(x1.bfloat16(), x2.bfloat16(),
+                                               half_t, 16, form=form)), form
+        assert torch.equal(jx.joint_fwd_v6(x1, x2, half_t, roll_build=True,
+                                           form=form), x6), form
 
 
 @pytest.mark.cuda
 def test_x3_x6_refuse_what_they_cannot_launch(gpu):
     """Bad input raises before a launch; the TPU tool's asserts are refused
     on the card too (X6 has no rb: half_t=10 runs where X3-X5 at rb=8
-    refuse it); a launch the C entry points refuse (no chunks) returns a
-    CUDA error code."""
+    refuse it), in each form of X3, X5 and X6, which refuse any other
+    form; a launch the C entry points refuse (no chunks) returns a CUDA
+    error code."""
     x = torch.rand(2, 3, 8, 8, device=gpu)
-    fns = (jx.joint_fwd_v3, jx.joint_fwd_v4, jx.joint_fwd_v5,
-           jx.joint_fwd_v6)
-    for fn in fns:
+    formed = (jx.joint_fwd_v3, jx.joint_fwd_v5, jx.joint_fwd_v6)
+    calls = [(jx.joint_fwd_v4, {})] + [(fn, {"form": f}) for fn in formed
+                                       for f in jx.X_FORMS]
+    for fn, kw in calls:
         with pytest.raises(TypeError):
-            fn(x.double(), x.double(), 2)
+            fn(x.double(), x.double(), 2, **kw)
         with pytest.raises(ValueError):
-            fn(x, x.cpu(), 2)
+            fn(x, x.cpu(), 2, **kw)
         with pytest.raises(ValueError):
-            fn(x.transpose(2, 3), x, 2)
+            fn(x.transpose(2, 3), x, 2, **kw)
         with pytest.raises(ValueError):
-            fn(x, x[:1].contiguous(), 2)
+            fn(x, x[:1].contiguous(), 2, **kw)
         with pytest.raises(ValueError, match="2\\*half_t"):
-            fn(x, x, 65)
-    for fn in fns[:3]:
-        with pytest.raises(ValueError, match="2\\*half_t"):
-            fn(x, x, 10, rb=8)
-    assert jx.joint_fwd_v6(x, x, 10).shape == (3, 3, 21, 21)
+            fn(x, x, 65, **kw)
+        if fn is jx.joint_fwd_v6:
+            assert fn(x, x, 10, **kw).shape == (3, 3, 21, 21)
+        else:
+            with pytest.raises(ValueError, match="2\\*half_t"):
+                fn(x, x, 10, rb=8, **kw)
+    for fn in formed:
+        with pytest.raises(ValueError, match="form"):
+            fn(x, x, 2, form="cudnn")
     lib = jx._pipe_lib()
     xb = x.bfloat16()
     part = torch.empty(64 * 64, device=gpu)
@@ -861,9 +879,14 @@ def test_x3_x6_refuse_what_they_cannot_launch(gpu):
         assert entry(xb.data_ptr(), xb.data_ptr(), *args, 0, 16, stream) != 0
     assert lib.joint_exp_fwd_v6(x.data_ptr(), x.data_ptr(), *args, 1, 0, 16,
                                 stream) != 0
-    # X3's tensor-core form: no chunks, or chunks that miss passes
-    tma = jx._tma_lib().joint_exp_fwd_v3_tma
-    for per, splits in ((1, 0), (1, 1)):
-        assert tma(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
-                   part.data_ptr(), part.data_ptr(), part.data_ptr(), 2, 3,
-                   8, 8, 2, 16, per, splits, stream) != 0
+    # the tensor-core forms of X3, X5, X6 (both roll_build): no chunks, or
+    # chunks that miss passes
+    lib = jx._tma_lib()
+    entries = [lib.joint_exp_fwd_v3_tma, lib.joint_exp_fwd_v5_tma] + [
+        lambda *a, roll=roll: lib.joint_exp_fwd_v6_tma(*a[:-1], roll, a[-1])
+        for roll in (0, 1)]
+    for tma in entries:
+        for per, splits in ((1, 0), (1, 1)):
+            assert tma(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
+                       part.data_ptr(), part.data_ptr(), part.data_ptr(), 2,
+                       3, 8, 8, 2, 16, per, splits, stream) != 0
