@@ -9,21 +9,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draw and the temperature are printed);
   2. build the CUDA kernels from ``iic_tpu_torch/csrc``, one nvcc per
      source, all at once; print the times and ptxas' registers and spills;
-     for both forms of K1 and K2 and the tensor-core kernels X1, X7, X2's
+     for both forms of K1, K2 and K3 and the tensor-core kernels X1, X7, X2's
      three mode instantiations and its copies-only kernel, the TMA-fed
-     kernels of X3, X5 / X6 and X6's roll_build, X8 and X9 print
+     kernels of X3, X4, X5 / X6 and X6's roll_build, X8 and X9 print
      registers, stack and local memory (``cuobjdump
      --dump-resource-usage``) and the count of HGMMA / HMMA instructions,
      wgmma waits (all, and those for zero groups) and, for the TMA-fed
      kernels, TMA loads (UTMALDG), lane shuffles (SHFL) and byte permutes
      (PRMT) in their SASS (``--dump-sass``), and fail if a tensor-core
      kernel (K1 and K2 at k > 4, X1, X7, X2's modes but copies-only, X3,
-     X5 / X6, X8, X9) has none or uses local memory (spills), if K1's
+     X4, X5 / X6, X8, X9) has none or uses local memory (spills), if K1's
      stack product, its X2 modes or a TMA-fed kernel wait for zero groups
      after every product (ptxas serialised them), if K1's stack product
      builds differently in K1's and X7's libraries, if a TMA-fed kernel
      has no TMA load or passes 200 registers, if roll_build's kernel has
      no SHFL or PRMT, or K1's CUDA-core form leaves its 80 registers;
+     print K3's dynamic shared memory a block in both forms;
   3. hold K1 (joint forward) and K2 (input gradient, dx1 and dx2) against
      their plain PyTorch versions at the segmentation path's shapes (n=120,
      128^2, T=21, k=15 and k=3), within the JAX package's own kernel
@@ -36,12 +37,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      time of each kernel a K1 call launches (k=15), and
      CUDA-event times of both forms of K1 and K2, the f32 plain versions
      and the bf16 cuDNN conv of each;
-  4. hold K3 (fused clustering IID loss) against its plain version at the
-     clustering path's shapes (S=5 sub-heads; bn, k = 660, 70 / 660, 10 /
-     1000, 140): loss and loss_nl within rtol = atol = 1e-5, P within 1e-6
-     of max |P|, autograd gradients within rtol 1e-3, atol 1e-6; errors
-     against a float64 plain version; CUDA-event times, forward and
-     forward + backward;
+  4. hold K3 (fused clustering IID loss) in both forms (a thread-block
+     cluster a sub-head, and one block a sub-head) against its plain
+     version at the clustering path's shapes (S=5 sub-heads; bn, k = 660,
+     70 / 660, 10 / 1000, 140): loss and loss_nl within rtol = atol =
+     1e-5, P within 1e-6 of max |P| (the cluster form's of P in float64),
+     autograd gradients within rtol 1e-3,
+     atol 1e-6; the cluster form's bits equal across two launches and for
+     each sub-head launched alone; errors against a float64 plain version;
+     CUDA-event times through the wrapper, forward (both forms) and
+     forward + backward; the wrapper in both forms in 10 alternating
+     rounds, by CUDA events and by its host time a call; the
+     entry point's times through ctypes in both forms (also at one 32-row
+     stage, bn=32) beside an empty kernel launched the same way (the
+     launch floor), and each one's device time by the profiler;
   5. hold X2 (the experiment tool's bf16 joint forward, on K1's stack
      product) against its plain version at the segmentation shapes in
      every mode: full, rank3 and aligned-copies within the JAX contract
@@ -61,22 +70,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      in both forms beside K1's and X2's in the same phase; X8 beside K2
      (bit-equal to X8 at k=15) and the bf16 cuDNN conv in its phase;
      kernel, plain and library times;
-  7. run the TMA-fed tensor-core forms of X3, X5 and X6 (both
+  7. run the TMA-fed tensor-core forms of X3, X4, X5 and X6 (both
      roll_build) in a child process under a time limit (a hung mbarrier
      wait fails the phase), at the phase's shapes and at ragged ones whose
      chunks walk 1, 2, 3 and more slabs, each bit-equal to X7's
      tensor-core form (X6 to X5 on rounded inputs); hold X3-X6 (the tool's
      pipelined v3, v4, v5 and v6 joint forwards) against X2's plain
      version at the same shapes within the JAX contract: X3 at rb = 16,
-     32, 64 x flat in its default form and at each rb in the other, X4 at
-     each rb, X5 at each rb in each form, X6 (f32 inputs, rounded in the
+     32, 64 x flat in its default form and at each rb in the other, X4 and
+     X5 at each rb in each form, X6 (f32 inputs, rounded in the
      kernel) at both roll_build in each form (X3 and X5 bit for bit equal
-     to X7 in the same form at that rb, X6 to X5 on the rounded inputs and
+     to X7 in the same form at that rb, X4 in the tensor-core form, X6 to X5 on the rounded inputs and
      roll_build=True to False; the tensor-core forms also within K1_F64 of
      max of float64); each kernel's error against float64; their times
-     (X3, X5 and X6 in both forms) beside K1's, X7's (both forms) and X2's
+     (all four in both forms) beside K1's, X7's (both forms) and X2's
      in the same phase; plain and library times; at k=15 the tensor-core
-     forms of X3, X5 and X6 beside X7's and K1 in alternating rounds
+     forms of X3-X6 beside X7's and K1 in alternating rounds
      (median, min, max) and the device time of each kernel their calls
      launch;
   8. hold X9 (the tool's v7 fused backward: dx1 and dx2 in one launch,
@@ -129,7 +138,7 @@ SOURCES = {"seg_joint_fwd": "iic_tpu_torch/csrc/seg_joint.cu",
            "mm_probe": "iic_tpu_torch/csrc/joint_exp.cu",
            "joint_fwd_v2": "iic_tpu_torch/csrc/joint_exp.cu",
            "joint_fwd_v3": "iic_tpu_torch/csrc/joint_exp_tma.cu",
-           "joint_fwd_v4": "iic_tpu_torch/csrc/joint_exp_pipe.cu",
+           "joint_fwd_v4": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v5": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v6": "iic_tpu_torch/csrc/joint_exp_tma.cu",
            "joint_fwd_v8": "iic_tpu_torch/csrc/joint_exp.cu",
@@ -162,7 +171,7 @@ PEAK_BF16, PEAK_F32, HBM = 989e12, 67e12, 3.35e12
 # in flight). K1's CUDA-core form is held at 80 registers (its time hangs
 # on the residency they allow); its tensor-core form, which X7 and X2's
 # full mode share (instantiation 0 of its modes), X2's mm-only (1) and
-# aligned-copies (2) instantiations and the TMA-fed forms of X3, X5 / X6
+# aligned-copies (2) instantiations and the TMA-fed forms of X3, X4, X5 / X6
 # (the pair kernel) and X6's roll_build (its kRoll instantiation) must not
 # wait for zero groups after every product (ptxas serialises the products
 # when registers run short); X2's copies-only kernel issues no product.
@@ -182,9 +191,14 @@ SASS_KERNELS = {
                                                 None, True),
                   "copies_only_kernel": ("X2 copies-only", False, None,
                                          False)},
+    "iid_loss": {"iid_loss_cluster_kernel": ("K3", False, None, False),
+                 "iid_loss_block_kernel": ("K3 block form", False, None,
+                                           False)},
     "joint_exp_bwd": {"15dgrad_v8_kernel": ("X8", True, None, False),
                       "dgrad_fused_v7_kernel": ("X9", True, None, False)},
     "joint_exp_tma": {"joint_fwd_tma_kernel": ("X3", True, None, True),
+                      "joint_fwd_tma_branch_kernel": ("X4", True, None,
+                                                      True),
                       "joint_fwd_tma_pair_kernelILb0E": ("X5 / X6", True,
                                                          None, True),
                       "joint_fwd_tma_pair_kernelILb1E": ("X6 roll_build",
@@ -222,11 +236,17 @@ TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v3": 5, "v4": 1,
 # K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
 # heads A and B, and the CIFAR20 overclustering head of model 579
 K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140))
+K3_STAGE = (5, 32, 70)  # head A's shape cut to one 32-row stage
+K3_ROUNDS = 10  # alternating rounds of the wrapper in both forms
 K3_LAMB = 1.0
 # tests/test_pallas_kernels.py:34-37 (values) and :54-55 (gradients)
 K3_RTOL = K3_ATOL = 1e-5
 K3_GRAD_RTOL, K3_GRAD_ATOL = 1e-3, 1e-6
-K3_P_REL = 1e-6  # P against max |P|
+# P against max |P|: the block form against the f32 plain version (the
+# same sums in the same order), the cluster form, which sums each entry in
+# C row ranges, against the float64 plain version (the f32 plain version is
+# itself 0.8-1.1e-6 of max off it at K3_SHAPES)
+K3_P_REL = 1e-6
 
 CLI_ARGS = [
     "--mode", "IID", "--dataset", "SyntheticSeg3x146x480",
@@ -360,6 +380,13 @@ def phase_build():
                     raise AssertionError(f"{tag} {f} does not roll A in "
                                          f"registers: SHFL {mma['SHFL']}, "
                                          f"PRMT {mma['PRMT']}")
+    from iic_tpu_torch.ops.kernels import iid_loss as k3
+    lib = k3._lib()
+    _log(f"  K3 dynamic shared memory a block (bytes), cluster form "
+         f"({k3.CLUSTER} blocks a sub-head) / block form: " + ", ".join(
+             f"k={k} {lib.iid_loss_smem(k, k3.CLUSTER)} / "
+             f"{lib.iid_loss_smem(k, 0)}"
+             for k in (10, 70, 140, lib.iid_loss_max_k())))
     if reports[SAME_BUILD[0]] != reports[SAME_BUILD[1]]:
         raise AssertionError(f"K1's tensor-core kernel builds differently in "
                              f"K1's and X7's libraries: "
@@ -636,16 +663,16 @@ def _kernel_parts(tag, call, calls=5):
              for e in sorted(parts, key=lambda e: -e.self_device_time_total)))
 
 
-def _alternate(calls, rounds):
+def _alternate(calls, rounds, reps=5):
     """Times each of ``calls`` ({tag: fn}) in turn, ``rounds`` times (a
-    reading is CUDA events, mean of 5), and logs each one's median, min and
-    max reading and, past the first, those of its ratio to the first's
-    reading of the same round."""
+    reading is CUDA events, mean of ``reps``), and logs each one's median,
+    min and max reading and, past the first, those of its ratio to the
+    first's reading of the same round."""
     import statistics
     ms = {tag: [] for tag in calls}
     for _ in range(rounds):
         for tag, fn in calls.items():
-            ms[tag].append(_time_ms(fn))
+            ms[tag].append(_time_ms(fn, reps))
     first = next(iter(calls))
     for tag, v in ms.items():
         line = (f"    {tag}: median {statistics.median(v):.4f}, min "
@@ -667,10 +694,17 @@ def _kernel_name(key):
 def phase_k3():
     """K3 against its plain version at the clustering path's shapes: loss,
     loss_nl, P and the autograd gradients within the JAX package's kernel
-    contract; errors against a float64 plain version; CUDA-event times of
-    the kernel and the plain version, forward and forward + backward.
-    Returns {"max_abs_err", "ms", "plain_ms"} (ms: forward at head A's
-    shape; every time is printed)."""
+    contract, in the cluster form (the default) and the block form; the
+    cluster form's bits equal across launches and, sub-head by sub-head,
+    to a launch on that sub-head alone; errors against a float64 plain
+    version; CUDA-event times of the kernel (both forms) and the plain
+    version, forward and forward + backward; the wrapper in both forms in
+    alternating rounds, by CUDA events and by its host time a call; then
+    ``_k3_readings``. Returns {"max_abs_err", "ms",
+    "plain_ms", ...} (ms: the wrapper's CUDA-event time in the default
+    form at head A's shape; every time is printed)."""
+    import statistics
+
     import torch
     from iic_tpu_torch.ops.kernels import iid_loss as k3
 
@@ -682,15 +716,36 @@ def phase_k3():
                                              generator=gen), dim=-1)
         z, zt = softmax(), softmax()
         _log(f"K3 S={s}, bn={bn}, k={k}:")
-        got = k3.iid_loss_fwd(z, zt, K3_LAMB)
         ref = k3.iid_loss_fused_plain(z, zt, K3_LAMB)
-        errs = [_check("loss", got[0], ref[0], K3_RTOL, K3_ATOL),
-                _check("loss_nl", got[1], ref[1], K3_RTOL, K3_ATOL),
-                _check("P", got[2], ref[2], 0.0,
-                          K3_P_REL * float(ref[2].abs().max())),
-                _check("total", got[3], ref[3], K3_RTOL, 0.0)]
-        stats["max_abs_err"] = max(stats["max_abs_err"], *errs[:3])
         ref64 = k3.iid_loss_fused_plain(z.double(), zt.double(), K3_LAMB)
+        for form in k3.FORMS:
+            got = k3.iid_loss_fwd(z, zt, K3_LAMB, form=form)
+            # P: the block form sums each entry over the rows in the f32
+            # plain version's order (its bits), the cluster form in C
+            # ranges added in rank order, so it is held to P in float64
+            p_ref = ref64[2] if form == "cluster" else ref[2]
+            errs = [_check(f"{form} loss", got[0], ref[0], K3_RTOL,
+                           K3_ATOL),
+                    _check(f"{form} loss_nl", got[1], ref[1], K3_RTOL,
+                           K3_ATOL),
+                    _check(f"{form} P"
+                           + (" (vs float64)" if form == "cluster" else ""),
+                           got[2], p_ref, 0.0,
+                           K3_P_REL * float(p_ref.abs().max())),
+                    _check(f"{form} total", got[3], ref[3], K3_RTOL, 0.0)]
+            if form == "cluster":
+                stats["max_abs_err"] = max(stats["max_abs_err"], *errs[:3])
+        got = k3.iid_loss_fwd(z, zt, K3_LAMB)
+        again = k3.iid_loss_fwd(z, zt, K3_LAMB)
+        alone = [k3.iid_loss_fwd(z[i], zt[i], K3_LAMB) for i in range(s)]
+        if not (all(torch.equal(a, b) for a, b in zip(got, again))
+                and all(torch.equal(a[i], b) for i in range(s)
+                        for a, b in zip(got, alone[i]))):
+            raise AssertionError("K3's cluster form differs between "
+                                 "launches, or a sub-head alone from the "
+                                 "batch")
+        _log("  cluster form: equal bits on a second launch and for each "
+             "sub-head launched alone")
         for name, i in (("loss", 0), ("P", 2)):
             scale = float(ref64[i].abs().max())
             e_k, e_p = (float((v[i].double() - ref64[i]).abs().max()) / scale
@@ -717,18 +772,92 @@ def phase_k3():
             _time_ms(lambda: k3.iid_loss_fused_plain(z, zt, K3_LAMB),
                      reps=50),
             _time_ms(lambda: fwd_bwd(k3.iid_loss_fused), reps=50),
-            _time_ms(lambda: fwd_bwd(k3.iid_loss_fused_plain), reps=50))
+            _time_ms(lambda: fwd_bwd(k3.iid_loss_fused_plain), reps=50),
+            _time_ms(lambda: k3.iid_loss_fwd(z, zt, K3_LAMB, form="block"),
+                     reps=50))
         _log(f"  iid_loss_fwd S={s} bn={bn} k={k}: forward kernel "
-             f"{times[0]:.4f} ms, plain {times[1]:.4f} ms; forward+backward "
-             f"kernel {times[2]:.4f} ms, plain {times[3]:.4f} ms (CUDA "
-             f"events, mean of 50)")
+             f"{times[0]:.4f} ms (block form {times[4]:.4f}), plain "
+             f"{times[1]:.4f} ms; forward+backward kernel {times[2]:.4f} "
+             f"ms, plain {times[3]:.4f} ms (CUDA events, mean of 50)")
+        wrapper = {form: (lambda form=form: k3.iid_loss_fwd(
+            z, zt, K3_LAMB, form=form)) for form in k3.FORMS}
+        _log(f"  iid_loss_fwd in {K3_ROUNDS} alternating rounds (CUDA "
+             f"events, mean of 50):")
+        _alternate(wrapper, K3_ROUNDS, reps=50)
+        host = {form: [] for form in wrapper}
+        for _ in range(K3_ROUNDS):
+            for form, fn in wrapper.items():
+                host[form].append(_host_ms(fn))
+        _log(f"  iid_loss_fwd host time a call (perf_counter over 50 calls, "
+             f"no sync), median of {K3_ROUNDS} alternating rounds: "
+             + ", ".join(f"{f} {statistics.median(v):.4f} ms"
+                         for f, v in host.items()))
         if (s, bn, k) == K3_SHAPES[0]:
             # the zT z' product; the k x k epilogue adds about 2% to it
             stats.update(ms=times[0], plain_ms=times[1], library_ms=None)
             stats.update(_bound("iid_loss_fwd", 2.0 * s * bn * k * k,
                                 (2 * s * bn * k + s * k * k + 3 * s) * 4,
                                 PEAK_F32))
+    _k3_readings(gen)
     return stats
+
+
+def _host_ms(fn, reps=50):
+    """Host time a call of ``fn`` (perf_counter, no sync inside the loop)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - start) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _k3_readings(gen):
+    """K3's entry point called through ctypes on preallocated outputs (no
+    wrapper), in the block form and the cluster form, at K3_SHAPES and at
+    K3_STAGE (head A's shape cut to one 32-row stage: the difference is the
+    row loop), and an empty kernel launched on each form's grid and stream
+    by the same route (the launch floor); CUDA events, mean of 50, then
+    each call's device time by the profiler."""
+    import torch
+    from iic_tpu_torch.ops.kernels import iid_loss as k3
+
+    lib = k3._lib()
+    launches = {"block": 0, f"cluster {k3.CLUSTER}": k3.CLUSTER}
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {}
+    for s, bn, k in (*K3_SHAPES, K3_STAGE):
+        z, zt = (torch.softmax(torch.randn((s, bn, k), device="cuda",
+                                           generator=gen), dim=-1)
+                 for _ in range(2))
+        out = torch.empty(3 * s + s * k * k, device="cuda")
+        ptrs = [out.data_ptr() + 4 * o for o in (0, s, 2 * s, 3 * s)]
+        for tag, cluster in launches.items():
+            def call(z=z, zt=zt, ptrs=ptrs, s=s, bn=bn, k=k,
+                     cluster=cluster):
+                err = lib.iid_loss_fwd(z.data_ptr(), zt.data_ptr(), ptrs[0],
+                                       ptrs[1], ptrs[3], ptrs[2], s, bn, k,
+                                       K3_LAMB, cluster, stream)
+                if err:
+                    raise RuntimeError(f"iid_loss_fwd: CUDA error {err}")
+            calls[f"K3 {tag} S={s} bn={bn} k={k}"] = call
+    s = K3_SHAPES[0][0]
+    for tag, cluster in launches.items():
+        def floor(cluster=cluster):
+            err = lib.iid_loss_launch_floor(s, cluster, stream)
+            if err:
+                raise RuntimeError(f"launch floor: CUDA error {err}")
+        calls[f"empty kernel, {tag} grid S={s}"] = floor
+    _log("K3 readings (entry point through ctypes, outputs preallocated; "
+         "CUDA events, mean of 50):")
+    readings = {tag: _time_ms(fn, reps=50) for tag, fn in calls.items()}
+    for tag, ms in readings.items():
+        _log(f"  {tag}: {ms:.4f} ms")
+    for tag, fn in calls.items():
+        _kernel_parts(tag, fn, calls=50)
 
 
 def _bound(name, flop, nbytes, peak):
@@ -953,10 +1082,10 @@ def phase_x7():
     return stats
 
 
-# Alternating rounds of X7, X3, X5, X6 and K1 (tensor-core forms) at k=15:
+# Alternating rounds of X7, X3-X6 and K1 (tensor-core forms) at k=15:
 # the spread of each TMA-fed form's time beside theirs
 X3_ROUNDS = 10
-# The TMA-fed forms of X3, X5 and X6 wait on mbarrier phases, and a phase
+# The TMA-fed forms of X3-X6 wait on mbarrier phases, and a phase
 # mistake hangs a block instead of failing: their first launches run in a
 # child process with this limit (seconds), at every shape and rb the phases
 # below use and at small ragged ones whose chunks walk 1, 2, 3 and 7 slabs
@@ -973,7 +1102,7 @@ for n, k, h, w, half_t in {shapes}:
     x1b, x2b = x1.bfloat16(), x2.bfloat16()
     for rb in (16, 32, 64):
         x7 = jx.joint_fwd_v8(x1b, x2b, half_t, rb, form="wgmma")
-        for name in ("joint_fwd_v3", "joint_fwd_v5"):
+        for name in ("joint_fwd_v3", "joint_fwd_v4", "joint_fwd_v5"):
             got = getattr(jx, name)(x1b, x2b, half_t, rb, form="wgmma")
             torch.cuda.synchronize()
             assert torch.equal(got, x7), (name, n, k, h, w, half_t, rb)
@@ -982,13 +1111,13 @@ for n, k, h, w, half_t in {shapes}:
         got = jx.joint_fwd_v6(x1, x2, half_t, roll, form="wgmma")
         torch.cuda.synchronize()
         assert torch.equal(got, x5), ("joint_fwd_v6", roll, n, k, h, w)
-print("X3, X5, X6 (wgmma) ran at every shape, each bit-equal to X7",
+print("X3, X4, X5, X6 (wgmma) ran at every shape, each bit-equal to X7",
       flush=True)
 """
 
 
 def _tma_watchdog():
-    """Runs the TMA-fed forms of X3, X5 and X6 (both roll_build) at the
+    """Runs the TMA-fed forms of X3-X6 (X6 at both roll_build) at the
     phase's shapes and at small ragged ones in a child process, each held
     to X7's tensor-core form bit for bit (X6 to X5 on rounded inputs);
     fails if the child does not finish in TMA_WATCHDOG_S (a hung mbarrier
@@ -1004,33 +1133,34 @@ def _tma_watchdog():
             cwd=os.path.dirname(os.path.abspath(__file__)),
             capture_output=True, text=True, timeout=TMA_WATCHDOG_S)
     except subprocess.TimeoutExpired as e:
-        raise AssertionError(f"X3/X5/X6 (wgmma) did not finish in "
+        raise AssertionError(f"X3-X6 (wgmma) did not finish in "
                              f"{TMA_WATCHDOG_S} s: a block hangs (mbarrier "
                              f"phase)") from e
     _log(f"TMA watchdog: {proc.stdout.strip()} in "
          f"{time.perf_counter() - t0:.1f} s (rc {proc.returncode})")
     if proc.returncode != 0:
-        raise AssertionError(f"X3/X5/X6 (wgmma) failed in their watchdog "
+        raise AssertionError(f"X3-X6 (wgmma) failed in their watchdog "
                              f"run:\n{proc.stderr[-2000:]}")
 
 
-# The kernels with both forms; X4 runs on the CUDA cores alone
-X_FORMED = ("joint_fwd_v3", "joint_fwd_v5", "joint_fwd_v6")
+# The kernels with both forms (all four)
+X_FORMED = X_PIPE
 
 
 def phase_x3_x6():
     """X3-X6 against X2's plain version at the segmentation shapes (X3 at
-    each rb and flat in its default form, X3 and X5 at each rb in each
-    form, X4 at each rb, X6 on the f32 inputs at both roll_build in each
+    each rb and flat in its default form, X3, X4 and X5 at each rb in each
+    form, X6 on the f32 inputs at both roll_build in each
     form, which must agree bit for bit), each call's error against
-    float64; X3 and X5 in each form bit-equal to X7 in that form at that rb
+    float64; X3 and X5 in each form (X4 in the tensor-core form) bit-equal
+    to X7 in that form at that rb
     and X6 to X5 on the rounded inputs (their tensor-core forms, fed by
     TMA, also within K1_F64 of max of their bf16 function in float64; their
-    first launches under a watchdog); the times of X3, X5 and X6 (both
-    forms) and X4 at rb=16 beside K1's, X7's (both forms; the CUDA-core
+    first launches under a watchdog); the times of X3-X6 (both
+    forms) at rb=16 beside K1's, X7's (both forms; the CUDA-core
     form first and last, to show drift) and X2's in the same phase, of the
     plain version and of X2's bf16 cuDNN conv; at k=15, the tensor-core
-    forms of X3, X5 and X6 (both roll_build) beside X7's and K1 in
+    forms of X3-X6 (X6 at both roll_build) beside X7's and K1 in
     alternating rounds, and each one's kernels from the profiler; X5 on
     the kpad run's inputs padded to 16 channels, and the tool's kpad16
     call with its padding. Returns
@@ -1052,7 +1182,7 @@ def phase_x3_x6():
         form = sj.k1_form(k, HALF_T)
         other = next(f for f in jx.X_FORMS if f != form)
         _log(f"X3-X6 k={k}: n={N}, {HW}x{HW}, T={t}; X3-X5 on bf16 inputs, "
-             f"X6 on their f32 originals; the default form of X3, X5 and X6 "
+             f"X6 on their f32 originals; the default form of X3-X6 "
              f"{form}")
         ref = jx.joint_fwd_v2_plain(x1b, x2b, HALF_T)
         ref64 = sj.displacement_joint_dense(x1b.double(), x2b.double(),
@@ -1069,12 +1199,10 @@ def phase_x3_x6():
                 lambda rb=rb: jx.joint_fwd_v3(x1b, x2b, HALF_T, rb,
                                               form=other))
                for rb in X_RBS]
-            + [("joint_fwd_v4", "cuda-core", f"rb={rb}",
-                lambda rb=rb: jx.joint_fwd_v4(x1b, x2b, HALF_T, rb))
-               for rb in X_RBS]
-            + [("joint_fwd_v5", f, f"rb={rb} {f}",
-                lambda rb=rb, f=f: jx.joint_fwd_v5(x1b, x2b, HALF_T, rb,
-                                                   form=f))
+            + [(name, f, f"rb={rb} {f}",
+                lambda name=name, rb=rb, f=f: getattr(jx, name)(
+                    x1b, x2b, HALF_T, rb, form=f))
+               for name in ("joint_fwd_v4", "joint_fwd_v5")
                for f in jx.X_FORMS for rb in X_RBS]
             + [("joint_fwd_v6", f, f"roll_build={roll} {f}",
                 lambda roll=roll, f=f: jx.joint_fwd_v6(x1, x2, HALF_T, roll,
@@ -1097,12 +1225,15 @@ def phase_x3_x6():
                                      f"function ({e64:.3e} > {K1_F64})")
             if name == "joint_fwd_v6":
                 x6[tag] = got
-            elif name in ("joint_fwd_v3", "joint_fwd_v5"):
+            elif name != "joint_fwd_v4" or f == "wgmma":
+                # X4's CUDA-core form adds each stage's staged product:
+                # another order than X7's
                 rb = int(tag.split()[0].removeprefix("rb="))
                 if not torch.equal(got, x7[(f, rb)]):
                     raise AssertionError(f"{name} {tag} differs from X7's "
                                          f"{f} form")
-        _log("  X3 and X5 equal X7 in the same form at each rb bit for bit")
+        _log("  X3 and X5 equal X7 in the same form at each rb bit for "
+             "bit, X4 in the tensor-core form")
         for f in jx.X_FORMS:
             x5 = jx.joint_fwd_v5(x1b, x2b, HALF_T, 16, form=f)
             if not torch.equal(x6[f"roll_build=False {f}"], x5):
@@ -1134,6 +1265,8 @@ def phase_x3_x6():
             f"X3 {other}": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB,
                                                    form=other),
             "joint_fwd_v4": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB),
+            f"X4 {other}": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB,
+                                                   form=other),
             "joint_fwd_v5": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB),
             f"X5 {other}": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB,
                                                    form=other),
@@ -1155,7 +1288,7 @@ def phase_x3_x6():
             "plain": lambda: jx.joint_fwd_v2_plain(x1b, x2b, HALF_T),
             "bf16 F.conv2d": library}
         ms = {tag: _time_ms(fn) for tag, fn in timed.items()}
-        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5; X3, X5, X6 = "
+        _log(f"  k={k}, rb={X_RB} (CUDA events, mean of 5; X3-X6 = "
              f"{form}): "
              + ", ".join(f"{tag.replace('joint_fwd_v', 'X')} {v:.3f}"
                          for tag, v in ms.items()) + " ms")
@@ -1169,6 +1302,8 @@ def phase_x3_x6():
                                                     form="wgmma"),
                 "X3 wgmma": lambda: jx.joint_fwd_v3(x1b, x2b, HALF_T, X_RB,
                                                     form="wgmma"),
+                "X4 wgmma": lambda: jx.joint_fwd_v4(x1b, x2b, HALF_T, X_RB,
+                                                    form="wgmma"),
                 "X5 wgmma": lambda: jx.joint_fwd_v5(x1b, x2b, HALF_T, X_RB,
                                                     form="wgmma"),
                 "X6 wgmma": lambda: jx.joint_fwd_v6(x1, x2, HALF_T,
@@ -1176,7 +1311,7 @@ def phase_x3_x6():
                 "X6 wgmma roll_build": lambda: jx.joint_fwd_v6(
                     x1, x2, HALF_T, True, form="wgmma"),
                 "K1": lambda: sj.joint_fwd(x1, x2, HALF_T)}
-            _log(f"  X3, X5, X6 beside X7 and K1, k={k}, rb={X_RB}, "
+            _log(f"  X3-X6 beside X7 and K1, k={k}, rb={X_RB}, "
                  f"{X3_ROUNDS} alternating rounds:")
             _alternate(ring_calls, X3_ROUNDS)
             for tag, call in ring_calls.items():
@@ -1609,7 +1744,7 @@ def phase_cluster_profile(trace_dir):
             include_rgb=cfg.include_rgb, loss_impl="fused")
         batches = [b for _, b in zip(range(8), pipe.epoch(1))]
         _profile(f"cluster head {head}", step, batches, trace_dir,
-                 ("iid_loss_kernel",))
+                 ("iid_loss_cluster_kernel", "iid_loss_block_kernel"))
 
 
 def main(argv=None):

@@ -1,12 +1,14 @@
-// The tensor-core forms of X3, X5 and X6, hand-written for Hopper (sm_90a):
-// the experiment tool's pipelined joint forwards as K1's stack product
-// (joint_fwd_common.cuh) fed by the Tensor Memory Accelerator through a
-// double buffer of two slots, each with a `full` and an `empty` mbarrier.
+// The tensor-core forms of X3, X4, X5 and X6, hand-written for Hopper
+// (sm_90a): the experiment tool's pipelined joint forwards as K1's stack
+// product (joint_fwd_common.cuh) fed by the Tensor Memory Accelerator
+// through a double buffer of two slots, each with a `full` and an `empty`
+// mbarrier.
 //
 // Replaces tools/joint_kernel_exp.py: `_joint_kernel_v3` (launched by
-// `joint_fwd_v3`), `_joint_kernel_v5` (`joint_fwd_v5`, also in the tool's
-// `kpad` run) and `_joint_kernel_v6` (`joint_fwd_v6`), with
-// joint_exp_pipe.cu's CUDA-core kernels as `form="cuda-core"`.
+// `joint_fwd_v3`), `_joint_kernel_v4` (`joint_fwd_v4`), `_joint_kernel_v5`
+// (`joint_fwd_v5`, also in the tool's `kpad` run) and `_joint_kernel_v6`
+// (`joint_fwd_v6`), with joint_exp_pipe.cu's CUDA-core kernels as
+// `form="cuda-core"`.
 //
 //   P[(v,i),(u,j)] = sum_{n,y,q} x1[n,i,y,q+v-h] * x2[n,j,y+h-u,q]
 //
@@ -21,7 +23,10 @@
 // completes on the slot's `full` mbarrier, and the products wait on that
 // barrier's phase, the slab's parity. X5: two row tiles a grid step in
 // straight-line code, each stage with its own scratch names and no
-// parity, the tile count padded to even. X6: X5's pipeline on f32 inputs
+// parity, the tile count padded to even. X4: X3 with the two slots
+// declared as separate scratch arrays, one picked by a branch on the
+// step's parity, and each stage's product staged in a second accumulator
+// before it is added. X6: X5's pipeline on f32 inputs
 // rounded to bf16 in the kernel, with an optional `roll_build` that
 // builds each column-shifted A row from the row before by a lane roll.
 //
@@ -29,7 +34,7 @@
 // from registers by ldmatrix.trans), the N tile of 21 shifts u' = T-1-u x
 // 16 channels j on two m64n168k16 warpgroups, the same slab walk (jf_next)
 // and chunks of whole passes, the same partials and ordered reduce. So the
-// three kernels issue the same products, each output entry in the same
+// four kernels issue the same products, each output entry in the same
 // thread's accumulator over the same k16 steps in the same order, and
 // equal K1's tensor-core form (X7's "wgmma") bit for bit.
 //
@@ -64,6 +69,18 @@
 //     on full[s % 2] for parity (s / 2) % 2, and the refill of slot
 //     (s + 1) % 2 waits on its empty barrier for slab s - 1: slot and
 //     phase are runtime values of the slab's index.
+//   X4 (joint_fwd_tma_branch_kernel) walks the slabs as X3 does, with X3's
+//     prologue and phases, but picks the slot by a block-uniform branch on
+//     the slab's parity: two call sites of the products, in each of which
+//     the slot's address, the other slot's and both barriers are constants
+//     (the TPU's `@pl.when(p == 0) build(a0, b0)` / `@pl.when(p == 1)
+//     build(a1, b1)`). The TPU's `mmout` staging exists because its product
+//     of step s reads the stacks built in step s - 1 and is added after the
+//     build; here the TMA fills a slot before its products read it, so, as
+//     for X5's `mm`, no second accumulator is kept (it would cost 84
+//     registers a thread, past the ceiling where ptxas serialises the
+//     products) and the products add into the accumulators directly, in
+//     X3's order: X4 equals X3 and X7's tensor-core form bit for bit.
 //   X5 (joint_fwd_tma_pair_kernel) unrolls the slab loop over the two
 //     slots: iteration m takes the even slab 2m from slot 0 and the odd
 //     slab 2m + 1 from slot 1 in straight-line code, so the slots' addresses
@@ -421,6 +438,73 @@ joint_fwd_tma_kernel(const __grid_constant__ CUtensorMap map_a,
   xt_store(acc, part, bl, k, wg, warp, lane);
 }
 
+// X4's loop: X3's walk, one slab an iteration, with the slot picked by a
+// block-uniform branch on the slab's parity, so each branch's slot
+// addresses and barriers are constants of its body.
+__global__ void __launch_bounds__(XT_THREADS, 1)
+joint_fwd_tma_branch_kernel(const __grid_constant__ CUtensorMap map_a,
+                            const __grid_constant__ CUtensorMap map_b,
+                            float* __restrict__ part, int k, int h, int w,
+                            int half_t, int rb, int passes_total,
+                            int passes_per_chunk) {
+  const XtBlock bl = xt_block(k, h, w, half_t, rb, passes_total,
+                              passes_per_chunk);
+  // two slots and four mbarriers, as in X3's kernel
+  extern __shared__ __align__(128) unsigned char xt_smem[];
+  unsigned char* smem = xt_smem;
+  const uint32_t base = smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + 2 * XT_BUF);
+  uint64_t* empty = full + 2;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const uint32_t a_lane = xt_a_lane(lane, warp);
+  const int b_lane = wg * XT_WIN;
+  xt_init(full, empty, base);
+
+  float acc[JF_ACC];
+#pragma unroll
+  for (int e = 0; e < JF_ACC; ++e) acc[e] = 0.f;
+  wgmma_fence();
+
+  const auto load = [&](int slot, const JfSlab& s) {
+    xt_load(base + slot * XT_BUF, &full[slot], &map_a, &map_b, s, bl.ic,
+            bl.jc, bl.chunks, bl.v0, bl.up0, half_t);
+  };
+  JfSlab s = bl.first;
+  if (tid == 0 && s.rows) load(0, s);
+  for (uint32_t idx = 0; s.rows; ++idx) {
+    // slab idx waits at parity (idx / 2) % 2; slab idx - 1, which the
+    // refill of the other slot waits out, left it at parity par ^ 1 for an
+    // even idx and par for an odd one
+    const uint32_t par = (idx >> 1) & 1;
+    const JfSlab nx = jf_next(s, bl.p_end, rb, bl.passes_per_image, h, w);
+    if ((idx & 1) == 0) {
+      mbar_wait(&full[0], par);
+      xt_slab<false>(acc, base, smem, a_lane, 0, b_lane, s, lane, warp,
+                     [&]() {
+                       if (tid == 0 && nx.rows) {
+                         if (idx > 0) mbar_wait(&empty[1], par ^ 1);
+                         load(1, nx);
+                       }
+                     });
+      mbar_arrive(&empty[0]);
+    } else {
+      mbar_wait(&full[1], par);
+      xt_slab<false>(acc, base + XT_BUF, smem + XT_BUF, a_lane, 0, b_lane, s,
+                     lane, warp, [&]() {
+                       if (tid == 0 && nx.rows) {
+                         mbar_wait(&empty[0], par);
+                         load(0, nx);
+                       }
+                     });
+      mbar_arrive(&empty[1]);
+    }
+    s = nx;
+  }
+  xt_store(acc, part, bl, k, wg, warp, lane);
+}
+
 // X5's loop (X6's with f32 input; kRoll: roll_build): two slabs an
 // iteration from the two slots, whose addresses and barriers are
 // constants of the body.
@@ -599,7 +683,7 @@ int launch_tma(XtKernel kernel, const void* x1, const void* x2, void* x1c,
 extern "C" {
 
 // The tensor-core forms (launch_tma): x1, x2 (n, k, h, w) contiguous, bf16
-// for X3 and X5, f32 for X6; x1c, x2c (n, ceil(k/16), h, w, 16) bf16
+// for X3, X4 and X5, f32 for X6; x1c, x2c (n, ceil(k/16), h, w, 16) bf16
 // scratch; part (splits, kT, kT) f32 scratch; out (k, k, T, T) f32.
 // Return 0, a CUDA error, or minus the CUresult of a refused tensor map.
 int joint_exp_fwd_v3_tma(const void* x1, const void* x2, void* x1c,
@@ -610,6 +694,16 @@ int joint_exp_fwd_v3_tma(const void* x1, const void* x2, void* x1c,
   return launch_tma<bf16>(joint_fwd_tma_kernel, x1, x2, x1c, x2c, part, out,
                           n, k, h, w, half_t, rb, passes_per_chunk, splits,
                           stream);
+}
+
+int joint_exp_fwd_v4_tma(const void* x1, const void* x2, void* x1c,
+                         void* x2c, float* part, float* out, int n, int k,
+                         int h, int w, int half_t, int rb,
+                         int passes_per_chunk, int splits,
+                         cudaStream_t stream) {
+  return launch_tma<bf16>(joint_fwd_tma_branch_kernel, x1, x2, x1c, x2c,
+                          part, out, n, k, h, w, half_t, rb,
+                          passes_per_chunk, splits, stream);
 }
 
 int joint_exp_fwd_v5_tma(const void* x1, const void* x2, void* x1c,

@@ -11,6 +11,12 @@ note on what bounds it on the H100 and how its design answers it, is
 
 Inputs are softmax pairs z, zt of shape (bn, k), or (S, bn, k) for S
 sub-heads in one launch; each sub-head's numbers are the same either way.
+The kernel has two forms (``FORMS``): ``"cluster"``, the default, one
+thread-block cluster of ``CLUSTER`` blocks per sub-head, each block a
+contiguous range of the rows, the partial joints added in rank order
+through distributed shared memory; and ``"block"``, the port's first
+kernel, one block per sub-head walking all its rows, kept for timing
+against it.
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises; it never falls back.
 """
@@ -23,6 +29,11 @@ import torch
 from iic_tpu_torch.ops.kernels import _build
 
 EPS = sys.float_info.epsilon  # 2^-52, as the reference; the kernel's too
+FORMS = ("cluster", "block")
+# Blocks of a sub-head's cluster in the cluster form (the kernel's
+# ``kCluster``): 16, a non-portable size, faster than 8, the portable
+# maximum, at the clustering path's shapes on the H100
+CLUSTER = 16
 
 # Launches of the kernel, counted where the wrapper launches it.
 LAUNCHES = {"iid_loss_fwd": 0}
@@ -66,20 +77,29 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.iid_loss_fwd.argtypes = [p, p, p, p, p, p, i, i, i,
-                                     ctypes.c_float, p]
+                                     ctypes.c_float, i, p]
         lib.iid_loss_fwd.restype = i
         lib.iid_loss_max_k.argtypes = []
         lib.iid_loss_max_k.restype = i
+        lib.iid_loss_launch_floor.argtypes = [i, i, p]
+        lib.iid_loss_launch_floor.restype = i
+        lib.iid_loss_smem.argtypes = [i, i]
+        lib.iid_loss_smem.restype = i
+        lib.max_k = lib.iid_loss_max_k()
         lib._typed = True
     return lib
 
 
-def iid_loss_fwd(z, zt, lamb=1.0):
-    """K3: (loss, loss_nl, P, total) for z, zt (bn, k) or (S, bn, k)."""
-    if z.device.type == "cpu" and zt.device.type == "cpu":
+def iid_loss_fwd(z, zt, lamb=1.0, form="cluster"):
+    """K3: (loss, loss_nl, P, total) for z, zt (bn, k) or (S, bn, k), in
+    the form ``form`` (one of ``FORMS``)."""
+    if form not in FORMS:
+        raise ValueError(f"form {form!r}: expected one of {FORMS}")
+    device = z.device
+    if device.type == "cpu" and zt.device.type == "cpu":
         return iid_loss_fused_plain(z, zt, lamb)
-    if z.device.type != "cuda" or zt.device != z.device:
-        raise ValueError(f"iid_loss_fwd: inputs on {z.device} and "
+    if device.type != "cuda" or zt.device != device:
+        raise ValueError(f"iid_loss_fwd: inputs on {device} and "
                          f"{zt.device}")
     if z.dim() not in (2, 3) or tuple(zt.shape) != tuple(z.shape):
         raise ValueError(f"iid_loss_fwd: expected two (bn, k) or (S, bn, k) "
@@ -92,17 +112,17 @@ def iid_loss_fwd(z, zt, lamb=1.0):
             raise ValueError(f"{name}: kernel takes a contiguous tensor")
     lib = _lib()
     s, bn, k = z.shape if z.dim() == 3 else (1, *z.shape)
-    if bn < 1 or not 1 <= k <= lib.iid_loss_max_k():
+    if bn < 1 or not 1 <= k <= lib.max_k:
         raise ValueError(f"iid_loss_fwd: bn={bn}, k={k}; the kernel takes "
-                         f"bn >= 1 and 1 <= k <= {lib.iid_loss_max_k()}")
-    out = dict(device=z.device, dtype=torch.float32)
+                         f"bn >= 1 and 1 <= k <= {lib.max_k}")
+    out = dict(device=device, dtype=torch.float32)
     loss, loss_nl, total = (torch.empty((s,), **out) for _ in range(3))
     p = torch.empty((s, k, k), **out)
-    with torch.cuda.device(z.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.iid_loss_fwd(z.data_ptr(), zt.data_ptr(), loss.data_ptr(),
                            loss_nl.data_ptr(), p.data_ptr(),
-                           total.data_ptr(), s, bn, k, float(lamb), stream)
+                           total.data_ptr(), s, bn, k, float(lamb),
+                           CLUSTER if form == "cluster" else 0, stream)
     if err != 0:
         raise RuntimeError(f"iid_loss_fwd launch failed: CUDA error {err}")
     LAUNCHES["iid_loss_fwd"] += 1

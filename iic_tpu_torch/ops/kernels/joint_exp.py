@@ -18,12 +18,12 @@ answers it and the exact definition of each mode, are
 tensor-core form are K1's stack product in ``csrc/joint_fwd_common.cuh``,
 X2's modes instantiations of its kernel but copies-only, which walks and
 stages its slabs),
-``iic_tpu_torch/csrc/joint_exp_tma.cu`` (the tensor-core forms of X3, X5
-and X6: K1's stack product fed by TMA through a two-slot mbarrier ring,
-X3's slot and phase the slab's parity, X5's and X6's two slabs an iteration
-from static slots),
-``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (the CUDA-core forms of X3, X5 and
-X6, and X4) and
+``iic_tpu_torch/csrc/joint_exp_tma.cu`` (the tensor-core forms of X3-X6:
+K1's stack product fed by TMA through a two-slot mbarrier ring, X3's slot
+and phase the slab's parity, X4's slot picked by a branch on it, X5's and
+X6's two slabs an iteration from static slots),
+``iic_tpu_torch/csrc/joint_exp_pipe.cu`` (the CUDA-core forms of X3-X6)
+and
 ``iic_tpu_torch/csrc/joint_exp_bwd.cu`` (X8, X9; X8's kernel is the
 implicit GEMM of ``csrc/dgrad_common.cuh``, which K2 shares, and whose
 operand layout and shared-memory plan ``seg_joint`` holds).
@@ -59,7 +59,7 @@ LAUNCHES = {"joint_fwd_v2": 0, "mm_probe": 0, "joint_fwd_v8": 0,
 
 MODES = ("full", "rank3", "mm-only", "copies-only", "aligned-copies")
 FORMS = ("mk-nk", "mk-kn")
-# The forms of X3, X5 and X6: K1's stack product on the tensor cores, fed
+# The forms of X3-X6: K1's stack product on the tensor cores, fed
 # by TMA, or their first kernels on the CUDA cores; by default K1's
 # (seg_joint.k1_form: the CUDA-core pipelines at k <= 4)
 X_FORMS = sj.K1_FORMS
@@ -76,7 +76,7 @@ _V7_RB = 16    # X9's tile rows (the TPU tool's _RB)
 _V6_RB = 16    # X6's rows of a pass (the TPU tool's _RB)
 _V9_COLS = 16  # X9's N at every k (csrc/joint_exp_bwd.cu V9_COLS)
 _TARGET_BLOCKS = 8 * 132  # blocks to put in flight: eight per SM
-# The tensor-core forms of X3, X5 and X6 (csrc/joint_exp_tma.cu): the TMA
+# The tensor-core forms of X3-X6 (csrc/joint_exp_tma.cu): the TMA
 # boxes (channels, pixels, rows, images x chunks) of an x1 channel half
 # (the slab's rows) and of an x2 one (its window), and a slot's byte
 # offsets: the halves' windows [half][row][pixel][8], then the halves' x1
@@ -262,8 +262,9 @@ def joint_fwd_v3_plain(x1, x2, half_t, rb=16, flat=True):
 
 
 def joint_fwd_v4_plain(x1, x2, half_t, rb=16):
-    """Plain version of X4: X2 ``full``'s plain version (X4 only stages
-    each stage's product in a second accumulator before adding it)."""
+    """Plain version of X4: X2 ``full``'s plain version (X4 only picks its
+    slot by a branch, and on the CUDA cores stages each stage's product in
+    a second accumulator before adding it)."""
     return joint_fwd_v2_plain(x1, x2, half_t, "full", rb)
 
 
@@ -357,7 +358,7 @@ def _tma_lib():
     lib = _build.library("joint_exp_tma")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        for v in ("v3", "v5"):
+        for v in ("v3", "v4", "v5"):
             fn = getattr(lib, f"joint_exp_fwd_{v}_tma")
             fn.argtypes = [p] * 6 + [i] * 8 + [p]
             fn.restype = i
@@ -477,7 +478,7 @@ def _split_k_fwd(name, entry, x1, x2, half_t, rb, *flags,
 
 
 def _tma_fwd(name, entry, x1, x2, half_t, rb, to=torch.bfloat16):
-    """Launches a TMA-fed tensor-core form (X3, X5, X6; csrc/joint_exp_tma.cu)
+    """Launches a TMA-fed tensor-core form (X3-X6; csrc/joint_exp_tma.cu)
     on x1, x2 converted to ``to``: K1's layout pass, the stack product over
     X7's plan in passes of ``rb`` rows, the ordered reduce
     (``seg_joint.launch_joint_fwd_mma``)."""
@@ -538,14 +539,28 @@ def joint_fwd_v3(x1, x2, half_t, rb=16, flat=True, form=None):
                     half_t, rb)
 
 
-def joint_fwd_v4(x1, x2, half_t, rb=16):
+def joint_fwd_v4(x1, x2, half_t, rb=16, form=None):
     """X4: X3 with two separately declared slots chosen by a branch on the
-    parity, each stage's product staged in a second accumulator."""
+    parity, in the form ``form`` (one of ``X_FORMS``; by default
+    ``seg_joint.k1_form``'s).
+    Tensor cores (csrc/joint_exp_tma.cu): X3's walk over X7's plan (``rb``
+    the rows of a pass), the slot picked by a block-uniform branch on the
+    slab's parity, each slab brought by TMA; the TPU's staging of each
+    stage's product in a second accumulator is not kept (the TMA fills a
+    slot before it is read), so it equals X3's and X7's tensor-core forms
+    bit for bit. CUDA cores (csrc/joint_exp_pipe.cu): each stage's product
+    staged in a second accumulator and added; ``rb`` is the row quantum of
+    a chunk."""
+    form = form or sj.k1_form(x1.shape[1], half_t)
+    _check_form(form)
     _check_shift(half_t, rb)
     if not _on_cuda("joint_fwd_v4", x1, x2):
         return joint_fwd_v4_plain(x1, x2, half_t, rb)
-    return _split_k_fwd("joint_fwd_v4", _pipe_lib().joint_exp_fwd_v4, x1,
-                        x2, half_t, rb)
+    if form == "cuda-core":
+        return _split_k_fwd("joint_fwd_v4", _pipe_lib().joint_exp_fwd_v4, x1,
+                            x2, half_t, rb)
+    return _tma_fwd("joint_fwd_v4", _tma_lib().joint_exp_fwd_v4_tma, x1, x2,
+                    half_t, rb)
 
 
 def joint_fwd_v5(x1, x2, half_t, rb=16, form=None):

@@ -306,7 +306,10 @@ def _softmax_pair(rng, *shape):
 def test_k3_matches_plain(gpu, s, bn, k):
     """K3 vs its plain version at small and ragged shapes: loss and loss_nl
     within rtol 1e-5, atol 1e-5 (the JAX package's kernel contract), P
-    within 1e-6 of max |P|, total within rtol 1e-5."""
+    within 1e-6 of max |P| of the plain version in float64 (the kernel
+    sums each entry in row ranges, the f32 plain version in cuBLAS's
+    order, itself up to 1.1e-6 of max off float64), total within rtol
+    1e-5."""
     z, zt = (torch.from_numpy(a).to(gpu)
              for a in _softmax_pair(np.random.default_rng(k), s, bn, k))
     got = k3.iid_loss_fwd(z, zt, 1.3)
@@ -314,7 +317,8 @@ def test_k3_matches_plain(gpu, s, bn, k):
     for g, r in zip(got[:2], ref[:2]):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
-    p_ref = ref[2].cpu().numpy()
+    p_ref = k3.iid_loss_fused_plain(z.double(), zt.double(),
+                                    1.3)[2].cpu().numpy()
     np.testing.assert_allclose(got[2].cpu().numpy(), p_ref, rtol=0,
                                atol=1e-6 * np.abs(p_ref).max())
     np.testing.assert_allclose(got[3].cpu().numpy(), ref[3].cpu().numpy(),
@@ -389,13 +393,71 @@ def test_k3_refuses_what_it_cannot_launch(gpu):
     big = torch.rand(4, 200, device=gpu)
     with pytest.raises(ValueError, match="k <="):
         k3.iid_loss_fwd(big, big)
+    with pytest.raises(ValueError, match="form"):
+        k3.iid_loss_fwd(z, z, form="warp")
     lib = k3._lib()
     out = torch.empty(200 * 200 + 3, device=gpu)
     stream = torch.cuda.current_stream().cuda_stream
-    err = lib.iid_loss_fwd(big.data_ptr(), big.data_ptr(), out.data_ptr(),
-                           out.data_ptr(), out.data_ptr(), out.data_ptr(), 1,
-                           4, 200, 1.0, stream)
-    assert err != 0
+    for cluster in (0, k3.CLUSTER, 8, 17, -1):
+        k = 200 if cluster in (0, k3.CLUSTER) else 10
+        err = lib.iid_loss_fwd(big.data_ptr(), big.data_ptr(),
+                               out.data_ptr(), out.data_ptr(),
+                               out.data_ptr(), out.data_ptr(), 1, 4, k, 1.0,
+                               cluster, stream)
+        assert err != 0, cluster
+
+
+# K3's cluster form where its split is at an edge: bn under the cluster
+# (ranks with no rows), bn = 1, k = 1, k at iid_loss_max_k() (180), bn
+# ragged against both the cluster and the 32-row stage, and k % 4 of 0, 2
+# and odd (16-, 8- and 4-byte copies)
+K3_EDGES = [(5, 5, 70), (3, 1, 10), (2, 40, 1), (1, 1, 1), (2, 99, 180),
+            (5, 661, 70), (5, 663, 12), (3, 517, 33), (1, 300, 140)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,bn,k", K3_EDGES)
+def test_k3_cluster_split_edges(gpu, s, bn, k):
+    """K3's cluster form and its block form vs the plain version at the split's edges: loss and loss_nl within
+    rtol = atol = 1e-5, P within 1e-6 of max |P| (the cluster form against
+    the plain version in float64, the block form, which sums in its
+    order, against the f32 one), total within rtol 1e-5."""
+    z, zt = (torch.from_numpy(a).to(gpu)
+             for a in _softmax_pair(np.random.default_rng(bn + k), s, bn, k))
+    ref = k3.iid_loss_fused_plain(z, zt, 1.1)
+    p64 = k3.iid_loss_fused_plain(z.double(), zt.double(),
+                                  1.1)[2].cpu().numpy()
+    for form in k3.FORMS:
+        p_ref = p64 if form == "cluster" else ref[2].cpu().numpy()
+        got = k3.iid_loss_fwd(z, zt, 1.1, form=form)
+        for g, r in zip(got[:2], ref[:2]):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=form)
+        np.testing.assert_allclose(got[2].cpu().numpy(), p_ref, rtol=0,
+                                   atol=1e-6 * np.abs(p_ref).max(),
+                                   err_msg=form)
+        np.testing.assert_allclose(got[3].cpu().numpy(),
+                                   ref[3].cpu().numpy(), rtol=1e-5,
+                                   err_msg=form)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,bn,k", [(5, 660, 70), (5, 1000, 140),
+                                    (2, 5, 70)])
+def test_k3_launches_give_equal_bits(gpu, s, bn, k):
+    """The cluster form adds its partial joints in rank order and every
+    other sum in a fixed order: two launches give the same bits, and a
+    sub-head's numbers do not depend on the other sub-heads of the
+    launch."""
+    z, zt = (torch.from_numpy(a).to(gpu)
+             for a in _softmax_pair(np.random.default_rng(s * k), s, bn, k))
+    first = k3.iid_loss_fwd(z, zt, 1.0)
+    second = k3.iid_loss_fwd(z, zt, 1.0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    alone = k3.iid_loss_fwd(z[-1:].contiguous(), zt[-1:].contiguous(), 1.0)
+    for a, b in zip(first, alone):
+        assert torch.equal(a[-1:], b)
 
 
 _NO_LAUNCH = dict.fromkeys(jx.LAUNCHES, 0)
@@ -778,15 +840,13 @@ def test_x7_x8_x9_refuse_what_they_cannot_launch(gpu):
             stream) != 0
 
 
-# X3 at every rb and flat in its default form and at every rb in each
-# form, X4 at every rb, X5 at every rb in each form, X6 at both roll_build
-# in each form
+# X3 at every rb and flat in its default form, X3, X4 and X5 at every rb
+# in each form, X6 at both roll_build in each form
 PIPE = ([("joint_fwd_v3", {"rb": rb, "flat": flat})
          for rb in (16, 32, 64) for flat in (True, False)]
         + [(name, {"rb": rb, "form": f})
-           for name in ("joint_fwd_v3", "joint_fwd_v5") for f in jx.X_FORMS
-           for rb in (16, 32, 64)]
-        + [("joint_fwd_v4", {"rb": rb}) for rb in (16, 32, 64)]
+           for name in ("joint_fwd_v3", "joint_fwd_v4", "joint_fwd_v5")
+           for f in jx.X_FORMS for rb in (16, 32, 64)]
         + [("joint_fwd_v6", {"roll_build": roll, "form": f})
            for f in jx.X_FORMS for roll in (False, True)])
 
@@ -794,7 +854,7 @@ PIPE = ([("joint_fwd_v3", {"rb": rb, "flat": flat})
 @pytest.mark.cuda
 @pytest.mark.parametrize("half_t,n,k,h,w", X2_SHAPES)
 def test_x3_x6_match_plain(gpu, half_t, n, k, h, w):
-    """X3-X6 (X3, X5 and X6 in both forms) vs X2's plain version: the same
+    """X3-X6 (each in both forms) vs X2's plain version: the same
     bf16 operands (X6 rounds its f32 inputs itself) and exact products, so
     only the f32 summation order differs: rtol 1e-4, atol 2e-5 * max. One
     launch is counted per call."""
@@ -818,7 +878,10 @@ def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
     that form, so at one rb they equal it bit for bit: on the CUDA cores
     the same stages (X5's priming and padding products add zeros), on the
     tensor cores K1's products in K1's order, fed by TMA (X3 one slab at a
-    time, X5 two from static slots). The form is named in every call: the
+    time, X5 two from static slots). So does X4 on the tensor cores (one
+    slab from the slot a branch on its parity picks; its CUDA-core form
+    adds each stage's staged product, another order). The form is named
+    in every call: the
     default is the tensor cores at k > 4. In each form X6 equals X5 on
     inputs the wrapper rounds, and roll_build=True equals False, bit for
     bit."""
@@ -830,6 +893,9 @@ def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
             assert torch.equal(x3, x7), (form, rb)
             assert torch.equal(jx.joint_fwd_v3(x1, x2, half_t, rb, False,
                                                form=form), x7), (form, rb)
+            if form == "wgmma":
+                x4 = jx.joint_fwd_v4(x1, x2, half_t, rb, form=form)
+                assert torch.equal(x4, x7) and torch.equal(x4, x3), rb
             x5 = jx.joint_fwd_v5(x1, x2, half_t, rb, form=form)
             assert torch.equal(x5, x7) and torch.equal(x5, x3), (form, rb)
         x6 = jx.joint_fwd_v6(x1, x2, half_t, form=form)
@@ -843,13 +909,13 @@ def test_x3_x5_x6_sum_in_x7_order(gpu, half_t, n, k, h, w):
 def test_x3_x6_refuse_what_they_cannot_launch(gpu):
     """Bad input raises before a launch; the TPU tool's asserts are refused
     on the card too (X6 has no rb: half_t=10 runs where X3-X5 at rb=8
-    refuse it), in each form of X3, X5 and X6, which refuse any other
-    form; a launch the C entry points refuse (no chunks) returns a CUDA
-    error code."""
+    refuse it), in each form of X3-X6, which refuse any other form; a
+    launch the C entry points refuse (no chunks) returns a CUDA error
+    code."""
     x = torch.rand(2, 3, 8, 8, device=gpu)
-    formed = (jx.joint_fwd_v3, jx.joint_fwd_v5, jx.joint_fwd_v6)
-    calls = [(jx.joint_fwd_v4, {})] + [(fn, {"form": f}) for fn in formed
-                                       for f in jx.X_FORMS]
+    formed = (jx.joint_fwd_v3, jx.joint_fwd_v4, jx.joint_fwd_v5,
+              jx.joint_fwd_v6)
+    calls = [(fn, {"form": f}) for fn in formed for f in jx.X_FORMS]
     for fn, kw in calls:
         with pytest.raises(TypeError):
             fn(x.double(), x.double(), 2, **kw)
@@ -879,10 +945,11 @@ def test_x3_x6_refuse_what_they_cannot_launch(gpu):
         assert entry(xb.data_ptr(), xb.data_ptr(), *args, 0, 16, stream) != 0
     assert lib.joint_exp_fwd_v6(x.data_ptr(), x.data_ptr(), *args, 1, 0, 16,
                                 stream) != 0
-    # the tensor-core forms of X3, X5, X6 (both roll_build): no chunks, or
-    # chunks that miss passes
+    # the tensor-core forms of X3-X6 (X6 at both roll_build): no chunks,
+    # or chunks that miss passes
     lib = jx._tma_lib()
-    entries = [lib.joint_exp_fwd_v3_tma, lib.joint_exp_fwd_v5_tma] + [
+    entries = [lib.joint_exp_fwd_v3_tma, lib.joint_exp_fwd_v4_tma,
+               lib.joint_exp_fwd_v5_tma] + [
         lambda *a, roll=roll: lib.joint_exp_fwd_v6_tma(*a[:-1], roll, a[-1])
         for roll in (0, 1)]
     for tma in entries:

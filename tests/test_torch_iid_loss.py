@@ -171,3 +171,98 @@ def test_fused_backward_passes_gradcheck():
     assert torch.autograd.gradcheck(
         lambda x, y: tk.iid_loss_fused(x, y, 1.3), (a, b), eps=1e-6,
         atol=1e-6, rtol=1e-3)
+
+
+def _cluster_rows(bn, cluster):
+    """The row ranges [r0, r1) of a sub-head's bn rows that the cluster
+    form's ranks 0 ... cluster-1 take (csrc/iid_loss.cu: ceil(bn /
+    cluster) rows each, the last ones shorter or empty)."""
+    per = -(-bn // cluster)
+    return [(min(bn, r * per), min(bn, (r + 1) * per))
+            for r in range(cluster)]
+
+
+def _cluster_restated(z, zt, lamb, cluster):
+    """K3's cluster form (csrc/iid_loss.cu iid_loss_cluster_kernel)
+    restated on one sub-head in f32: rank r's partial joint over its rows
+    (``_cluster_rows``; a rank with none adds zeros); the rows i = r + C m
+    of the symmetrised joint, (a + b) / 2 with a and b the partials of (i,
+    j) and of (j, i) added in rank order 0 ... C-1; T the ranks' sums of
+    their rows added in rank order; P = J / T; the log marginals of the
+    unclamped P (row sums: one array for p_i and p_j, P being symmetric);
+    the clamped log terms of each rank's rows, the ranks' sums added in
+    rank order."""
+    bn, k = z.shape
+    partials = [z[r0:r1].T @ zt[r0:r1]
+                for r0, r1 in _cluster_rows(bn, cluster)]
+    a = torch.zeros(k, k)
+    b = torch.zeros(k, k)
+    for part in partials:
+        a = a + part
+        b = b + part.T
+    sym = (a + b) / 2.0
+    owned = [torch.tensor(range(r, k, cluster), dtype=torch.long)
+             for r in range(cluster)]
+    total = torch.zeros(())
+    for rows in owned:
+        total = total + sym[rows].sum()
+    p = sym / total
+    log_m = torch.log(p.sum(dim=1).clamp_min(tk.EPS))
+    p_c = p.clamp_min(tk.EPS)
+    log_p = torch.log(p_c)
+    loss = torch.zeros(())
+    loss_nl = torch.zeros(())
+    for rows in owned:
+        li = log_m[rows][:, None]
+        loss = loss - (p_c[rows] * (log_p[rows] - lamb * log_m[None, :]
+                                    - lamb * li)).sum()
+        loss_nl = loss_nl - (p_c[rows] * (log_p[rows] - log_m[None, :]
+                                          - li)).sum()
+    return loss, loss_nl, p, total
+
+
+def test_cluster_rows_cover_the_rows_once():
+    """The restatement's ranks take contiguous ranges that cover the bn
+    rows once, in order; past the end a rank's range is empty."""
+    for bn in (1, 5, 7, 8, 9, 660, 1000):
+        for cluster in (1, 3, tk.CLUSTER):
+            ranges = _cluster_rows(bn, cluster)
+            assert len(ranges) == cluster
+            assert ranges[0][0] == 0 and ranges[-1][1] == bn
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(r0 <= r1 for r0, r1 in ranges)
+
+
+@pytest.mark.parametrize("bn,k,lamb", SHAPES + [(5, 10, 1.0), (1, 7, 1.0),
+                                                (40, 1, 1.0)])
+def test_cluster_restatement_matches_jax_kernel(bn, k, lamb):
+    """K3's cluster split restated (``tk.CLUSTER`` ranks: bn under the
+    cluster, bn = 1 and k = 1 included) against the JAX fused kernel (interpret
+    mode): loss and loss_nl within 1e-5, P within 1e-6 of its max, total
+    within rtol 1e-5."""
+    z, zt = _pair(7, bn, k)
+    with pltpu.force_tpu_interpret_mode():
+        (loss, nl), (p, total) = jk._fwd(jnp.asarray(z), jnp.asarray(zt),
+                                         lamb)
+    p = np.asarray(p)
+    got = _cluster_restated(torch.from_numpy(z), torch.from_numpy(zt),
+                            lamb, tk.CLUSTER)
+    _close(float(got[0]), float(loss))
+    _close(float(got[1]), float(nl))
+    _close(got[2].numpy(), p, rtol=0, atol=1e-6 * np.abs(p).max())
+    _close(float(got[3]), float(total), rtol=1e-5, atol=0)
+
+
+def test_fwd_forms_on_cpu_are_the_plain_version():
+    """On CPU tensors both forms return the plain version and count no
+    launch; an unknown form is refused on every device."""
+    z, zt = (torch.from_numpy(a) for a in _pair(8, 3, 20, 6))
+    tk.reset_launch_counts()
+    ref = tk.iid_loss_fused_plain(z, zt, 1.2)
+    for form in tk.FORMS:
+        got = tk.iid_loss_fwd(z, zt, 1.2, form=form)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert tk.LAUNCHES == {"iid_loss_fwd": 0}
+    with pytest.raises(ValueError, match="form"):
+        tk.iid_loss_fwd(z, zt, form="warp")

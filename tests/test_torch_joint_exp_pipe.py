@@ -190,6 +190,30 @@ def _single_walk(rows):
     return ev
 
 
+def _branch_walk(rows):
+    """X4's tensor-core loop (joint_fwd_tma_branch_kernel) in the same
+    steps: X3's prologue and phases, with the slot picked by a branch on
+    the slab's parity. The even branch waits on full[0] at parity (i // 2)
+    % 2 and, from slab 2 on, refills slot 1 once slab i - 1 has left it
+    (parity ((i - 1) // 2) % 2, the other of the two); the odd branch waits
+    on full[1] and refills slot 0 once slab i - 1 has (the same parity)."""
+    ev = [("load", 0, 0)] if rows else []
+    for i, nr in enumerate(rows):
+        par = (i >> 1) & 1
+        slot = i & 1  # the branch taken: its slot and barriers are fixed
+        ev.append(("wait_full", slot, par))
+        for ry in range(nr):
+            ev.append(("row", slot, i, ry))
+            if ry == 0 and i + 1 < len(rows):
+                if slot == 0 and i > 0:
+                    ev.append(("wait_empty", 1, par ^ 1))
+                elif slot == 1:
+                    ev.append(("wait_empty", 0, par))
+                ev.append(("load", slot ^ 1, i + 1))
+        ev.append(("arrive", slot))
+    return ev
+
+
 def _pair_walk(rows):
     """X5's tensor-core loop (joint_fwd_tma_pair_kernel) in the same
     steps: the prologue loads slabs 0 and 1; iteration m takes slab 2m from
@@ -256,18 +280,21 @@ def _barrier_model(ev, n):
 
 @pytest.mark.parametrize("slabs", range(8))
 def test_tma_walks_keep_their_mbarrier_phases(slabs):
-    """X3's and X5's loops over 0-7 slabs a chunk (ragged rows): every
-    wait finds its phase completed, no slot is read before its slab lands
-    or overwritten before it is read, every slab is multiplied once and in
-    order, and no load is left in flight; X5 multiplies X3's rows in X3's
-    order (so the same sums)."""
+    """X3's, X4's and X5's loops over 0-7 slabs a chunk (ragged rows):
+    every wait finds its phase completed, no slot is read before its slab
+    lands or overwritten before it is read, every slab is multiplied once
+    and in order, and no load is left in flight; X4 and X5 multiply X3's
+    rows in X3's order (so the same sums), and X4's branches take X3's
+    steps exactly."""
     rows = [16 - 5 * (i % 3) for i in range(slabs)]
     got = {}
-    for name, walk in (("x3", _single_walk), ("x5", _pair_walk)):
+    for name, walk in (("x3", _single_walk), ("x4", _branch_walk),
+                       ("x5", _pair_walk)):
         got[name] = [e[2:] for e in _barrier_model(walk(rows), slabs)
                      if e[0] == "row"]
-    assert got["x5"] == got["x3"] == [(i, r) for i in range(slabs)
-                                      for r in range(rows[i])]
+    assert got["x5"] == got["x4"] == got["x3"] == [
+        (i, r) for i in range(slabs) for r in range(rows[i])]
+    assert _branch_walk(rows) == _single_walk(rows)
 
 
 _LANE = torch.arange(32)
@@ -359,12 +386,12 @@ def _fragments_to_a(regs):
 
 
 def _tma_restated(x1, x2, half_t, rb=16, chunk_rows=sj.K1_CHUNK_ROWS,
-                  pairs=False, roll=False):
-    """The tensor-core forms of X3 (``pairs`` False) and X5 / X6
-    (csrc/joint_exp_tma.cu) restated in plain PyTorch from the boxes their
-    TMA loads bring: for each block (N tile, M tile, chunk of
-    ``sj.k1_plan``), K1's slab walk as the kernel's loop runs it
-    (``_single_walk`` or ``_pair_walk``, through ``_barrier_model``), each
+                  walk=_single_walk, roll=False):
+    """The tensor-core forms of X3 (``walk`` ``_single_walk``), X4
+    (``_branch_walk``) and X5 / X6 (``_pair_walk``; csrc/joint_exp_tma.cu)
+    restated in plain PyTorch from the boxes their TMA loads bring: for
+    each block (N tile, M tile, chunk of ``sj.k1_plan``), K1's slab walk as
+    the kernel's loop runs it (``walk``, through ``_barrier_model``), each
     load a slot built from the four boxes of ``jx.X3_BOX_B`` (x2 window at
     (q0, wy - h + up0)) and ``jx.X3_BOX_A`` (x1 rows at (q0 + v0 - h,
     wy)), each channel half at channel 0 or 8, over the tensor maps (16, w,
@@ -398,7 +425,6 @@ def _tma_restated(x1, x2, half_t, rb=16, chunk_rows=sj.K1_CHUNK_ROWS,
         + 2 * (col % 8)
 
     part = torch.zeros(splits, tk, tk)
-    walk = _pair_walk if pairs else _single_walk
     by_chunk = [[] for _ in range(splits)]
     for slab in k1_slabs(n, h, w, rb, chunk_rows, half_t, k):
         by_chunk[slab[0]].append(slab[1:])
@@ -532,7 +558,28 @@ def test_x5_tma_restatement_matches_jax_v5(n, k, h, w, half_t, rb,
     ref = np.asarray(jax_tool.joint_fwd_v5(jnp.asarray(x1), jnp.asarray(x2),
                                            half_t, rb=rb))
     t1, t2 = torch.from_numpy(x1), torch.from_numpy(x2)
-    got = _tma_restated(t1, t2, half_t, rb, chunk_rows, pairs=True)
+    got = _tma_restated(t1, t2, half_t, rb, chunk_rows, walk=_pair_walk)
+    t = 2 * half_t + 1
+    assert got.shape == ref.shape == (k, k, t, t)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    assert torch.equal(got, _x3_tma_restated(t1, t2, half_t, rb, chunk_rows))
+
+
+@pytest.mark.parametrize("n,k,h,w,half_t,rb,chunk_rows", X5_SHAPES)
+def test_x4_tma_restatement_matches_jax_v4(n, k, h, w, half_t, rb,
+                                           chunk_rows):
+    """X4's tensor-core form restated (``_tma_restated`` over X4's walk:
+    one slab an iteration, the slot picked by a branch on its parity) vs
+    the TPU tool's ``joint_fwd_v4`` (interpret mode): atol 1e-5 * max, at
+    chunks of 1, 2, 3 and 8 slabs. It also equals X3's restatement bit for
+    bit: the same products in the same order, as on the card."""
+    rng = np.random.default_rng(3 * k + w)
+    x1, x2 = (_softmax_maps(rng, n, k, h, w) for _ in range(2))
+    ref = np.asarray(jax_tool.joint_fwd_v4(jnp.asarray(x1), jnp.asarray(x2),
+                                           half_t, rb=rb))
+    t1, t2 = torch.from_numpy(x1), torch.from_numpy(x2)
+    got = _tma_restated(t1, t2, half_t, rb, chunk_rows, walk=_branch_walk)
     t = 2 * half_t + 1
     assert got.shape == ref.shape == (k, k, t, t)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0,
@@ -557,7 +604,7 @@ def test_x6_tma_restatement_matches_jax_v6(n, k, h, w, half_t, chunk_rows):
     ref = np.asarray(jax_tool.joint_fwd_v6(jnp.asarray(x1), jnp.asarray(x2),
                                            half_t, roll_build=False))
     got = _tma_restated(torch.from_numpy(x1), torch.from_numpy(x2), half_t,
-                        16, chunk_rows, pairs=True).numpy()
+                        16, chunk_rows, walk=_pair_walk).numpy()
     t = 2 * half_t + 1
     assert got.shape == ref.shape == (k, k, t, t)
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
@@ -577,10 +624,10 @@ def test_x6_roll_restatement_equals_plain_fragments(n, k, h, w, half_t,
     rng = np.random.default_rng(5 * k + w)
     x1, x2 = (torch.from_numpy(_softmax_maps(rng, n, k, h, w))
               for _ in range(2))
-    rolled = _tma_restated(x1, x2, half_t, 16, chunk_rows, pairs=True,
+    rolled = _tma_restated(x1, x2, half_t, 16, chunk_rows, walk=_pair_walk,
                            roll=True)
     assert torch.equal(rolled, _tma_restated(x1, x2, half_t, 16, chunk_rows,
-                                             pairs=True))
+                                             walk=_pair_walk))
 
 
 def test_roll_covers_every_shift_and_the_tail():
@@ -606,11 +653,12 @@ def test_roll_covers_every_shift_and_the_tail():
     assert not torch.equal(even_only[:, 1::2], plain[:, 1::2])
 
 
-@pytest.mark.parametrize("name,kw", [("joint_fwd_v5", {"rb": 16}),
+@pytest.mark.parametrize("name,kw", [("joint_fwd_v4", {"rb": 16}),
+                                     ("joint_fwd_v5", {"rb": 16}),
                                      ("joint_fwd_v6", {"roll_build": True}),
                                      ("joint_fwd_v6", {})])
 def test_x5_x6_form_argument(name, kw):
-    """X5 and X6 take ``form`` in X_FORMS, as X3 does, and refuse anything
+    """X4, X5 and X6 take ``form`` in X_FORMS, as X3 does, and refuse anything
     else on every device; on CPU tensors every form returns the plain
     version and counts no launch; the TPU tool's asserts hold in both
     forms."""
