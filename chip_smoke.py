@@ -102,7 +102,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      Synthetic10x32x3, --fused_loss) with --test_code, counts set to 0
      just before; require finite losses for both heads, a pre-train and an
      epoch eval with the double-eval lists, and at least one K3 launch per
-     step;
+     step; phases 9 and 10 run in f32 and then in bf16 (--model_dtype
+     bfloat16), each behind the default prefetch thread, with the same
+     checks, and the kernel table's K1, K2 and K3 launches are the sums of
+     the four runs;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -110,10 +113,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      report, none FAILED, finite times and errors, the exact ablations
      exact, X9 within 1e-5 mean of its float64 plain version, and at least
      one launch of X1-X9;
- 12. profile steady head-A and head-B steps of both paths: step time,
-     device busy share and device time by kernel, and the kernels' share
-     (chrome traces go to --trace_dir when it is given);
- 13. print the kernel table as one JSON line (each kernel's launches on
+ 12. profile steady head-A and head-B steps of both paths in f32 and in
+     bf16: step time, device busy share and device time by kernel, and
+     the kernels' share (chrome traces go to --trace_dir when it is
+     given); print each step's device time by family in f32 beside bf16;
+ 13. the headline rate by bench.py's method (a log line, not a
+     benchmark): model 555 at batch 120, heads A and B alternating full
+     passes over one continuous stream, 2 warm and 4 timed passes between
+     float(loss) barriers; aug-pairs/s and the ratio to the reference's
+     33/4 a GPU, in f32 and bf16, each behind the prefetch thread at depth
+     8 and without it; model 640's head-A wall a step in the same four
+     settings;
+ 14. print the kernel table as one JSON line (each kernel's launches on
      its path, max error against its plain version, its time, the plain
      version's, the library call's and the bound), then the result line.
 """
@@ -1516,8 +1527,9 @@ def _read_counts():
     return {k: v for mod in _launch_counts() for k, v in mod.LAUNCHES.items()}
 
 
-def phase_trainer():
-    """The segmentation CLI in-process. Returns {kernel: launches in the
+def phase_trainer(dtype):
+    """The segmentation CLI in-process in ``dtype`` (``--model_dtype``),
+    behind the default prefetch thread. Returns {kernel: launches in the
     run}."""
     import numpy as np
     from iic_tpu_torch.cli import segmentation_twohead
@@ -1525,12 +1537,12 @@ def phase_trainer():
     with tempfile.TemporaryDirectory() as out_root:
         _reset_counts()
         _, history = segmentation_twohead.main(
-            CLI_ARGS + ["--out_root", out_root])
+            CLI_ARGS + ["--model_dtype", dtype, "--out_root", out_root])
         launches = _read_counts()
     for head in ("A", "B"):
         losses = history[f"epoch_loss_head_{head}"]
         steps = history[f"step_seconds_head_{head}"]
-        _log(f"head {head}: epoch loss {losses}, step seconds "
+        _log(f"{dtype} head {head}: epoch loss {losses}, step seconds "
              f"{[round(s, 4) for s in steps]}")
         if not losses or not np.all(np.isfinite(losses)):
             raise AssertionError(f"head {head} loss not finite: {losses}")
@@ -1538,14 +1550,15 @@ def phase_trainer():
     _log(f"eval acc per epoch (pre-train first): {acc}")
     if len(acc) < 2 or not np.all(np.isfinite(acc)):
         raise AssertionError(f"eval history not filled: {acc}")
-    _log(f"launches in the segmentation run: {launches}")
+    _log(f"launches in the {dtype} segmentation run: {launches}")
     if launches["seg_joint_fwd"] < 4 or launches["seg_joint_dgrad"] < 8:
         raise AssertionError(f"main path missed the kernels: {launches}")
     return launches
 
 
-def phase_cluster_trainer():
-    """The clustering CLI in-process. Returns {kernel: launches in the
+def phase_cluster_trainer(dtype):
+    """The clustering CLI in-process in ``dtype`` (``--model_dtype``),
+    behind the default prefetch thread. Returns {kernel: launches in the
     run}."""
     import numpy as np
     from iic_tpu_torch.cli import cluster_sobel_twohead
@@ -1553,14 +1566,16 @@ def phase_cluster_trainer():
     with tempfile.TemporaryDirectory() as out_root:
         _reset_counts()
         _, history = cluster_sobel_twohead.main(
-            CLUSTER_CLI_ARGS + ["--out_root", out_root])
+            CLUSTER_CLI_ARGS + ["--model_dtype", dtype, "--out_root",
+                                out_root])
         launches = _read_counts()
     n_steps = 0
     for head in ("A", "B"):
         losses = history[f"epoch_loss_head_{head}"]
         steps = history[f"step_seconds_head_{head}"]
         n_steps += len(steps)
-        _log(f"cluster head {head}: epoch loss {losses}, step seconds "
+        _log(f"{dtype} cluster head {head}: epoch loss {losses}, step "
+             f"seconds "
              f"{[round(s, 4) for s in steps]}")
         if not losses or not np.all(np.isfinite(losses)):
             raise AssertionError(f"head {head} loss not finite: {losses}")
@@ -1571,7 +1586,8 @@ def phase_cluster_trainer():
                       ("double eval", ev.double_eval_acc)):
         if len(acc) < 2 or not np.all(np.isfinite(acc)):
             raise AssertionError(f"{name} history not filled: {acc}")
-    _log(f"launches in the clustering run: {launches}; {n_steps} steps, so "
+    _log(f"launches in the {dtype} clustering run: {launches}; {n_steps} "
+         f"steps, so "
          f"{n_steps} K3 launches expected (one per step for all 5 "
          f"sub-heads; {5 * n_steps} if launched per sub-head)")
     if launches["iid_loss_fwd"] < n_steps:
@@ -1635,7 +1651,7 @@ def _f64_errors(k, x1, x2, g2d):
 # the hand-written kernels come first, from each path's ``focus``
 FAMILIES = (
     ("cuDNN convolutions", ("implicit_gemm", "xmma", "cask")),
-    ("BatchNorm", ("batchnorm", "bn_fw", "bn_bw")),
+    ("BatchNorm", ("batchnorm", "batch_norm", "bn_fw", "bn_bw")),
     ("NCHW/NHWC layout transforms", ("nchwToNhwc", "nhwcToNchw")),
     ("max-pool", ("max_pool",)),
     ("Adam", ("multi_tensor_apply", "Adam")),
@@ -1647,7 +1663,8 @@ def _profile(tag, step, batches, trace_dir, focus, steps=3):
     then ``steps`` more under torch.profiler: device busy share, device time
     by kernel and by family, and the share of the kernels named in
     ``focus``. Launches here are not counted: the counts were read after
-    the trainer runs."""
+    the trainer runs. Returns {family: device ms a step}, with the wall
+    ("wall") and the device busy time ("busy") a step."""
     import os
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1693,10 +1710,27 @@ def _profile(tag, step, batches, trace_dir, focus, steps=3):
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             trace_dir, f"trace_{tag.replace(' ', '_')}.json"))
+    return {**fams, "wall": wall, "busy": busy}
 
 
-def phase_profile(trace_dir):
-    """Steady head-A and head-B steps of the segmentation path."""
+def _side_by_side(profiles):
+    """Each profiled step's device time by family in f32 beside bf16:
+    ``profiles`` maps (path, head) to {dtype: ``_profile``'s result}."""
+    for (path, head), by_dtype in profiles.items():
+        f32, bf16 = by_dtype["float32"], by_dtype["bfloat16"]
+        _log(f"{path} head {head}, ms a step, float32 -> bfloat16: wall "
+             f"{f32['wall']:.3f} -> {bf16['wall']:.3f}, device busy "
+             f"{f32['busy']:.3f} -> {bf16['busy']:.3f}; by family:")
+        fams = (set(f32) | set(bf16)) - {"wall", "busy"}
+        for name in sorted(fams, key=lambda n: -f32.get(n, 0.0)):
+            a, b = f32.get(name, 0.0), bf16.get(name, 0.0)
+            ratio = f"{b / a:.3f}x" if a else "new"
+            _log(f"    {name}: {a:.3f} -> {b:.3f} ({ratio})")
+
+
+def phase_profile(trace_dir, dtype):
+    """Steady head-A and head-B steps of the segmentation path in
+    ``dtype``. Returns {head: ``_profile``'s result}."""
     import torch
     from iic_tpu_torch import models
     from iic_tpu_torch.cli._args import parse_seg_args
@@ -1704,47 +1738,177 @@ def phase_profile(trace_dir):
     from iic_tpu_torch.parallel.train_step import (make_optimizer,
                                                    make_seg_train_step)
 
-    cfg = parse_seg_args(CLI_ARGS).finalize(twohead=True)
+    cfg = parse_seg_args(CLI_ARGS + ["--model_dtype", dtype]).finalize(
+        twohead=True)
     torch.manual_seed(0)
     pipe = SegTrainPipeline(cfg, ["train"], seed=0, device="cuda")
     net = models.build(cfg.arch, cfg).cuda()
     opt = make_optimizer(net, cfg)
     batches = [((imgs, masks), gen) for imgs, masks, gen in pipe.epoch(1)]
+    out = {}
     for head, lamb in (("A", cfg.lamb_A), ("B", cfg.lamb_B)):
         step = make_seg_train_step(
             net, opt, lamb=lamb, head=head, half_T_side_dense=HALF_T,
             half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
             include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment)
-        _profile(f"seg head {head}", step, batches, trace_dir,
-                 ("joint_fwd_mma_kernel", "jf_layout_kernel",
-                  "joint_partial_kernel", "joint_reduce_kernel",
-                  "dgrad_v8_kernel", "dgrad_kernel"))
+        out[head] = _profile(
+            f"{dtype} seg head {head}", step, batches, trace_dir,
+            ("joint_fwd_mma_kernel", "jf_layout_kernel",
+             "joint_partial_kernel", "joint_reduce_kernel",
+             "dgrad_v8_kernel", "dgrad_kernel"))
+    return out
 
 
-def phase_cluster_profile(trace_dir):
-    """Steady head-A and head-B steps of the clustering path (K3 on)."""
+def phase_cluster_profile(trace_dir, dtype):
+    """Steady head-A and head-B steps of the clustering path (K3 on) in
+    ``dtype``. Returns {head: ``_profile``'s result}."""
     import torch
     from iic_tpu_torch import models
-    from iic_tpu_torch.cli._args import parse_cluster_args
     from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
     from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
                                                    make_optimizer)
 
-    cfg = parse_cluster_args(CLUSTER_CLI_ARGS)
-    cfg.lamb_A = cfg.lamb_B = cfg.lamb
-    cfg.finalize(twohead=True, sobel=True)
+    cfg = _cluster_cfg(dtype)
     torch.manual_seed(0)
     pipe_a, pipe_b, _, _ = cluster_twohead_create_dataloaders(
         cfg, seed=0, device="cuda")
     net = models.build(cfg.arch, cfg).cuda()
     opt = make_optimizer(net, cfg)
+    out = {}
     for head, pipe in (("A", pipe_a), ("B", pipe_b)):
         step = make_cluster_train_step(
             net, opt, pipe.augment_pair, lamb=cfg.lamb, head=head, sobel=True,
             include_rgb=cfg.include_rgb, loss_impl="fused")
         batches = [b for _, b in zip(range(8), pipe.epoch(1))]
-        _profile(f"cluster head {head}", step, batches, trace_dir,
-                 ("iid_loss_cluster_kernel", "iid_loss_block_kernel"))
+        out[head] = _profile(
+            f"{dtype} cluster head {head}", step, batches, trace_dir,
+            ("iid_loss_cluster_kernel", "iid_loss_block_kernel"))
+    return out
+
+
+def _cluster_cfg(dtype):
+    """Model 640's config (``CLUSTER_CLI_ARGS``) in ``dtype``."""
+    from iic_tpu_torch.cli._args import parse_cluster_args
+
+    cfg = parse_cluster_args(CLUSTER_CLI_ARGS + ["--model_dtype", dtype])
+    cfg.lamb_A = cfg.lamb_B = cfg.lamb
+    cfg.finalize(twohead=True, sobel=True)
+    return cfg
+
+
+# bench.py:117-131's method: 2 warm and 4 timed passes, heads A and B
+# alternating full passes, one continuous stream at depth 8
+RATE_WARM, RATE_TIMED, RATE_DEPTH = 2, 4, 8
+REFERENCE_PAIRS_PER_SEC = 33.0 / 4.0  # bench.py:24, the reference per GPU
+CLUSTER_WARM, CLUSTER_TIMED = 1, 2  # head-A passes of model 640
+
+
+def _stream(pipe, epochs, prefetch):
+    """(epoch, batch...) over ``epochs``: one prefetch thread at
+    ``RATE_DEPTH`` (``prefetch_epochs``) or the same chain in the
+    caller's thread."""
+    from iic_tpu_torch.data.prefetch import prefetch_epochs
+
+    if prefetch:
+        return prefetch_epochs(pipe, epochs, depth=RATE_DEPTH)
+    return ((e_i, *item) for e_i in epochs for item in pipe.epoch(e_i))
+
+
+def _seg_rate(dtype, prefetch):
+    """Aug-pairs/s of model 555's training at batch 120 by bench.py's
+    method: the timer starts at a ``float(loss)`` barrier when the first
+    batch of the first timed pass arrives and stops at one after the
+    last step."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
+    from iic_tpu_torch.parallel.train_step import (make_optimizer,
+                                                   make_seg_train_step)
+
+    cfg = parse_seg_args(CLI_ARGS + ["--model_dtype", dtype]).finalize(
+        twohead=True)
+    torch.manual_seed(0)
+    pipe = SegTrainPipeline(cfg, ["train"], seed=0, device="cuda")
+    net = models.build(cfg.arch, cfg).cuda()
+    opt = make_optimizer(net, cfg)
+    steps = {h: make_seg_train_step(
+        net, opt, lamb=lamb, head=h, half_T_side_dense=HALF_T,
+        half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
+        include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment)
+        for h, lamb in (("A", cfg.lamb_A), ("B", cfg.lamb_B))}
+    loss, t0, n_pairs = None, None, 0
+    for e_i, imgs, masks, gen in _stream(
+            pipe, range(RATE_WARM + RATE_TIMED), prefetch):
+        if e_i == RATE_WARM and t0 is None:
+            float(loss)  # barrier: the warm passes fully drained
+            t0 = time.perf_counter()
+        loss, _ = steps["AB"[e_i % 2]]((imgs, masks), gen)
+        if t0 is not None:
+            n_pairs += int(imgs.shape[0])
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{dtype} rate run: loss {float(loss)}")
+    return n_pairs / (time.perf_counter() - t0)
+
+
+def _cluster_wall(dtype, prefetch):
+    """Model 640's head-A steps (``--fused_loss``), ms of wall a step over
+    ``CLUSTER_TIMED`` whole passes after ``CLUSTER_WARM``, between
+    ``float(loss)`` barriers, as ``_seg_rate`` times them."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
+                                                   make_optimizer)
+
+    cfg = _cluster_cfg(dtype)
+    torch.manual_seed(0)
+    pipe, _, _, _ = cluster_twohead_create_dataloaders(cfg, seed=0,
+                                                       device="cuda")
+    net = models.build(cfg.arch, cfg).cuda()
+    step = make_cluster_train_step(
+        net, make_optimizer(net, cfg), pipe.augment_pair, lamb=cfg.lamb,
+        head="A", sobel=True, include_rgb=cfg.include_rgb, loss_impl="fused")
+    loss, t0, n_steps = None, None, 0
+    for e_i, base, gen in _stream(
+            pipe, range(CLUSTER_WARM + CLUSTER_TIMED), prefetch):
+        if e_i == CLUSTER_WARM and t0 is None:
+            float(loss)
+            t0 = time.perf_counter()
+        loss, _ = step(base, gen)
+        n_steps += t0 is not None
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"{dtype} cluster wall run: loss {float(loss)}")
+    return (time.perf_counter() - t0) / n_steps * 1e3
+
+
+def phase_rates():
+    """The headline rate (a log line, not a benchmark): model 555's
+    aug-pairs/s and its ratio to the reference's 33/4 a GPU, and model
+    640's wall a step, in f32 and bf16, each behind the prefetch thread
+    and without it, in the order with, without, without, with (the host's
+    time drifts within a run). Returns {(path, dtype, prefetch): [number
+    a run]}."""
+    batch = int(CLUSTER_CLI_ARGS[CLUSTER_CLI_ARGS.index("--batch_sz") + 1])
+    rates = {}
+    for dtype in ("float32", "bfloat16"):
+        for prefetch in (True, False, False, True):
+            tag = f"{dtype}, " + (f"prefetch depth {RATE_DEPTH}" if prefetch
+                                  else "no prefetch")
+            rate = _seg_rate(dtype, prefetch)
+            rates.setdefault(("seg", dtype, prefetch), []).append(rate)
+            _log(f"headline rate, model 555 ({tag}): {rate:.2f} aug-pairs/s, "
+                 f"{rate / REFERENCE_PAIRS_PER_SEC:.2f}x the reference's "
+                 f"33/4 a GPU")
+            wall = _cluster_wall(dtype, prefetch)
+            rates.setdefault(("cluster", dtype, prefetch), []).append(wall)
+            _log(f"model 640 head A ({tag}): {wall:.2f} ms of wall a step "
+                 f"({batch / wall * 1e3:.0f} aug-pairs/s)")
+    for (path, dtype, prefetch), runs in rates.items():
+        unit = "aug-pairs/s" if path == "seg" else "ms a step"
+        _log(f"mean of {len(runs)}: {path} {dtype} prefetch={prefetch}: "
+             f"{sum(runs) / len(runs):.2f} {unit}")
+    return rates
 
 
 def main(argv=None):
@@ -1769,16 +1933,27 @@ def main(argv=None):
             stats[kernel] = phase()
         else:
             stats.update(phase())
-    launches = {k: v for k, v in phase_trainer().items()
-                if k.startswith("seg_joint")}
-    launches.update({k: v for k, v in phase_cluster_trainer().items()
-                     if k == "iid_loss_fwd"})
+    # the CLIs in f32 and in bf16: the kernels' launches on the main path
+    # are the sums of the four runs
+    launches = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0, "iid_loss_fwd": 0}
+    for dtype in ("float32", "bfloat16"):
+        _clocks(f"the {dtype} CLI runs")
+        for run in (phase_trainer(dtype), phase_cluster_trainer(dtype)):
+            for k in launches:
+                launches[k] += run[k]
     _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
                      if k in TOOL_KERNELS})
     _clocks("the profiles")
-    phase_profile(args.trace_dir)
-    phase_cluster_profile(args.trace_dir)
+    profiles = {}
+    for dtype in ("float32", "bfloat16"):
+        for path, phase in (("seg", phase_profile),
+                            ("cluster", phase_cluster_profile)):
+            for head, result in phase(args.trace_dir, dtype).items():
+                profiles.setdefault((path, head), {})[dtype] = result
+    _side_by_side(profiles)
+    _clocks("the rates")
+    phase_rates()
     table = [{"name": k, "route": "cuda", "source": SOURCES[k],
               "replaces": REPLACES[k], "launches": launches[k],
               **stats[k]} for k in REPLACES]

@@ -3,7 +3,8 @@
 The reference zips ``1 + num_dataloaders`` epoch-aligned loaders over one
 sequential order: each training batch is one tf1 sub-batch repeated
 ``num_dataloaders`` times, paired with independent tf2 draws. Here the raw
-uint8 batch goes to the device with an explicit ``.to(device)``, and one
+uint8 batch goes to the device through ``prefetch.DeviceUpload`` (on a
+CUDA device: from pinned memory on a copy stream of its own), and one
 batched ``augment_pair`` applies tf1 once per image and tf2
 ``num_dataloaders`` times: the same pairing, no host-side augmentation.
 Each batch's draws come from a ``torch.Generator`` seeded from (seed,
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from iic_tpu_torch.data import readers
+from iic_tpu_torch.data.prefetch import DeviceUpload
 from iic_tpu_torch.data.seg_pipeline import batch_generator
 from iic_tpu_torch.data.transforms import make_sobel_pair_transforms
 
@@ -70,6 +72,7 @@ class ClusterTrainPipeline:
             len(self.images) / self.dataloader_batch_sz)), 1)
         tf1, tf2, _ = _sobel_transforms(config)
         r = self.num_dataloaders
+        self.upload = DeviceUpload(self.device)
 
         def augment_pair(imgs_u8, generator):
             """(b, H, W, C) uint8 -> the (b*r, C', sz, sz) float32 pair,
@@ -89,9 +92,8 @@ class ClusterTrainPipeline:
         (imgs, imgs_tf) when ``augmented``."""
         bsz = self.dataloader_batch_sz
         for b_i in range(self.num_batches):
-            base = torch.from_numpy(
+            base, = self.upload(
                 np.ascontiguousarray(self.images[b_i * bsz:(b_i + 1) * bsz]))
-            base = base.to(self.device)
             gen = batch_generator(self.seed, epoch_idx, b_i, self.device)
             yield self.augment_pair(base, gen) if augmented else (base, gen)
 

@@ -1,8 +1,9 @@
 """Segmentation input pipeline (``iic_tpu/data/seg_pipeline.py``).
 
 The host does the variable-shape geometry (crop, label mask; see
-``seg_datasets``) and ships uint8 batches to the device with an explicit
-``.to(device)``. One batched device function then does the rest: colour
+``seg_datasets``) and ships uint8 batches to the device through
+``prefetch.DeviceUpload`` (on a CUDA device: from pinned memory on a copy
+stream of its own). One batched device function then does the rest: colour
 jitter of img2, grey / sobel channel prep, optional random RSS affine of
 img2 (recording affine2_to_1), and the random horizontal flip of img2 that
 negates the affine's top row, giving the training 4-tuple
@@ -15,6 +16,7 @@ multi-process sharding are not ported (the trainer refuses their flags).
 import numpy as np
 import torch
 
+from iic_tpu_torch.data.prefetch import DeviceUpload
 from iic_tpu_torch.data.seg_datasets import build_seg_dataset
 from iic_tpu_torch.data.seg_transforms import seg_random_affine
 from iic_tpu_torch.data.transforms import (
@@ -128,6 +130,7 @@ class SegTrainPipeline:
         self.num_batches = max(int(rounder(self.total / self.batch_sz)), 1)
         self.shuffle = config.num_dataloaders == 1
         self.augment = make_seg_augment(config)
+        self.upload = DeviceUpload(self.device)
 
     def _locate(self, global_idx):
         for d, n in zip(self.datasets, self.lengths):
@@ -199,9 +202,8 @@ class SegTrainPipeline:
             idxs = order[b_i * self.batch_sz:(b_i + 1) * self.batch_sz]
             if r > 1:  # r independent draws of the same base images
                 idxs = np.concatenate([idxs] * r)
-            imgs, masks = self._numpy_batch(idxs, rng)
-            yield (torch.from_numpy(imgs).to(self.device),
-                   torch.from_numpy(masks).to(self.device),
+            imgs, masks = self.upload(*self._numpy_batch(idxs, rng))
+            yield (imgs, masks,
                    batch_generator(self.seed, epoch_idx, b_i, self.device))
 
     def __len__(self):

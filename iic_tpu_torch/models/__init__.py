@@ -1,36 +1,45 @@
 """Model registry: name -> constructor taking a config object, the
 reference's ``archs.__dict__[config.arch](config)`` lookup. Ported so far:
-the two segmentation archs and the ResNet-34 cluster nets."""
+the two segmentation archs and the ResNet-34 cluster nets. Every net runs
+in ``config.model_dtype`` (float32 by default, or bfloat16)."""
 
 from iic_tpu_torch.models.cluster_nets import (
     ClusterNet5g, ClusterNet5gTrunk, ClusterNet5gTwoHead)
 from iic_tpu_torch.models.segmentation_nets import (
     SegmentationNet10a, SegmentationNet10aTrunk, SegmentationNet10aTwoHead)
+from iic_tpu_torch.models.layers import compute_dtype
+
+
+def _build_common(config):
+    """``iic_tpu/models/__init__.py``'s ``_build_common``: BN tracking and
+    the compute dtype; a ``model_dtype`` other than float32 or bfloat16
+    raises."""
+    return dict(
+        batchnorm_track=config.batchnorm_track,
+        dtype=compute_dtype(getattr(config, "model_dtype", "float32")))
 
 
 def make_SegmentationNet10a(config):
     return SegmentationNet10a(
         config.in_channels, config.output_k, config.num_sub_heads,
-        config.input_sz, batchnorm_track=config.batchnorm_track)
+        config.input_sz, **_build_common(config))
 
 
 def make_SegmentationNet10aTwoHead(config):
     return SegmentationNet10aTwoHead(
         config.in_channels, config.output_k_A, config.output_k_B,
-        config.num_sub_heads, config.input_sz,
-        batchnorm_track=config.batchnorm_track)
+        config.num_sub_heads, config.input_sz, **_build_common(config))
 
 
 def make_ClusterNet5g(config):
     return ClusterNet5g(config.in_channels, config.output_k,
-                        config.num_sub_heads,
-                        batchnorm_track=config.batchnorm_track)
+                        config.num_sub_heads, **_build_common(config))
 
 
 def make_ClusterNet5gTwoHead(config):
     return ClusterNet5gTwoHead(
         config.in_channels, config.output_k_A, config.output_k_B,
-        config.num_sub_heads, batchnorm_track=config.batchnorm_track)
+        config.num_sub_heads, **_build_common(config))
 
 
 ARCHS = {

@@ -4,13 +4,17 @@
 Input NCHW; output (num_sub_heads, B, K) softmax probabilities. Two-head
 nets dispatch on ``head="A"|"B"``. Module names follow the reference
 (``trunk.conv1``, ``trunk.layer1.0.conv1``, ``head_A.heads.<s>.0``), so its
-state_dicts load with ``load_state_dict``.
+state_dicts load with ``load_state_dict``. ``dtype`` is the trunk's
+compute dtype (see ``layers``); its spatial mean is taken in f32, as the
+JAX trunk takes it, and the heads run in f32.
 """
 
+import torch
 import torch.nn as nn
 
 from iic_tpu_torch.models.layers import (
-    MultiDenseHead, batch_norm, kaiming_normal_fan_out_, max_pool_2x2_pad1)
+    Conv2d, MultiDenseHead, batch_norm, kaiming_normal_fan_out_,
+    max_pool_2x2_pad1)
 from iic_tpu_torch.models.residual import BasicBlock, ResNetLayer
 
 # (planes, blocks, stride) of ResNet-34's four layers
@@ -22,10 +26,11 @@ class ClusterNet5gTrunk(nn.Module):
     [3, 4, 6, 3], then the spatial mean (the reference's AvgPool2d sized to
     the final feature map) -> (B, 512)."""
 
-    def __init__(self, in_channels, batchnorm_track=True):
+    def __init__(self, in_channels, batchnorm_track=True,
+                 dtype=torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, 64, kernel_size=3, stride=1,
-                               padding=1, bias=False)
+        self.conv1 = Conv2d(in_channels, 64, kernel_size=3, stride=1,
+                            padding=1, bias=False, compute_dtype=dtype)
         kaiming_normal_fan_out_(self.conv1.weight)
         self.bn1 = batch_norm(64, batchnorm_track)
         self.relu = nn.ReLU(inplace=True)
@@ -33,23 +38,23 @@ class ClusterNet5gTrunk(nn.Module):
         inplanes = 64
         for i, (planes, blocks, stride) in enumerate(LAYERS):
             self.add_module(f"layer{i + 1}", ResNetLayer(
-                inplanes, planes, blocks, stride, batchnorm_track))
+                inplanes, planes, blocks, stride, batchnorm_track, dtype))
             inplanes = planes * BasicBlock.expansion
         self.out_channels = inplanes
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.mean(dim=(2, 3))
+        return x.float().mean(dim=(2, 3))
 
 
 class ClusterNet5g(nn.Module):
     """Single-head ResNet-34 cluster net."""
 
     def __init__(self, in_channels, output_k, num_sub_heads,
-                 batchnorm_track=True):
+                 batchnorm_track=True, dtype=torch.float32):
         super().__init__()
-        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track)
+        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track, dtype)
         self.head = MultiDenseHead(self.trunk.out_channels, output_k,
                                    num_sub_heads)
 
@@ -61,9 +66,9 @@ class ClusterNet5gTwoHead(nn.Module):
     """Two-head ResNet-34 cluster net; ``head`` picks "A" or "B"."""
 
     def __init__(self, in_channels, output_k_A, output_k_B, num_sub_heads,
-                 batchnorm_track=True):
+                 batchnorm_track=True, dtype=torch.float32):
         super().__init__()
-        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track)
+        self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track, dtype)
         c = self.trunk.out_channels
         self.head_A = MultiDenseHead(c, output_k_A, num_sub_heads)
         self.head_B = MultiDenseHead(c, output_k_B, num_sub_heads)

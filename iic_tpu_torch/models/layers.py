@@ -6,6 +6,13 @@ in eval when ``track_running_stats``, batch statistics always otherwise --
 the JAX ``BatchNorm`` semantics. Convs get the Kaiming-normal init with
 relu gain, fan-in for the VGG nets and fan-out for the ResNets; Linear
 layers N(0, 0.01) with zero bias.
+
+Compute dtype, as the flax modules have it: parameters and BN running
+statistics stay f32; a ``Conv2d`` casts its input and weight to its
+``compute_dtype`` and returns that dtype; BN takes the compute-dtype
+tensor as it is (it reduces in f32 with its f32 affine parameters and
+returns the input's dtype); the heads cast their input to f32 and stay
+full f32, so the softmax outputs are f32 in either dtype.
 """
 
 import torch
@@ -13,6 +20,32 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from iic_tpu_torch.ops.kernels.seg_joint import full_f32
+
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(name):
+    """``--model_dtype`` -> the torch dtype; any other name raises."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"model_dtype {name!r}: expected one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` (f32 parameters) that runs in ``compute_dtype``: input
+    and weight are cast, the output stays in that dtype (flax's
+    ``nn.Conv(dtype=..., param_dtype=float32)``). The casts are no-ops in
+    f32, and the weight's gradient reaches it in f32."""
+
+    def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return self._conv_forward(x.to(dt), self.weight.to(dt), self.bias)
 
 
 def kaiming_normal_fan_in_(weight):
@@ -67,8 +100,9 @@ class MultiConvSoftmaxHead(nn.Module):
             kaiming_normal_fan_in_(head[0].weight)
 
     def forward(self, x):
-        # The JAX head is an f32 einsum at HIGHEST precision: keep the 1x1
-        # conv out of TF32 whatever the trunk runs in.
+        # The JAX head is an f32 einsum at HIGHEST precision: f32 input
+        # whatever the trunk's dtype, and the 1x1 conv out of TF32.
+        x = x.float()
         with full_f32():
             outs = [head(x) for head in self.heads]
         return torch.stack([
@@ -82,8 +116,9 @@ class MultiDenseHead(nn.Module):
     ``heads`` ModuleList of ``Sequential(Linear, Softmax)``; the JAX
     package's one einsum with a leading sub-head axis.
 
-    Input (B, D) -> output (num_sub_heads, B, K). The trainers keep
-    cuBLAS out of TF32, so the heads run in full f32 as in the JAX package.
+    Input (B, D), cast to f32 -> output (num_sub_heads, B, K). The
+    trainers keep cuBLAS out of TF32, so the heads run in full f32 as in
+    the JAX package.
     """
 
     def __init__(self, in_features, output_k, num_sub_heads):
@@ -94,4 +129,5 @@ class MultiDenseHead(nn.Module):
             for _ in range(num_sub_heads)])
 
     def forward(self, x):
+        x = x.float()
         return torch.stack([head(x) for head in self.heads])

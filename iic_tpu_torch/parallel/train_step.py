@@ -9,6 +9,10 @@ twice, as in the JAX step) -> the loss per sub-head, averaged -> backward
 -> Adam. Only the trained head receives gradients; the other head's
 parameters get zero gradients, as ``jax.grad`` gives them, so Adam decays
 their moments and counts the step exactly as optax does.
+
+The net runs in its own compute dtype (``model_dtype``; see
+``models.layers``): its heads return f32, so the loss, the gradients that
+reach the f32 parameters and the Adam update stay f32 in either dtype.
 """
 
 from contextlib import contextmanager

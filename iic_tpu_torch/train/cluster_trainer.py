@@ -9,8 +9,13 @@ Hungarian eval (with double eval) before training and after every epoch,
 optional sub-head selection by loss, latest / best checkpoints, and the
 ``--test_code`` mode of two batches per head pass and one epoch.
 
-Precision: cuDNN convolutions (the trunk) run in TF32 and matmuls (the
-heads, the plain loss) in full f32; both flags are set here.
+Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
+parameters, BN statistics, the heads, the loss and Adam stay f32). f32
+cuDNN convolutions run in TF32 and matmuls (the heads, the plain loss) in
+full f32; both flags are set here.
+
+Input: each head pass's epoch runs behind the host prefetch thread
+(``--prefetch_depth``, 8) unless ``--no_host_prefetch``.
 """
 
 import sys
@@ -22,9 +27,11 @@ import torch
 
 from iic_tpu_torch import models
 from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+from iic_tpu_torch.data.prefetch import host_prefetch_iter
 from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import (
     cluster_eval, get_subhead_using_loss)
+from iic_tpu_torch.models.layers import compute_dtype
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_cluster_train_step, make_optimizer, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -35,8 +42,8 @@ from iic_tpu_torch.train.seg_trainer import make_history
 # default, never ignored.
 _REFUSED = ("restart", "restart_from_best", "bn_sync", "epoch_scan",
             "resident_data", "fused_pair_forward", "use_orbax", "profile_dir",
-            "prefetch_depth", "save_progression", "lazy_images",
-            "kmeans_on_features", "mix_train", "stl_leave_out_unlabelled")
+            "save_progression", "lazy_images", "kmeans_on_features",
+            "mix_train", "stl_leave_out_unlabelled")
 
 
 def _log(msg):
@@ -45,7 +52,10 @@ def _log(msg):
 
 
 def check_supported(config):
-    """Raise ``NotImplementedError`` naming each flag the port lacks."""
+    """Raise ``NotImplementedError`` naming each flag the port lacks (and
+    ``ValueError`` for a ``--model_dtype`` other than float32 or
+    bfloat16)."""
+    compute_dtype(config.model_dtype)
     defaults = ClusterConfig()
     for name in _REFUSED:
         if getattr(config, name) != getattr(defaults, name):
@@ -55,9 +65,6 @@ def check_supported(config):
     if config.joint_mode != "global":
         raise NotImplementedError(f"--joint_mode {config.joint_mode} is not "
                                   "ported")
-    if config.model_dtype != "float32":
-        raise NotImplementedError(f"--model_dtype {config.model_dtype} is "
-                                  "not ported (the port runs float32)")
     if not (config.twohead and config.sobel):
         raise NotImplementedError("only the two-head sobel clustering script "
                                   "is ported")
@@ -136,7 +143,8 @@ def train_cluster_twohead(config, device=None):
             avg_loss = avg_loss_nl = 0.0
             count = 0
             for _ in range(head_epochs[head]):
-                for b_i, (base, gen) in enumerate(pipes[head].epoch(e_i)):
+                it = host_prefetch_iter(pipes[head].epoch(e_i), config)
+                for b_i, (base, gen) in enumerate(it):
                     t0 = time.perf_counter()
                     loss, loss_nl = steps[head](base, gen)
                     loss, loss_nl = float(loss), float(loss_nl)  # syncs
@@ -153,6 +161,7 @@ def train_cluster_twohead(config, device=None):
                              f"{datetime.now()}")
                     if config.test_code and b_i >= 1:
                         break
+                it.close()  # stops the thread after --test_code's break
             history[f"epoch_loss_head_{head}"].append(avg_loss / count)
             history[f"epoch_loss_no_lamb_head_{head}"].append(
                 avg_loss_nl / count)

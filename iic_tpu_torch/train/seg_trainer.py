@@ -7,9 +7,14 @@ a Hungarian eval before training and after every epoch, latest / best
 checkpoints, and the ``--test_code`` mode of two batches per head and one
 epoch.
 
-Precision: cuDNN convolutions (the trunk) run in TF32 and matmuls in full
-f32; both flags are set here. The heads' 1x1 convs and the plain joint
-stay full f32, like the JAX package's HIGHEST-precision einsums.
+Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
+parameters, BN statistics, the heads, the loss and Adam stay f32). f32
+cuDNN convolutions run in TF32 and matmuls in full f32; both flags are set
+here. The heads' 1x1 convs and the plain joint stay full f32, like the JAX
+package's HIGHEST-precision einsums.
+
+Input: each head pass's epoch runs behind the host prefetch thread
+(``--prefetch_depth``, 8) unless ``--no_host_prefetch``.
 """
 
 import sys
@@ -20,10 +25,12 @@ import numpy as np
 import torch
 
 from iic_tpu_torch import models
+from iic_tpu_torch.data.prefetch import host_prefetch_iter
 from iic_tpu_torch.data.seg_pipeline import segmentation_create_dataloaders
 from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import EvalHistory
 from iic_tpu_torch.evals.segmentation_eval import segmentation_eval
+from iic_tpu_torch.models.layers import compute_dtype
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_optimizer, make_seg_train_step, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -33,10 +40,10 @@ from iic_tpu_torch.train.config import SegConfig, config_to_str
 # default, never ignored.
 _REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
             "use_orbax", "restart", "restart_from_best", "profile_dir",
-            "prefetch_depth", "select_sub_head_on_loss",
-            "use_doersch_datasets", "doersch_stats", "save_multiple",
-            "per_sample_patches", "max_num_kmeans_samples", "verbose",
-            "doersch_patch_side", "isola_patch_side")
+            "select_sub_head_on_loss", "use_doersch_datasets",
+            "doersch_stats", "save_multiple", "per_sample_patches",
+            "max_num_kmeans_samples", "verbose", "doersch_patch_side",
+            "isola_patch_side")
 
 
 def _log(msg):
@@ -45,7 +52,10 @@ def _log(msg):
 
 
 def check_supported(config):
-    """Raise ``NotImplementedError`` naming each flag the port lacks."""
+    """Raise ``NotImplementedError`` naming each flag the port lacks (and
+    ``ValueError`` for a ``--model_dtype`` other than float32 or
+    bfloat16)."""
+    compute_dtype(config.model_dtype)
     defaults = SegConfig()
     for name in _REFUSED:
         if getattr(config, name) != getattr(defaults, name):
@@ -55,9 +65,6 @@ def check_supported(config):
     if config.joint_mode != "global":
         raise NotImplementedError(f"--joint_mode {config.joint_mode} is not "
                                   "ported")
-    if config.model_dtype != "float32":
-        raise NotImplementedError(f"--model_dtype {config.model_dtype} is "
-                                  "not ported (the port runs float32)")
     if config.joint_impl not in ("pallas", "conv"):
         raise NotImplementedError(f"--joint_impl {config.joint_impl} is not "
                                   "ported")
@@ -136,7 +143,8 @@ def train_segmentation_twohead(config, device=None):
             avg_loss = avg_loss_nl = 0.0
             count = 0
             for _ in range(head_epochs[head]):
-                for b_i, (imgs, masks, gen) in enumerate(pipe.epoch(e_i)):
+                it = host_prefetch_iter(pipe.epoch(e_i), config)
+                for b_i, (imgs, masks, gen) in enumerate(it):
                     t0 = time.perf_counter()
                     loss, loss_nl = steps[head]((imgs, masks), gen)
                     loss, loss_nl = float(loss), float(loss_nl)  # syncs
@@ -153,6 +161,7 @@ def train_segmentation_twohead(config, device=None):
                              f"{datetime.now()}")
                     if config.test_code and b_i >= 1:
                         break
+                it.close()  # stops the thread after --test_code's break
             history[f"epoch_loss_head_{head}"].append(avg_loss / count)
             history[f"epoch_loss_no_lamb_head_{head}"].append(
                 avg_loss_nl / count)

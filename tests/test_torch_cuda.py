@@ -3,7 +3,9 @@ on the tensor cores at k > 4), K3 (fused
 clustering IID loss), X1 / X2 / X7 (the experiment tool's stack-product
 probe and bf16 joint forwards), X3-X6 (its pipelined bf16 joint forwards)
 and X8 / X9 (its bf16 input gradients) on the card, against their plain
-PyTorch versions.
+PyTorch versions; the bf16 nets on the card against the same nets' bf16
+forwards on the CPU; and the prefetch thread's uploads against the
+synchronous ones.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -957,3 +959,104 @@ def test_x3_x6_refuse_what_they_cannot_launch(gpu):
             assert tma(xb.data_ptr(), xb.data_ptr(), part.data_ptr(),
                        part.data_ptr(), part.data_ptr(), part.data_ptr(), 2,
                        3, 8, 8, 2, 16, per, splits, stream) != 0
+
+
+def _bf16_nets(gpu, arch, extra):
+    """The net in bf16 on the CPU and an identical copy on the card."""
+    import copy
+    from types import SimpleNamespace
+    from iic_tpu_torch import models
+    cfg = SimpleNamespace(arch=arch, output_k_A=6, output_k_B=3,
+                          num_sub_heads=2, batchnorm_track=True,
+                          model_dtype="bfloat16", **extra)
+    torch.manual_seed(0)
+    cpu = models.build(arch, cfg)
+    return cpu, copy.deepcopy(cpu).to(gpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_bf16_seg_forward_on_the_card_matches_the_cpu(gpu, train):
+    """SegmentationNet10aTwoHead in bf16: cuDNN's forward against the CPU's
+    on the same weights and input. f32 softmax maps; mean |d| <= 1e-3, max
+    |d| <= 2e-2 (twice the bounds that hold the CPU forward to the JAX
+    bf16 net in tests/test_torch_bf16.py: two bf16 forwards differ where
+    a rounding falls the other way)."""
+    cpu, card = _bf16_nets(gpu, "SegmentationNet10aTwoHead",
+                           dict(in_channels=5, input_sz=24))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (3, 5, 24, 24)).astype(np.float32))
+    cpu.train(train)
+    card.train(train)
+    with torch.no_grad():
+        ref = cpu(x, head="A")
+        got = card(x.to(gpu), head="A").cpu()
+    assert got.dtype == ref.dtype == torch.float32
+    d = (got - ref).abs()
+    assert float(d.mean()) <= 1e-3 and float(d.max()) <= 2e-2, (
+        float(d.mean()), float(d.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [True, False])
+def test_bf16_cluster_block_on_the_card_matches_the_cpu(gpu, train):
+    """ClusterNet5gTwoHead in bf16: layer 2's first block (downsample,
+    residual add) on the card against the CPU on the same bf16 input, mean
+    |d| / mean |ref| <= 2e-4 (the bound of the CPU block against the JAX
+    bf16 block; f32 is 3.6e-3 off), and the whole net's f32 outputs
+    finite."""
+    cpu, card = _bf16_nets(gpu, "ClusterNet5gTwoHead",
+                           dict(in_channels=2, output_k=3, input_sz=32))
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((8, 64, 17, 17)).astype(
+        np.float32)).bfloat16()
+    cpu.train(train)
+    card.train(train)
+    with torch.no_grad():
+        ref = cpu.trunk.layer2[0](x).float()
+        got = card.trunk.layer2[0](x.to(gpu)).float().cpu()
+        out = card(torch.from_numpy(rng.standard_normal(
+            (8, 2, 32, 32)).astype(np.float32)).to(gpu), head="B")
+    err = float((got - ref).abs().mean() / ref.abs().mean())
+    assert err <= 2e-4, err
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_prefetch_batches_equal_the_synchronous_upload(gpu):
+    """Both train pipelines on the card: the batches behind the prefetch
+    thread (copy stream, event, record_stream) equal the synchronous
+    uploads and the CPU pipeline's batches bit for bit, and so do the
+    augmentation draws of each batch's generator."""
+    from iic_tpu_torch.cli._args import parse_cluster_args, parse_seg_args
+    from iic_tpu_torch.data.pipeline import ClusterTrainPipeline
+    from iic_tpu_torch.data.prefetch import ThreadedPrefetch
+    from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
+
+    seg = parse_seg_args([
+        "--mode", "IID", "--dataset", "SyntheticSeg3x48x16",
+        "--dataset_root", "", "--batch_sz", "4", "--num_dataloaders", "1",
+        "--input_sz", "32", "--include_rgb"]).finalize(twohead=True)
+    clu = parse_cluster_args([
+        "--dataset", "Synthetic10x32x3x16", "--dataset_root", "",
+        "--batch_sz", "12", "--num_dataloaders", "3", "--crop_orig",
+        "--rand_crop_sz", "20", "--input_sz", "32"])
+    clu.finalize(twohead=True, sobel=True)
+    for make in (lambda d: SegTrainPipeline(seg, ["train"], seed=3,
+                                            device=d),
+                 lambda d: ClusterTrainPipeline(clu, [True, False], seed=3,
+                                                device=d)):
+        ref = list(make("cpu").epoch(1))
+        pipe = make(gpu)
+        sync = list(pipe.epoch(1))
+        threaded = list(ThreadedPrefetch(pipe.epoch(1), depth=2))
+        assert len(ref) == len(sync) == len(threaded) > 1
+        for r, s, t in zip(ref, sync, threaded):
+            *r_data, _ = r
+            *s_data, s_gen = s
+            *t_data, t_gen = t
+            for a, b, c in zip(r_data, s_data, t_data):
+                assert b.device.type == c.device.type == "cuda"
+                assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
+            assert torch.equal(torch.rand(4, generator=s_gen, device=gpu),
+                               torch.rand(4, generator=t_gen, device=gpu))

@@ -153,7 +153,7 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
     ["--n_devices", "2"], ["--bn_sync"], ["--joint_mode", "parity"],
     ["--epoch_scan"], ["--resident_data"], ["--fused_pair_forward"],
     ["--use_orbax"], ["--restart"], ["--profile_dir", "p"],
-    ["--model_dtype", "bfloat16"], ["--joint_impl", "fft"]])
+    ["--joint_impl", "fft"]])
 def test_flags_outside_the_slice_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0][2:]):
         segmentation_twohead.main(CLI + ["--out_root", str(tmp_path)] + flag,
