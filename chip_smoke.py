@@ -106,6 +106,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
      bfloat16), each behind the default prefetch thread, with the same
      checks, and the kernel table's K1, K2 and K3 launches are the sums of
      the four runs;
+ 10a. the segmentation family's real-data path, on a Potsdam fixture tree
+     written in a temporary directory (110 unlabelled, 40 labelled and 30
+     test tiles of 200 x 200 rgb + ir, ``scipy.io.savemat``; labelled
+     tiles only have a gt file): build the port's native host prep with
+     g++ (seconds, path, CPUs) and hold its batch of model 545's first 75
+     tiles bit-equal to the numpy fast path's, images and masks, with each
+     path's host ms a batch (median of 10); hold K1, and K2 for dx1 and
+     dx2, at the six joint shapes of models 512, 545 and 544 (n 60 / 75 /
+     60; 128^2 / 200^2 / 200^2; T 21 / 21 / 11; k 45 and 15, 24 and 3, 36
+     and 6) within the JAX contract, K2 bit-equal to X8 where it runs X8's
+     kernel, K1 at 545's k=24 within K1_F64 of its bf16 function in
+     float64, with each one's CUDA-event ms beside the bf16 F.conv2d and
+     its bound; run model 545's two-head CLI (--test_code, bf16) through
+     the native host prep, then --restart into the same run directory
+     (it must resume at epoch 2), then the single-head IID+ CLI on the same
+     tree, each with counts set to 0 just before and required to launch
+     K1 and K2; and the learning guard of tests/test_seg_regression.py
+     through the port's two-head CLI in f32 (SyntheticSegStripes3x64x256,
+     8 epochs) at seeds 0-4: best eval acc >= 0.80 and >= 0.30 over the
+     pre-eval in one run at least (a run's outcome hangs on its random
+     draws, in the JAX package too; every run is printed); the
+     K1 and K2 launches of these runs add to the table's; each phase's
+     seconds are printed;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -1527,30 +1550,49 @@ def _read_counts():
     return {k: v for mod in _launch_counts() for k, v in mod.LAUNCHES.items()}
 
 
+def _seg_cli(main, argv, tag, heads="AB"):
+    """One segmentation CLI run in-process, counts set to 0 just before:
+    prints its losses, step seconds, eval accuracies and launches; fails on
+    a loss of ``heads`` (the single-head script logs in the B slots) or an
+    eval accuracy that is not finite, or a run that missed K1 or K2.
+    Returns (history, launches)."""
+    import numpy as np
+
+    _reset_counts()
+    _, history = main(argv)
+    launches = _read_counts()
+    for head in heads:
+        losses = history[f"epoch_loss_head_{head}"]
+        steps = history[f"step_seconds_head_{head}"]
+        _log(f"{tag} head {head}: epoch loss {losses}, step seconds "
+             f"{[round(s, 4) for s in steps]}")
+        if not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} head {head} loss not finite: "
+                                 f"{losses}")
+    acc = history["eval"].epoch_acc
+    _log(f"{tag}: eval acc per epoch (pre-train first) {acc}; launches "
+         f"{launches}")
+    if not acc or not np.all(np.isfinite(acc)):
+        raise AssertionError(f"{tag}: eval history not finite: {acc}")
+    if launches["seg_joint_fwd"] < 1 or launches["seg_joint_dgrad"] < 2:
+        raise AssertionError(f"{tag} missed the kernels: {launches}")
+    return history, launches
+
+
 def phase_trainer(dtype):
     """The segmentation CLI in-process in ``dtype`` (``--model_dtype``),
     behind the default prefetch thread. Returns {kernel: launches in the
     run}."""
-    import numpy as np
     from iic_tpu_torch.cli import segmentation_twohead
 
     with tempfile.TemporaryDirectory() as out_root:
-        _reset_counts()
-        _, history = segmentation_twohead.main(
-            CLI_ARGS + ["--model_dtype", dtype, "--out_root", out_root])
-        launches = _read_counts()
-    for head in ("A", "B"):
-        losses = history[f"epoch_loss_head_{head}"]
-        steps = history[f"step_seconds_head_{head}"]
-        _log(f"{dtype} head {head}: epoch loss {losses}, step seconds "
-             f"{[round(s, 4) for s in steps]}")
-        if not losses or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"head {head} loss not finite: {losses}")
-    acc = history["eval"].epoch_acc
-    _log(f"eval acc per epoch (pre-train first): {acc}")
-    if len(acc) < 2 or not np.all(np.isfinite(acc)):
-        raise AssertionError(f"eval history not filled: {acc}")
-    _log(f"launches in the {dtype} segmentation run: {launches}")
+        history, launches = _seg_cli(
+            segmentation_twohead.main,
+            CLI_ARGS + ["--model_dtype", dtype, "--out_root", out_root],
+            dtype)
+    if len(history["eval"].epoch_acc) < 2:
+        raise AssertionError(f"eval history not filled: "
+                             f"{history['eval'].epoch_acc}")
     if launches["seg_joint_fwd"] < 4 or launches["seg_joint_dgrad"] < 8:
         raise AssertionError(f"main path missed the kernels: {launches}")
     return launches
@@ -1593,6 +1635,305 @@ def phase_cluster_trainer(dtype):
     if launches["iid_loss_fwd"] < n_steps:
         raise AssertionError(f"clustering path missed K3: {launches}")
     return launches
+
+
+# Model 545 (Potsdam-3, examples/commands.md:92-114): the 555 command without
+# its COCO-only --pre_scale_all --pre_scale_factor --coco_164k_curated_version,
+# with Potsdam-3's changes; --dataset_root is added where it runs
+POTSDAM3_ARGS = [
+    "--mode", "IID", "--dataset", "Potsdam", "--model_ind", "545",
+    "--arch", "SegmentationNet10aTwoHead", "--num_epochs", "4800",
+    "--lr", "0.00001", "--lamb_A", "1.0", "--lamb_B", "1.5",
+    "--num_sub_heads", "1", "--batch_sz", "75", "--num_dataloaders", "1",
+    "--use_coarse_labels", "--output_k_A", "24", "--output_k_B", "3",
+    "--gt_k", "3", "--input_sz", "200", "--half_T_side_sparse_min", "0",
+    "--half_T_side_sparse_max", "0", "--half_T_side_dense", "10",
+    "--include_rgb", "--use_uncollapsed_loss", "--batchnorm_track",
+    "--no_sobel", "--jitter_brightness", "0.1", "--jitter_contrast", "0.1",
+    "--jitter_saturation", "0.1", "--jitter_hue", "0.1"]
+# The single-head IID+ script on the same tree: model 545's flags with one
+# overclustering head
+POTSDAM3_SINGLE = ["--mode", "IID+", "--arch", "SegmentationNet10a",
+                   "--output_k", "24", "--gt_k", "3", "--use_coarse_labels"]
+# The Potsdam fixture tree: tiles of each split (150 training tiles in IID+,
+# 180 in IID), 200 x 200 rgb + ir uint8, 6 fine classes
+POTSDAM_SPLITS = {"unlabelled_train": 110, "labelled_train": 40,
+                  "labelled_test": 30}
+# The four published segmentation configurations' joint shapes (n, map
+# side, half_T, (k of head A, k of head B)): model 555 is phase_kernels's,
+# the others examples/commands.md:105-114
+SEG_SHAPES = {"512": (60, 128, 10, (45, 15)), "545": (75, 200, 10, (24, 3)),
+              "544": (60, 200, 5, (36, 6))}
+# tests/test_seg_regression.py:34-50: the JAX package's learning guard, run
+# here through the port's two-head CLI in f32, with its band (calibrated on
+# the TPU: 0.357 pre-eval -> 0.81 at epoch 1 -> 0.92 at epoch 3). A run
+# either learns the texture classes (eval ~0.92, loss B ~-1.62) or settles
+# on another partition (~0.6-0.68, ~-1.40), and which one hangs on its
+# random draws, in the JAX package as in the port: from the same initial
+# weights each lands in the band in 4 of 6 seeds
+# (tests/test_torch_seg_guard.py). The JAX guard is one seed that learns,
+# so the port's runs GUARD_SEEDS and needs the band in one run at least.
+GUARD_ARGS = [
+    "--model_ind", "901", "--arch", "SegmentationNet10aTwoHead",
+    "--mode", "IID", "--dataset", "SyntheticSegStripes3x64x256",
+    "--dataset_root", "", "--num_epochs", "8", "--lr", "0.0001",
+    "--lamb_A", "1.0", "--lamb_B", "1.5", "--num_sub_heads", "1",
+    "--batch_sz", "32", "--num_dataloaders", "1", "--output_k_A", "15",
+    "--output_k_B", "3", "--gt_k", "3", "--input_sz", "64",
+    "--half_T_side_sparse_min", "0", "--half_T_side_sparse_max", "0",
+    "--half_T_side_dense", "5", "--use_uncollapsed_loss", "--batchnorm_track"]
+GUARD_BEST, GUARD_GAIN = 0.80, 0.30
+GUARD_SEEDS = (0, 1, 2, 3, 4)
+
+
+def _write_potsdam(root, seed=0):
+    """A Potsdam tree in the layout the reader parses: imgs/<id>.mat
+    ("img", uint8 (200, 200, 4)), gt/<id>.mat ("gt", 6 classes) for the
+    labelled tiles only, and the three split lists."""
+    import os
+    import numpy as np
+    import scipy.io as sio
+
+    rng = np.random.default_rng(seed)
+    for sub in ("imgs", "gt"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for split, n in POTSDAM_SPLITS.items():
+        ids = [f"{split}_{i}" for i in range(n)]
+        for image_id in ids:
+            sio.savemat(os.path.join(root, "imgs", image_id + ".mat"),
+                        {"img": rng.integers(0, 256, (200, 200, 4),
+                                             dtype=np.uint8)})
+            if split != "unlabelled_train":
+                sio.savemat(os.path.join(root, "gt", image_id + ".mat"),
+                            {"gt": rng.integers(0, 6, (200, 200),
+                                                dtype=np.uint8)})
+        with open(os.path.join(root, split + ".txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+
+
+def phase_native(potsdam_root):
+    """The port's native host prep: its build (g++ seconds, path, CPUs),
+    and on a Potsdam-3 batch (75 tiles of 200 x 200 x 4, no rescale)
+    ``_native_batch`` bit-equal to the numpy fast path, images and masks;
+    each path's host ms a batch, median of 10."""
+    import os
+    import numpy as np
+    from iic_tpu_torch import native
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
+
+    t0 = time.perf_counter()
+    native.load_seg_prep()
+    path = native.library_path()
+    built = native.BUILD_SECONDS.get(path)
+    _log(f"native seg_prep: {path}; g++ "
+         + (f"{built:.2f} s (built in this run)" if built is not None else
+            f"not run in this process (found built)")
+         + f"; load {time.perf_counter() - t0:.3f} s; os.cpu_count() "
+         f"{os.cpu_count()}")
+    cfg = parse_seg_args(POTSDAM3_ARGS + ["--dataset_root", potsdam_root])
+    cfg.finalize(twohead=True)
+    parts = ["unlabelled_train", "labelled_train"]
+    pipes = {p: SegTrainPipeline(cfg, parts, seed=0, use_native=(p ==
+                                                                "native"))
+             for p in ("native", "numpy")}
+    order, _ = pipes["numpy"]._epoch_order(0)
+    idxs = order[:cfg.dataloader_batch_sz]
+    located = [pipes["numpy"]._locate(int(i)) for i in idxs]
+    labelled = sum(d._load_raw(i)[1] is not None for d, i in located)
+    # a batch mixing labelled and unlabelled tiles takes the fast path
+    if not 0 < labelled < len(idxs):
+        raise AssertionError(f"the batch has {labelled} labelled tiles")
+
+    def batch(path):
+        _, rng = pipes[path]._epoch_order(0)
+        fn = (pipes[path]._native_batch if path == "native"
+              else pipes[path]._numpy_batch)
+        return fn(idxs, rng)
+
+    (ni, nm), (pi, pm) = batch("native"), batch("numpy")
+    sz = cfg.input_sz
+    same = (ni.shape == pi.shape == (len(idxs), sz, sz, 4)
+            and np.array_equal(ni, pi) and np.array_equal(nm, pm))
+    _log(f"native batch {ni.shape} {ni.dtype} and masks {nm.shape} equal "
+         f"the numpy fast path's bit for bit: {same} ({labelled} of "
+         f"{len(idxs)} tiles labelled)")
+    if not same:
+        raise AssertionError("the native batch differs from numpy's")
+    for path in ("native", "numpy"):
+        times = []
+        for _ in range(10):
+            t = time.perf_counter()
+            batch(path)
+            times.append((time.perf_counter() - t) * 1e3)
+        _log(f"  {path} host prep: {float(np.median(times)):.2f} ms a batch "
+             f"of {len(idxs)} tiles (median of 10; min {min(times):.2f}, max "
+             f"{max(times):.2f}; the .mat reads included)")
+
+
+def phase_seg_shapes():
+    """K1, and K2 for dx1 and dx2, at the six joint shapes of the other
+    three published segmentation configurations (SEG_SHAPES): each against
+    its plain version within the JAX contract, K2 bit-equal to X8 where it
+    runs X8's kernel, K1 at 545's head A also within K1_F64 of max of its
+    bf16 function in float64; CUDA-event ms of each beside the bf16
+    F.conv2d library call and its bound, and the form taken."""
+    import torch
+    import torch.nn.functional as F
+    from iic_tpu_torch.ops.kernels import joint_exp as jx
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for model, (n, hw, half_t, ks) in SEG_SHAPES.items():
+        t = 2 * half_t + 1
+        for head, k in zip("AB", ks):
+            z = [torch.softmax(torch.randn((n, k, hw, hw), device="cuda",
+                                           generator=gen), dim=1)
+                 for _ in range(2)]
+            x1, x2 = z[0].contiguous(), z[1].contiguous()
+            g = torch.randn((k, k, t, t), device="cuda", generator=gen)
+            g2d, g2d_swap = sj.adjoints(g)
+            k1f, k2f = sj.k1_form(k, half_t), sj.k2_form(k, half_t)
+            _log(f"model {model} head {head}: n={n}, {hw}x{hw}, T={t}, "
+                 f"k={k}; K1 form {k1f}, K2 form {k2f}")
+            got = sj.joint_fwd(x1, x2, half_t)
+            ref = sj.displacement_joint_dense(x1, x2, half_t)
+            _compare("K1 joint", got, ref)
+            if (model, head) == ("545", "A"):
+                ref64 = sj.joint_fwd_bf16_plain(x1.double(), x2.double(),
+                                                half_t)
+                tol = K1_F64 if k1f == "wgmma" else K1_F64_FMA
+                e64 = (float((got.double() - ref64).abs().max())
+                       / float(ref64.abs().max()))
+                _log(f"  K1 vs float64 of its bf16 operands: max err / "
+                     f"max|ref| {e64:.3e} (<= {tol:g}) "
+                     f"{'ok' if e64 <= tol else 'FAIL'}")
+                if e64 > tol:
+                    raise AssertionError("K1 is off its bf16 function")
+                del ref64
+            del got, ref
+            got1 = sj.joint_dgrad(g2d, x2, half_t)
+            _compare("K2 dx1", got1, sj.dgrad_plain(g2d, x2, half_t))
+            _compare("K2 dx2", sj.joint_dgrad(g2d_swap, x1, half_t),
+                     sj.dgrad_plain(g2d_swap, x1, half_t))
+            if k2f == "wgmma":
+                same = torch.equal(got1, jx.dgrad_v8(g2d, x2, half_t, X_RB))
+                _log(f"  K2 dx1 equals X8 (rb={X_RB}) bit for bit: {same}")
+                if not same:
+                    raise AssertionError("K2 differs from X8 on its "
+                                         "operands")
+            del got1
+            x1b, x2b = x1.bfloat16(), x2.bfloat16()
+            gf = g.flip(2, 3).bfloat16().contiguous()
+            flop = _joint_flop(n, k, hw, hw, half_t)
+            nbytes = 2 * x1.numel() * 4 + (k * t) ** 2 * 4
+            for name, call, lib in (
+                    ("K1", lambda: sj.joint_fwd(x1, x2, half_t),
+                     lambda: F.conv2d(x1b.transpose(0, 1),
+                                      x2b.transpose(0, 1), padding=half_t)),
+                    ("K2", lambda: sj.joint_dgrad(g2d, x2, half_t),
+                     lambda: F.conv2d(x2b, gf, padding=half_t))):
+                ms, lib_ms = _time_ms(call), _time_ms(lib)
+                bound = _bound(name, flop, nbytes, PEAK_BF16)
+                _log(f"  {name} model {model} head {head} k={k}: kernel "
+                     f"{ms:.3f} ms, bf16 F.conv2d {lib_ms:.3f} ms, bound "
+                     f"{bound['bound_ms']:.3f} ms ({bound['bound_by']}); "
+                     f"{ms / bound['bound_ms']:.1f}x its bound (CUDA "
+                     f"events, mean of 5)")
+            del x1, x2, x1b, x2b, z
+            torch.cuda.empty_cache()
+
+
+def phase_potsdam(potsdam_root):
+    """Model 545's two-head CLI on the Potsdam fixture tree through the
+    native host prep (--test_code, bf16), then --restart with --num_epochs
+    one higher into the same --out_root (it must resume at epoch 2), then
+    the single-head IID+ CLI on the same tree. Returns {kernel: launches
+    in the three runs}."""
+    from iic_tpu_torch.cli import segmentation, segmentation_twohead
+    from iic_tpu_torch.data import seg_pipeline as sp
+
+    native_batches = [0]
+    plain = sp.SegTrainPipeline._native_batch
+
+    def counted(self, idxs, rng):
+        native_batches[0] += 1
+        return plain(self, idxs, rng)
+
+    base = POTSDAM3_ARGS + ["--dataset_root", potsdam_root, "--test_code",
+                            "--model_dtype", "bfloat16"]
+    total = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    sp.SegTrainPipeline._native_batch = counted
+    try:
+        with tempfile.TemporaryDirectory() as out_root:
+            runs = (
+                ("model 545", segmentation_twohead.main,
+                 base + ["--num_epochs", "2", "--out_root", out_root], 2,
+                 "AB"),
+                ("model 545 --restart", segmentation_twohead.main,
+                 base + ["--num_epochs", "3", "--restart", "--out_root",
+                         out_root], 3, "AB"),
+                ("model 545 single-head IID+", segmentation.main,
+                 base + POTSDAM3_SINGLE + ["--num_epochs", "2",
+                                           "--model_ind", "546",
+                                           "--out_root", out_root], 2, "B"))
+            for tag, main, argv, evals, heads in runs:
+                before = native_batches[0]
+                t0 = time.perf_counter()
+                history, launches = _seg_cli(main, argv, tag, heads)
+                _log(f"{tag}: {time.perf_counter() - t0:.1f} s, "
+                     f"{native_batches[0] - before} batches by the native "
+                     f"host prep")
+                if native_batches[0] == before:
+                    raise AssertionError(f"{tag} did not take the native "
+                                         "host prep")
+                if len(history["eval"].epoch_acc) != evals:
+                    raise AssertionError(
+                        f"{tag}: {len(history['eval'].epoch_acc)} evals, "
+                        f"expected {evals} (pre-eval, epoch 1"
+                        + (", epoch 2)" if evals == 3 else ")"))
+                for k in total:
+                    total[k] += launches[k]
+    finally:
+        sp.SegTrainPipeline._native_batch = plain
+    return total
+
+
+def phase_learning_guard():
+    """tests/test_seg_regression.py's guard through the port's two-head
+    CLI: SyntheticSegStripes3x64x256, 8 epochs, f32, one run for each seed
+    of GUARD_SEEDS; a run is in the band when its best eval acc reaches
+    GUARD_BEST and gains GUARD_GAIN over its pre-eval, and one run at least
+    must be. Returns {kernel: launches in all the runs}."""
+    import numpy as np
+    from iic_tpu_torch.cli import segmentation_twohead
+
+    total = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    passed = []
+    for seed in GUARD_SEEDS:
+        with tempfile.TemporaryDirectory() as out_root:
+            history, launches = _seg_cli(
+                segmentation_twohead.main, GUARD_ARGS + [
+                    "--seed", str(seed), "--out_root", out_root],
+                f"learning guard, seed {seed}")
+        for k in total:
+            total[k] += launches[k]
+        accs = np.array(history["eval"].epoch_acc, float)
+        pre, best = float(accs[0]), float(accs.max())
+        ok = (len(accs) == 8 and best >= GUARD_BEST
+              and best - pre >= GUARD_GAIN)
+        passed += [seed] if ok else []
+        _log(f"learning guard, seed {seed}: eval acc "
+             f"{[round(float(a), 4) for a in accs]}; pre {pre:.4f}, best "
+             f"{best:.4f} at epoch {int(accs.argmax())} (>= {GUARD_BEST}), "
+             f"gain {best - pre:.4f} (>= {GUARD_GAIN}): "
+             f"{'in the band' if ok else 'outside the band'}")
+    _log(f"learning guard: {len(passed)} of {len(GUARD_SEEDS)} runs in the "
+         f"band (seeds {passed})")
+    if not passed:
+        raise AssertionError("no run of the port reached the learning "
+                             "guard's band")
+    return total
 
 
 def phase_tool():
@@ -1941,6 +2282,23 @@ def main(argv=None):
         for run in (phase_trainer(dtype), phase_cluster_trainer(dtype)):
             for k in launches:
                 launches[k] += run[k]
+    # the segmentation family's real-data path: K1 and K2 launches of the
+    # Potsdam runs and the learning guard add to the table's
+    with tempfile.TemporaryDirectory() as potsdam_root:
+        t0 = time.perf_counter()
+        _write_potsdam(potsdam_root)
+        _log(f"Potsdam fixture tree: {POTSDAM_SPLITS} tiles written in "
+             f"{time.perf_counter() - t0:.1f} s")
+        for tag, phase in (("native", lambda: phase_native(potsdam_root)),
+                           ("seg shapes", phase_seg_shapes),
+                           ("potsdam", lambda: phase_potsdam(potsdam_root)),
+                           ("learning guard", phase_learning_guard)):
+            _clocks(f"phase {tag}")
+            t0 = time.perf_counter()
+            run = phase()
+            _log(f"phase {tag}: {time.perf_counter() - t0:.1f} s")
+            for k in ("seg_joint_fwd", "seg_joint_dgrad"):
+                launches[k] += (run or {}).get(k, 0)
     _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
                      if k in TOOL_KERNELS})

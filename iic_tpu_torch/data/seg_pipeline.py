@@ -9,14 +9,20 @@ img2 (recording affine2_to_1), and the random horizontal flip of img2 that
 negates the affine's top row, giving the training 4-tuple
 (img1, img2, affine2_to_1, mask).
 
-Ported: the numpy host path. Resident mode, the native C++ host prep and
+Two host paths prepare a batch from the same random draws: the native C++
+prep (``iic_tpu_torch/native``, threaded over the batch) and numpy (a
+batched fast path, else ``get_train`` per sample). Resident mode and
 multi-process sharding are not ported (the trainer refuses their flags).
 """
+
+import ctypes
+import os
 
 import numpy as np
 import torch
 
-from iic_tpu_torch.data.prefetch import DeviceUpload
+from iic_tpu_torch import native
+from iic_tpu_torch.data.prefetch import DeviceUpload, ThreadedPrefetch
 from iic_tpu_torch.data.seg_datasets import build_seg_dataset
 from iic_tpu_torch.data.seg_transforms import seg_random_affine
 from iic_tpu_torch.data.transforms import (
@@ -114,10 +120,19 @@ class SegTrainPipeline:
 
     num_dataloaders = r > 1: each training batch is the same
     ``dataloader_batch_sz`` base images repeated r times, each repeat with
-    its own geometry / augmentation draw, ``batch_sz`` pairs in all."""
+    its own geometry / augmentation draw, ``batch_sz`` pairs in all.
+
+    ``use_native``: the native C++ host prep (True), numpy (False), or, by
+    default, native on a host with at least 4 CPUs: its gain is threads
+    over the samples, and on one core cv2's SIMD resize in the numpy path is
+    the faster. The native library is built here when it is picked, and a
+    failed build raises. ``use_fast_host=False`` sends every numpy batch
+    through ``get_train`` (tests hold the batched path to it). The fast
+    path keeps each image's raw-frame relevancy mask while their bytes stay
+    within ``IIC_TPU_MASK_CACHE_BYTES`` (256 MiB by default)."""
 
     def __init__(self, config, partitions, seed=0, device="cpu",
-                 drop_last=False):
+                 drop_last=False, use_native=None, use_fast_host=True):
         self.config = config
         self.seed = seed
         self.device = torch.device(device)
@@ -131,6 +146,14 @@ class SegTrainPipeline:
         self.shuffle = config.num_dataloaders == 1
         self.augment = make_seg_augment(config)
         self.upload = DeviceUpload(self.device)
+        self._fast_host = use_fast_host
+        self._mask_cache = {}
+        self._mask_cache_bytes = 0
+        self._mask_cache_budget = int(os.environ.get(
+            "IIC_TPU_MASK_CACHE_BYTES", 256 * 1024 * 1024))
+        if use_native is None:
+            use_native = (os.cpu_count() or 1) >= 4
+        self._native = native.load_seg_prep() if use_native else None
 
     def _locate(self, global_idx):
         for d, n in zip(self.datasets, self.lengths):
@@ -140,15 +163,17 @@ class SegTrainPipeline:
         raise IndexError(global_idx)
 
     def _numpy_batch(self, idxs, rng):
-        """Host prep of one batch. With no rescale, uniform raw shapes of at
-        least input_sz and a table-form label filter, a batched path draws
-        the crop centres in the exact order ``pad_and_or_crop`` does (same
-        rng stream, same batches) and crops with memcpys; otherwise each
+        """Host prep of one batch on the numpy path. With no rescale,
+        uniform raw shapes of at least input_sz and a table-form label
+        filter, a batched path draws the crop centres in the exact order
+        ``pad_and_or_crop`` does (same rng stream, same batches) and crops
+        images and cached raw-frame masks with memcpys; otherwise each
         sample goes through ``get_train``."""
         cfg = self.config
         sz = cfg.input_sz
         located = [self._locate(int(i)) for i in idxs]
-        use_fast = (not getattr(cfg, "pre_scale_all", False)
+        use_fast = (self._fast_host
+                    and not getattr(cfg, "pre_scale_all", False)
                     and not getattr(cfg, "use_random_scale", False))
         if use_fast:
             raws = [d._load_raw(i) for d, i in located]
@@ -180,12 +205,103 @@ class SegTrainPipeline:
         imgs = np.empty((b, sz, sz, c), np.uint8)
         masks = np.ones((b, sz, sz), np.uint8)
         keep = (table >= 0).astype(np.uint8) if have_labels else None
-        for j, (img, lab) in enumerate(raws):
+        for j, ((img, lab), (d, i)) in enumerate(zip(raws, located)):
             y, x = starts[j]
             imgs[j] = img[y:y + sz, x:x + sz].reshape(sz, sz, c)
             if keep is not None:
-                masks[j] = keep[lab[y:y + sz, x:x + sz] + 1]
+                # keep[lab + 1] is fixed per image, and the crop of the
+                # cached frame equals the lookup of the cropped labels
+                m_raw = self._mask_cache.get((id(d), int(i)))
+                if m_raw is None:
+                    m_raw = keep[lab + 1]
+                    if (self._mask_cache_bytes + m_raw.nbytes
+                            <= self._mask_cache_budget):
+                        self._mask_cache[(id(d), int(i))] = m_raw
+                        self._mask_cache_bytes += m_raw.nbytes
+                masks[j] = m_raw[y:y + sz, x:x + sz]
         return imgs, masks
+
+    def _draw_geometry(self, img_shape, rng):
+        """``get_train``'s random draws for a raw image of ``img_shape``, in
+        its order: (the pre-scale times the random scale, the crop centre in
+        the scaled and padded frame)."""
+        cfg = self.config
+        scale = 1.0
+        if getattr(cfg, "pre_scale_all", False):
+            scale *= cfg.pre_scale_factor
+        if getattr(cfg, "use_random_scale", False):
+            scale *= (rng.random() * (cfg.scale_max - cfg.scale_min)
+                      + cfg.scale_min)
+        h, w = img_shape[:2]
+        sh = max(int(round(h * scale)), 1) if scale != 1.0 else h
+        sw = max(int(round(w * scale)), 1) if scale != 1.0 else w
+        sz = cfg.input_sz
+        ph, pw = max(sh, sz), max(sw, sz)
+        h_c_min = w_c_min = int(sz / 2.0)
+        if sz % 2 == 1:
+            h_c_max, w_c_max = ph - 1 - sz // 2, pw - 1 - sz // 2
+        else:
+            h_c_max, w_c_max = ph - sz // 2, pw - sz // 2
+        h_c = int(rng.integers(h_c_min, h_c_max + 1))
+        w_c = int(rng.integers(w_c_min, w_c_max + 1))
+        return scale, h_c, w_c
+
+    def _native_batch(self, idxs, rng):
+        """Host prep of one batch by the native library, from the random
+        draws ``get_train`` makes. Without a rescale it equals the numpy
+        path bit for bit; with one its bilinear resize differs from cv2's
+        by a few grey levels."""
+        sz = self.config.input_sz
+        b = len(idxs)
+        raws = []
+        for gi in idxs:
+            d, i = self._locate(int(gi))
+            img, label = d._load_raw(i)
+            if img.dtype != np.uint8 or img.ndim != 3:
+                raise ValueError(f"native seg prep takes (h, w, c) uint8 "
+                                 f"images, got {img.dtype} {img.shape}")
+            table = d.label_filter_table()
+            raws.append((np.ascontiguousarray(img),
+                         None if table is None or label is None else
+                         np.ascontiguousarray(label, dtype=np.int32),
+                         table))
+        channels = raws[0][0].shape[2]
+        if any(r[0].shape[2] != channels for r in raws):
+            raise ValueError("native seg prep: images of one batch differ in "
+                             "channels")
+        heights = np.array([r[0].shape[0] for r in raws], np.int32)
+        widths = np.array([r[0].shape[1] for r in raws], np.int32)
+        scales = np.empty(b, np.float32)
+        h_cs = np.empty(b, np.int32)
+        w_cs = np.empty(b, np.int32)
+        for j, r in enumerate(raws):
+            scales[j], h_cs[j], w_cs[j] = self._draw_geometry(r[0].shape, rng)
+
+        table = raws[0][2]
+        have_labels = table is not None and all(
+            r[1] is not None for r in raws)
+        if table is None:
+            table = np.zeros(1, np.int32)
+        table = np.ascontiguousarray(table, dtype=np.int32)
+        img_ptrs = (ctypes.c_void_p * b)(*[r[0].ctypes.data for r in raws])
+        lab_ptrs = ((ctypes.c_void_p * b)(*[r[1].ctypes.data for r in raws])
+                    if have_labels else None)
+
+        def ptr(a, ctype):
+            return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+        imgs_out = np.empty((b, sz, sz, channels), np.uint8)
+        masks_out = np.empty((b, sz, sz), np.uint8)
+        ret = self._native.seg_prepare_batch(
+            img_ptrs, lab_ptrs, ptr(heights, ctypes.c_int32),
+            ptr(widths, ctypes.c_int32), channels, b,
+            ptr(scales, ctypes.c_float), ptr(h_cs, ctypes.c_int32),
+            ptr(w_cs, ctypes.c_int32), sz, ptr(table, ctypes.c_int32),
+            len(table), ptr(imgs_out, ctypes.c_uint8),
+            ptr(masks_out, ctypes.c_uint8), os.cpu_count() or 1)
+        if ret != 0:
+            raise RuntimeError(f"native seg_prepare_batch returned {ret}")
+        return imgs_out, masks_out
 
     def _epoch_order(self, epoch_idx):
         """(visiting order, rng continuing from the permutation draw)."""
@@ -202,7 +318,9 @@ class SegTrainPipeline:
             idxs = order[b_i * self.batch_sz:(b_i + 1) * self.batch_sz]
             if r > 1:  # r independent draws of the same base images
                 idxs = np.concatenate([idxs] * r)
-            imgs, masks = self.upload(*self._numpy_batch(idxs, rng))
+            prep = (self._native_batch if self._native is not None
+                    else self._numpy_batch)
+            imgs, masks = self.upload(*prep(idxs, rng))
             yield (imgs, masks,
                    batch_generator(self.seed, epoch_idx, b_i, self.device))
 
@@ -240,7 +358,7 @@ class SegMappingLoader:
             global_idx -= n
         raise IndexError(global_idx)
 
-    def __iter__(self):
+    def _batches(self):
         for start in range(0, self.total, self.batch_sz):
             samples = [self._get(i) for i in
                        range(start, min(start + self.batch_sz, self.total))]
@@ -248,6 +366,11 @@ class SegMappingLoader:
             yield (self.transform(imgs.to(self.device)),
                    np.stack([s[1] for s in samples]),
                    np.stack([s[2] for s in samples]))
+
+    def __iter__(self):
+        # the next two batches' reads, crops and uploads overlap the
+        # consumer's forward of this one
+        return ThreadedPrefetch(self._batches(), depth=2)
 
     def __len__(self):
         return int(np.ceil(self.total / self.batch_sz))

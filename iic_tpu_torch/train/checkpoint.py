@@ -2,7 +2,8 @@
 ``out_root/<model_ind>/`` holds ``latest.pytorch`` / ``best.pytorch``
 (``{"net": state_dict, "optimiser": state_dict}``, the reference's own
 segmentation save format), ``config.pickle`` (config, metric history,
-last_epoch) and a readable ``config.txt``. Restart is not ported yet."""
+last_epoch) and a readable ``config.txt``. ``load_checkpoint`` restores a
+run from them for ``--restart``."""
 
 import dataclasses
 import os
@@ -40,3 +41,50 @@ def save_checkpoint(config, net, optimizer, history, name="latest",
     torch.save({"net": net.state_dict(), "optimiser": optimizer.state_dict()},
                os.path.join(run_dir(config), f"{name}.pytorch"))
     save_meta(config, history, last_epoch, name=name)
+
+
+def load_checkpoint(config, net, optimizer, device, name="latest"):
+    """Restore ``net`` and ``optimizer`` in place from <name>.pytorch (onto
+    ``device``) and return (history, last_epoch) from config.pickle, which
+    is read whatever ``name`` is. The optimiser's state carries the saved
+    learning rate, so an lr step taken before the save is not taken again.
+    config.pickle is the run's own file, written by ``save_meta``."""
+    d = run_dir(config)
+    saved = torch.load(os.path.join(d, f"{name}.pytorch"),
+                       map_location=device, weights_only=True)
+    net.load_state_dict(saved["net"])
+    optimizer.load_state_dict(saved["optimiser"])
+    with open(os.path.join(d, "config.pickle"), "rb") as f:
+        meta = pickle.load(f)
+    return meta["history"], meta["last_epoch"]
+
+
+def save_plots(config, history):
+    """plots.png in the run dir: eval accuracy, average sub-head accuracy
+    and each head's epoch losses (and the double-eval lists under
+    ``double_eval``). Writes nothing where matplotlib is not installed."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return
+    ev = history["eval"]
+    panels = [
+        ("acc", ev.epoch_acc),
+        ("avg_subhead_acc", ev.epoch_avg_subhead_acc),
+        ("loss A", history["epoch_loss_head_A"]),
+        ("loss no lamb A", history["epoch_loss_no_lamb_head_A"]),
+        ("loss B", history["epoch_loss_head_B"]),
+        ("loss no lamb B", history["epoch_loss_no_lamb_head_B"]),
+    ]
+    if getattr(config, "double_eval", False):
+        panels += [("double eval acc", ev.double_eval_acc),
+                   ("double eval avg subhead acc",
+                    ev.double_eval_avg_subhead_acc)]
+    fig, axarr = plt.subplots(len(panels), sharex=False, figsize=(20, 20))
+    for ax, (title, data) in zip(axarr, panels):
+        ax.plot(data)
+        ax.set_title(title)
+    fig.savefig(os.path.join(run_dir(config), "plots.png"))
+    plt.close(fig)

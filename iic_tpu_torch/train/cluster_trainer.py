@@ -6,8 +6,9 @@ script on one GPU: head B first unless ``--head_A_first`` (the opposite of
 the segmentation scripts), ``head_X_epochs`` passes per head, the
 multiplicative lr schedule with Adam's moments kept, the NaN exit, a
 Hungarian eval (with double eval) before training and after every epoch,
-optional sub-head selection by loss, latest / best checkpoints, and the
-``--test_code`` mode of two batches per head pass and one epoch.
+optional sub-head selection by loss, latest / best checkpoints, plots.png,
+``--restart`` / ``--restart_from_best``, and the ``--test_code`` mode of
+two batches per head pass and one epoch.
 
 Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
 parameters, BN statistics, the heads, the loss and Adam stay f32). f32
@@ -36,13 +37,12 @@ from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_cluster_train_step, make_optimizer, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import ClusterConfig, config_to_str
-from iic_tpu_torch.train.seg_trainer import make_history
+from iic_tpu_torch.train.seg_trainer import make_history, resume
 
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.
-_REFUSED = ("restart", "restart_from_best", "bn_sync", "epoch_scan",
-            "resident_data", "fused_pair_forward", "use_orbax", "profile_dir",
-            "save_progression", "lazy_images", "kmeans_on_features",
+_REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
+            "use_orbax", "profile_dir", "save_progression", "lazy_images", "kmeans_on_features",
             "mix_train", "stl_leave_out_unlabelled")
 
 
@@ -114,8 +114,6 @@ def train_cluster_twohead(config, device=None):
         loss_impl=loss_impl) for h in ("A", "B")}
     apply_kw = dict(head="B", sobel=config.sobel,
                     include_rgb=config.include_rgb)
-    history = make_history()
-
     def evaluate(use_sub_head=None):
         double = (make_apply_fn(net, train_mode=True, **apply_kw)
                   if config.double_eval else None)
@@ -125,16 +123,20 @@ def train_cluster_twohead(config, device=None):
             use_sub_head=use_sub_head)
         return is_best
 
-    sub_head = None
-    if config.select_sub_head_on_loss:
-        sub_head = _select_sub_head_on_loss(config, net, pipe_b)
-    evaluate(sub_head)
-    _log(f"Pre: {history['eval'].epoch_stats[-1]}")
+    if config.restart:
+        history, next_epoch = resume(config, net, optimizer, device)
+    else:
+        history, next_epoch = make_history(), 1
+        sub_head = None
+        if config.select_sub_head_on_loss:
+            sub_head = _select_sub_head_on_loss(config, net, pipe_b)
+        evaluate(sub_head)
+        _log(f"Pre: {history['eval'].epoch_stats[-1]}")
 
     heads = head_order(config)
     head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
-    last_saved = 0  # epoch of the on-disk latest weights
-    for e_i in range(1, config.num_epochs):
+    last_saved = next_epoch - 1  # epoch of the on-disk latest weights
+    for e_i in range(next_epoch, config.num_epochs):
         _log(f"Starting e_i: {e_i} {datetime.now()}")
         if e_i in set(config.lr_schedule):
             set_lr_mult(optimizer, config.lr_mult)
@@ -173,6 +175,7 @@ def train_cluster_twohead(config, device=None):
              f"loss A {history['epoch_loss_head_A'][-1]:.5f} "
              f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
 
+        ckpt.save_plots(config, history)
         if e_i % config.save_freq == 0 or e_i == config.num_epochs - 1:
             ckpt.save_checkpoint(config, net, optimizer, history, "latest",
                                  last_epoch=e_i)

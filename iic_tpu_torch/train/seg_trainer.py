@@ -1,11 +1,13 @@
-"""Two-head segmentation trainer (``iic_tpu/train/seg_trainer.py``:
-``train_segmentation_twohead``).
+"""Segmentation trainers (``iic_tpu/train/seg_trainer.py``:
+``train_segmentation_twohead``, ``train_segmentation_single``).
 
-The epoch / head / batch loop of the reference's segmentation_twohead
-script on one GPU: head A first (``--head_B_first`` flips), the NaN exit,
-a Hungarian eval before training and after every epoch, latest / best
-checkpoints, and the ``--test_code`` mode of two batches per head and one
-epoch.
+The epoch / head / batch loops of the reference's segmentation_twohead and
+segmentation (single-head IID+ overclustering) scripts on one GPU: head A
+first (``--head_B_first`` flips), the NaN exit, a Hungarian eval before
+training and after every epoch, latest / best checkpoints, plots.png,
+``--restart`` / ``--restart_from_best``, and the ``--test_code`` mode of
+two batches per head and one epoch. The single-head script logs its
+losses in the head-B slots of the history.
 
 Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
 parameters, BN statistics, the heads, the loss and Adam stay f32). f32
@@ -39,11 +41,10 @@ from iic_tpu_torch.train.config import SegConfig, config_to_str
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.
 _REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
-            "use_orbax", "restart", "restart_from_best", "profile_dir",
-            "select_sub_head_on_loss", "use_doersch_datasets",
-            "doersch_stats", "save_multiple", "per_sample_patches",
-            "max_num_kmeans_samples", "verbose", "doersch_patch_side",
-            "isola_patch_side")
+            "use_orbax", "profile_dir", "select_sub_head_on_loss",
+            "use_doersch_datasets", "doersch_stats", "save_multiple",
+            "per_sample_patches", "max_num_kmeans_samples", "verbose",
+            "doersch_patch_side", "isola_patch_side")
 
 
 def _log(msg):
@@ -68,9 +69,6 @@ def check_supported(config):
     if config.joint_impl not in ("pallas", "conv"):
         raise NotImplementedError(f"--joint_impl {config.joint_impl} is not "
                                   "ported")
-    if not config.twohead:
-        raise NotImplementedError("the single-head segmentation script is "
-                                  "not ported")
 
 
 def head_order(config):
@@ -87,9 +85,48 @@ def make_history():
     return history
 
 
+def truncate_history(history, next_epoch):
+    """Drop the eval entries and epoch losses past epoch next_epoch - 1
+    (the step times stay: they log the steps that ran)."""
+    history["eval"].truncate(next_epoch - 1)
+    for head in ("A", "B"):
+        for key in ("epoch_loss_head_", "epoch_loss_no_lamb_head_"):
+            del history[key + head][next_epoch - 1:]
+
+
+def resume(config, net, optimizer, device):
+    """``--restart``: restore net and optimiser from latest.pytorch (or
+    best.pytorch under ``--restart_from_best``) and the history from
+    config.pickle. Returns (history, next_epoch): the epoch after the saved
+    one, or after the best eval's."""
+    history, last_epoch = ckpt.load_checkpoint(
+        config, net, optimizer, device,
+        name="best" if config.restart_from_best else "latest")
+    next_epoch = (int(np.argmax(history["eval"].epoch_acc)) + 1
+                  if config.restart_from_best else last_epoch + 1)
+    truncate_history(history, next_epoch)
+    _log(f"restarting from epoch {next_epoch}")
+    return history, next_epoch
+
+
 def train_segmentation_twohead(config, device=None):
     """Two-head unsupervised segmentation (IIC). Returns (net, history).
     ``device`` defaults to cuda:0; the tests pass "cpu"."""
+    if not config.twohead:
+        raise ValueError("a single-head config: use "
+                         "train_segmentation_single")
+    return _train(config, device)
+
+
+def train_segmentation_single(config, device=None):
+    """Single-head IID+ segmentation (overclustering). Returns (net,
+    history). ``device`` defaults to cuda:0; the tests pass "cpu"."""
+    if config.twohead:
+        raise ValueError("a two-head config: use train_segmentation_twohead")
+    return _train(config, device)
+
+
+def _train(config, device):
     check_supported(config)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
@@ -111,10 +148,19 @@ def train_segmentation_twohead(config, device=None):
         using_IR=config.using_IR,
         use_uncollapsed_loss=config.use_uncollapsed_loss,
         augment=pipe.augment, joint_impl=config.joint_impl)
-    lambs = {"A": config.lamb_A, "B": config.lamb_B}
-    steps = {h: make_seg_train_step(net, optimizer, lamb=lambs[h], head=h,
-                                    **common) for h in ("A", "B")}
-    apply_fn = make_apply_fn(net, head="B", sobel=config.sobel,
+    if config.twohead:
+        lambs = {"A": config.lamb_A, "B": config.lamb_B}
+        head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
+        # (history slot, step, passes an epoch) in training order
+        passes = [(h, make_seg_train_step(net, optimizer, lamb=lambs[h],
+                                          head=h, **common), head_epochs[h])
+                  for h in head_order(config)]
+        eval_head = "B"
+    else:
+        passes = [("B", make_seg_train_step(net, optimizer, lamb=config.lamb,
+                                            head=None, **common), 1)]
+        eval_head = None
+    apply_fn = make_apply_fn(net, head=eval_head, sobel=config.sobel,
                              include_rgb=config.include_rgb,
                              using_IR=config.using_IR)
 
@@ -122,31 +168,32 @@ def train_segmentation_twohead(config, device=None):
         return segmentation_eval(config, apply_fn, map_assign, map_test,
                                  history=history["eval"])
 
-    heads = head_order(config)
-    head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
-    history = make_history()
-    if not config.no_pre_eval:
-        evaluate()
-        _log(f"Pre: {history['eval'].epoch_stats[-1]}")
+    if config.restart:
+        history, next_epoch = resume(config, net, optimizer, device)
     else:
-        history["eval"].epoch_acc.append(0.0)
-        history["eval"].epoch_avg_subhead_acc.append(0.0)
-        history["eval"].epoch_stats.append({})
+        history, next_epoch = make_history(), 1
+        if not config.no_pre_eval:
+            evaluate()
+            _log(f"Pre: {history['eval'].epoch_stats[-1]}")
+        else:
+            history["eval"].epoch_acc.append(0.0)
+            history["eval"].epoch_avg_subhead_acc.append(0.0)
+            history["eval"].epoch_stats.append({})
 
-    last_saved = 0  # epoch of the on-disk latest weights
-    for e_i in range(1, config.num_epochs):
+    last_saved = next_epoch - 1  # epoch of the on-disk latest weights
+    for e_i in range(next_epoch, config.num_epochs):
         _log(f"Starting e_i: {e_i} {datetime.now()}")
         if e_i in set(config.lr_schedule):
             set_lr_mult(optimizer, config.lr_mult)
 
-        for head in heads:
+        for head, step, repeats in passes:
             avg_loss = avg_loss_nl = 0.0
             count = 0
-            for _ in range(head_epochs[head]):
+            for _ in range(repeats):
                 it = host_prefetch_iter(pipe.epoch(e_i), config)
                 for b_i, (imgs, masks, gen) in enumerate(it):
                     t0 = time.perf_counter()
-                    loss, loss_nl = steps[head]((imgs, masks), gen)
+                    loss, loss_nl = step((imgs, masks), gen)
                     loss, loss_nl = float(loss), float(loss_nl)  # syncs
                     history[f"step_seconds_head_{head}"].append(
                         time.perf_counter() - t0)
@@ -170,6 +217,7 @@ def train_segmentation_twohead(config, device=None):
         _log(f"Epoch {e_i}: acc {history['eval'].epoch_acc[-1]:.6f} "
              f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
 
+        ckpt.save_plots(config, history)
         if e_i % config.save_freq == 0 or e_i == config.num_epochs - 1:
             ckpt.save_checkpoint(config, net, optimizer, history, "latest",
                                  last_epoch=e_i)

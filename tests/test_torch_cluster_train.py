@@ -219,8 +219,7 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--n_devices", "2"], ["--bn_sync"], ["--joint_mode", "parity"],
     ["--epoch_scan"], ["--resident_data"], ["--fused_pair_forward"],
-    ["--restart"], ["--use_orbax"],
-    ["--profile_dir", "p"], ["--save_progression"], ["--fluid_warp"],
+    ["--use_orbax"], ["--profile_dir", "p"], ["--save_progression"], ["--fluid_warp"],
     ["--cutout"], ["--rot_val", "25"]])
 def test_flags_outside_the_slice_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0][2:]):

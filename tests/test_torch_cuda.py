@@ -5,7 +5,8 @@ probe and bf16 joint forwards), X3-X6 (its pipelined bf16 joint forwards)
 and X8 / X9 (its bf16 input gradients) on the card, against their plain
 PyTorch versions; the bf16 nets on the card against the same nets' bf16
 forwards on the CPU; and the prefetch thread's uploads against the
-synchronous ones.
+synchronous ones, and the native host prep's batches uploaded to the card
+against the CPU's.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -42,10 +43,13 @@ def _maps(rng, n, k, h, w):
 @pytest.mark.parametrize("half_t,n,k,h,w", [
     (0, 3, 3, 8, 8), (2, 3, 4, 12, 12), (3, 2, 5, 16, 16), (2, 2, 3, 10, 7),
     (10, 4, 15, 128, 128), (10, 4, 3, 128, 96), (10, 2, 17, 40, 33),
-    (4, 1, 1, 5, 70)])
+    (4, 1, 1, 5, 70), (10, 2, 45, 128, 128), (5, 2, 36, 200, 200)])
 def test_kernels_match_plain(gpu, half_t, n, k, h, w):
     """K1 and K2 (dx1, dx2) vs their plain versions: the JAX package's
-    kernel contract, rtol 5e-3, atol 5e-3 * max."""
+    kernel contract, rtol 5e-3, atol 5e-3 * max. The last two shapes are
+    COCO-Stuff's head A (k=45, three 16-channel chunks) and Potsdam's (k=36,
+    T=11, a 200-pixel map that is no multiple of K1's 64-pixel slabs) at
+    n=2."""
     rng = np.random.default_rng(5)
     t = 2 * half_t + 1
     x1 = torch.from_numpy(_maps(rng, n, k, h, w)).to(gpu)
@@ -1060,3 +1064,29 @@ def test_prefetch_batches_equal_the_synchronous_upload(gpu):
                 assert torch.equal(a, b.cpu()) and torch.equal(a, c.cpu())
             assert torch.equal(torch.rand(4, generator=s_gen, device=gpu),
                                torch.rand(4, generator=t_gen, device=gpu))
+
+
+@pytest.mark.cuda
+def test_native_batches_upload_bit_equal(gpu):
+    """The native host prep (built by g++ on the card's host) behind
+    DeviceUpload: the batches on the card equal the CPU pipeline's native
+    and numpy batches bit for bit."""
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
+
+    cfg = parse_seg_args([
+        "--mode", "IID", "--dataset", "SyntheticSegPotsdam3x48x16",
+        "--dataset_root", "", "--batch_sz", "4", "--num_dataloaders", "1",
+        "--input_sz", "32", "--include_rgb"]).finalize(twohead=True)
+    on_card = SegTrainPipeline(cfg, ["train"], seed=3, device=gpu,
+                               use_native=True)
+    assert on_card._native is not None
+    got = list(on_card.epoch(1))
+    for use_native in (True, False):
+        ref = list(SegTrainPipeline(cfg, ["train"], seed=3,
+                                    use_native=use_native).epoch(1))
+        assert len(ref) == len(got) > 1
+        for (gi, gm, _), (ri, rm, _) in zip(got, ref):
+            assert gi.device.type == gm.device.type == "cuda"
+            assert gi.shape[-1] == 4
+            assert torch.equal(gi.cpu(), ri) and torch.equal(gm.cpu(), rm)

@@ -152,7 +152,7 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
 @pytest.mark.parametrize("flag", [
     ["--n_devices", "2"], ["--bn_sync"], ["--joint_mode", "parity"],
     ["--epoch_scan"], ["--resident_data"], ["--fused_pair_forward"],
-    ["--use_orbax"], ["--restart"], ["--profile_dir", "p"],
+    ["--use_orbax"], ["--profile_dir", "p"],
     ["--joint_impl", "fft"]])
 def test_flags_outside_the_slice_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0][2:]):
