@@ -40,7 +40,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
   4. hold K3 (fused clustering IID loss) in both forms (a thread-block
      cluster a sub-head, and one block a sub-head) against its plain
      version at the clustering path's shapes (S=5 sub-heads; bn, k = 660,
-     70 / 660, 10 / 1000, 140): loss and loss_nl within rtol = atol =
+     70 / 660, 10 / 1000, 140 / 700, 50 / 700, 10 / 585, 50): loss and
+     loss_nl within rtol = atol =
      1e-5, P within 1e-6 of max |P| (the cluster form's of P in float64),
      autograd gradients within rtol 1e-3,
      atol 1e-6; the cluster form's bits equal across two launches and for
@@ -129,6 +130,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      draws, in the JAX package too; every run is printed); the
      K1 and K2 launches of these runs add to the table's; each phase's
      seconds are printed;
+ 10b. the rest of clustering's paper workloads, on fixture trees written
+     in a temporary directory, each run with counts set to 0 just before,
+     its losses, eval accuracies, launches, seconds and peak device
+     memory printed, and each configuration's steady steps profiled as in
+     12: a full-size MNIST tree (60 000 raw idx training images, 10 000
+     gzipped test images; the port's synthetic clusterable images stand in
+     for the digits) through model 685's greyscale two-head CLI in f32 and
+     bf16 (one K3 launch a step required) and the single-head greyscale
+     IID+ CLI (no K3 launch allowed); an STL10 tree (train 5 000 and test
+     8 000 as the real splits, unlabelled cut from 100 000 to 10 000;
+     random pixels) through model 569's two-head sobel CLI with
+     --mix_train (one K3 launch a step) and model 653's single-head one
+     (batch 1400 at 64^2, k 140; no K3), each in f32 and bf16; and the
+     digits guard of tests/test_digits_regression.py (its command on the
+     Digits set, 12 epochs, f32, --fused_loss: best eval acc >= 0.60 and
+     >= 0.25 over the pre-eval) at seed 0, then at seeds 1-4 if it misses,
+     one run at least in the band; K3's launches of these runs add to the
+     table's;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -268,8 +287,12 @@ TOOL_RUNS = {None: 8, "ablate": 12, "mmprobe": 4, "v3": 5, "v4": 1,
              "v5": 1, "v6": 2, "kpad": 2, "v8": 6,
              "v7": 2}  # run -> variants
 # K3 at the clustering path's shapes (S sub-heads, bn, k): model 640's
-# heads A and B, and the CIFAR20 overclustering head of model 579
-K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140))
+# heads A and B, the CIFAR20 overclustering head of model 579, model 685's
+# heads A and B (MNIST; k=50 a new micro-tile count), model 569's head A,
+# and the Digits guard's heads A and B on the Digits set's ragged last
+# batch (1797 = 12 x 140 + 117 images, x 5)
+K3_SHAPES = ((5, 660, 70), (5, 660, 10), (5, 1000, 140), (5, 700, 50),
+             (5, 700, 10), (5, 700, 70), (5, 585, 50), (5, 585, 10))
 K3_STAGE = (5, 32, 70)  # head A's shape cut to one 32-row stage
 K3_ROUNDS = 10  # alternating rounds of the wrapper in both forms
 K3_LAMB = 1.0
@@ -1598,6 +1621,51 @@ def phase_trainer(dtype):
     return launches
 
 
+def _cluster_cli(main, argv, tag, heads="AB"):
+    """One clustering CLI run in-process, counts set to 0 just before and
+    the peak of device memory reset: prints its losses, step seconds, eval
+    accuracies, launches and peak memory; fails on a loss of ``heads``
+    (the single-head scripts log in the B slots) or an eval history that
+    is not finite or has fewer than 2 entries (the pre-train eval and one
+    epoch's). Returns (history, launches, steps)."""
+    import numpy as np
+    import torch
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, history = main(argv)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    n_steps = 0
+    for head in heads:
+        losses = history[f"epoch_loss_head_{head}"]
+        steps = history[f"step_seconds_head_{head}"]
+        n_steps += len(steps)
+        _log(f"{tag} head {head}: epoch loss {losses}, step seconds "
+             f"{[round(v, 4) for v in steps]}")
+        if not losses or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} head {head} loss not finite: "
+                                 f"{losses}")
+    acc = history["eval"].epoch_acc
+    _log(f"{tag}: eval acc per epoch (pre-train first) {acc}; "
+         f"{seconds:.1f} s; launches {launches}; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if len(acc) < 2 or not np.all(np.isfinite(acc)):
+        raise AssertionError(f"{tag}: eval history not filled: {acc}")
+    return history, launches, n_steps
+
+
+def _k3_per_step(tag, launches, n_steps):
+    """A two-head --fused_loss run launches K3 once a step (all five
+    sub-heads in one launch)."""
+    _log(f"{tag}: {launches['iid_loss_fwd']} K3 launches in {n_steps} "
+         f"steps")
+    if launches["iid_loss_fwd"] != n_steps:
+        raise AssertionError(f"{tag}: {launches['iid_loss_fwd']} K3 "
+                             f"launches for {n_steps} steps")
+
+
 def phase_cluster_trainer(dtype):
     """The clustering CLI in-process in ``dtype`` (``--model_dtype``),
     behind the default prefetch thread. Returns {kernel: launches in the
@@ -1606,34 +1674,15 @@ def phase_cluster_trainer(dtype):
     from iic_tpu_torch.cli import cluster_sobel_twohead
 
     with tempfile.TemporaryDirectory() as out_root:
-        _reset_counts()
-        _, history = cluster_sobel_twohead.main(
+        history, launches, n_steps = _cluster_cli(
+            cluster_sobel_twohead.main,
             CLUSTER_CLI_ARGS + ["--model_dtype", dtype, "--out_root",
-                                out_root])
-        launches = _read_counts()
-    n_steps = 0
-    for head in ("A", "B"):
-        losses = history[f"epoch_loss_head_{head}"]
-        steps = history[f"step_seconds_head_{head}"]
-        n_steps += len(steps)
-        _log(f"{dtype} cluster head {head}: epoch loss {losses}, step "
-             f"seconds "
-             f"{[round(s, 4) for s in steps]}")
-        if not losses or not np.all(np.isfinite(losses)):
-            raise AssertionError(f"head {head} loss not finite: {losses}")
-    ev = history["eval"]
-    _log(f"eval acc per epoch (pre-train first): {ev.epoch_acc}, double "
-         f"eval {ev.double_eval_acc}")
-    for name, acc in (("eval", ev.epoch_acc),
-                      ("double eval", ev.double_eval_acc)):
-        if len(acc) < 2 or not np.all(np.isfinite(acc)):
-            raise AssertionError(f"{name} history not filled: {acc}")
-    _log(f"launches in the {dtype} clustering run: {launches}; {n_steps} "
-         f"steps, so "
-         f"{n_steps} K3 launches expected (one per step for all 5 "
-         f"sub-heads; {5 * n_steps} if launched per sub-head)")
-    if launches["iid_loss_fwd"] < n_steps:
-        raise AssertionError(f"clustering path missed K3: {launches}")
+                                out_root], f"{dtype} cluster")
+    double = history["eval"].double_eval_acc
+    _log(f"double eval acc: {double}")
+    if len(double) < 2 or not np.all(np.isfinite(double)):
+        raise AssertionError(f"double eval history not filled: {double}")
+    _k3_per_step(f"the {dtype} clustering run", launches, n_steps)
     return launches
 
 
@@ -1936,6 +1985,351 @@ def phase_learning_guard():
     return total
 
 
+# Model 685's batch and transform flags (MNIST, examples/commands.md:46-52)
+MNIST_TF_ARGS = [
+    "--gt_k", "10", "--lr", "0.0001", "--batch_sz", "700",
+    "--num_dataloaders", "5", "--num_sub_heads", "5", "--crop_orig",
+    "--crop_other", "--tf1_crop", "centre_half", "--tf2_crop", "random",
+    "--tf1_crop_sz", "20", "--tf2_crop_szs", "16", "20", "24",
+    "--input_sz", "24", "--rot_val", "25", "--no_flip"]
+# Model 685 with --fused_loss --test_code; --dataset_root is added where it
+# runs
+MNIST685_ARGS = [
+    "--model_ind", "685", "--arch", "ClusterNet6cTwoHead", "--mode", "IID",
+    "--dataset", "MNIST", "--output_k_A", "50", "--output_k_B", "10",
+    "--lamb_A", "1.0", "--lamb_B", "1.0", "--num_epochs", "3200",
+    *MNIST_TF_ARGS, "--head_B_epochs", "2", "--fused_loss", "--test_code"]
+# The single-head greyscale script (the JAX package's model 665 runs it):
+# model 685's batch and transform flags with one overclustering head
+MNIST_SINGLE_ARGS = [
+    "--model_ind", "665", "--arch", "ClusterNet6c", "--mode", "IID+",
+    "--dataset", "MNIST", "--output_k", "50", "--lamb", "1.0",
+    "--num_epochs", "3200", *MNIST_TF_ARGS, "--fused_loss", "--test_code"]
+MNIST_SPLITS = {"train": 60000, "t10k": 10000}
+# STL10 model 569 (examples/commands.md:28-33) with --fused_loss
+# --test_code, and model 653 (:60-64), single-head IID+ overclustering
+STL569_ARGS = [
+    "--model_ind", "569", "--arch", "ClusterNet5gTwoHead", "--mode", "IID",
+    "--dataset", "STL10", "--gt_k", "10", "--output_k_A", "70",
+    "--output_k_B", "10", "--lamb", "1.0", "--lr", "0.0001",
+    "--num_epochs", "2000", "--batch_sz", "700", "--num_dataloaders", "5",
+    "--num_sub_heads", "5", "--mix_train", "--crop_orig",
+    "--rand_crop_sz", "64", "--input_sz", "64", "--head_A_first",
+    "--double_eval", "--batchnorm_track", "--fused_loss", "--test_code"]
+STL653_ARGS = [
+    "--model_ind", "653", "--arch", "ClusterNet5g", "--dataset", "STL10",
+    "--num_epochs", "3200", "--output_k", "140", "--gt_k", "10",
+    "--lr", "0.0001", "--lamb", "1.0", "--num_sub_heads", "5",
+    "--batch_sz", "1400", "--num_dataloaders", "5", "--mix_train",
+    "--crop_orig", "--rand_crop_sz", "64", "--input_sz", "64",
+    "--mode", "IID+", "--batchnorm_track", "--test_code"]
+# The STL10 tree: the real train and test splits' sizes; the unlabelled
+# split cut from 100 000 to 10 000 images, so --mix_train puts 2
+# unlabelled images after each labelled one, not 20
+STL_SPLITS = {"train": 5000, "test": 8000, "unlabeled": 10000}
+# tests/test_digits_regression.py:63-92: the JAX package's real-data guard
+# (the paper's MNIST command on the UCI digits, 12 epochs, band calibrated
+# on the TPU: 0.70 at epoch 10), through the port's greyscale two-head CLI
+# in f32 with --fused_loss
+DIGITS_ARGS = [
+    "--model_ind", "1", "--arch", "ClusterNet6cTwoHead", "--mode", "IID",
+    "--dataset", "Digits", "--gt_k", "10", "--output_k_A", "50",
+    "--output_k_B", "10", "--lamb_A", "1.0", "--lamb_B", "1.0",
+    "--lr", "0.0001", "--num_epochs", "12", "--batch_sz", "700",
+    "--num_dataloaders", "5", "--num_sub_heads", "5", "--crop_orig",
+    "--crop_other", "--tf1_crop", "centre_half", "--tf2_crop", "random",
+    "--tf1_crop_sz", "20", "--tf2_crop_szs", "16", "20", "24",
+    "--input_sz", "24", "--rot_val", "25", "--no_flip",
+    "--head_B_epochs", "2", "--fused_loss"]
+DIGITS_BEST, DIGITS_GAIN = 0.60, 0.25
+DIGITS_SEEDS = (0, 1, 2, 3, 4)
+TF2_STEPS, TF2_ROUNDS = 20, 3  # _tf2_grouping_cost's rounds
+
+
+def _idx_bytes(arr):
+    """An idx file's bytes: magic (uint8, ndim), the dimensions, the
+    data."""
+    head = (0x0800 | arr.ndim).to_bytes(4, "big") + b"".join(
+        d.to_bytes(4, "big") for d in arr.shape)
+    return head + arr.astype("uint8").tobytes()
+
+
+def _write_mnist(root):
+    """A full-size MNIST tree under root/MNIST/raw: 60 000 training images
+    as raw idx files, 10 000 test images gzipped, 28 x 28. The images are
+    a stand-in: the port's clusterable synthetic set (10 classes, one smooth
+    pattern each, plus noise), not handwritten digits."""
+    import gzip
+    import os
+    from iic_tpu_torch.data.readers import make_synthetic
+
+    base = os.path.join(root, "MNIST", "raw")
+    os.makedirs(base, exist_ok=True)
+    for i, (prefix, n) in enumerate(MNIST_SPLITS.items()):
+        d = make_synthetic(n, 10, 28, 1, seed=i)
+        for kind, arr in (("images-idx3", d["images"][..., 0]),
+                          ("labels-idx1", d["labels"])):
+            path = os.path.join(base, f"{prefix}-{kind}-ubyte")
+            if prefix == "train":
+                with open(path, "wb") as f:
+                    f.write(_idx_bytes(arr))
+            else:
+                with gzip.open(path + ".gz", "wb", compresslevel=1) as f:
+                    f.write(_idx_bytes(arr))
+
+
+def _cluster_profile(tag, cli, argv, heads, dtype, trace_dir=""):
+    """``_profile`` of steady steps of each head in ``heads`` of the
+    clustering config that the CLI module ``cli`` makes of its flags
+    ``argv`` (``cli.config``) in ``dtype``, on its own
+    pipelines over the same data (the two-head steps with K3 under
+    --fused_loss; the single-head step, ``heads`` "B", with the plain
+    loss, as its trainer runs it). Returns {head: ``_profile``'s
+    result}."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.data.pipeline import (
+        cluster_create_dataloaders, cluster_twohead_create_dataloaders)
+    from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
+                                                   make_optimizer)
+
+    cfg = cli.config(argv + ["--model_dtype", dtype])
+    twohead = cfg.twohead
+    torch.manual_seed(0)
+    if twohead:
+        pipes = dict(zip("AB", cluster_twohead_create_dataloaders(
+            cfg, device="cuda")[:2]))
+        lambs = {"A": cfg.lamb_A, "B": cfg.lamb_B}
+    else:
+        pipes = {"B": cluster_create_dataloaders(cfg, device="cuda")[0]}
+        lambs = {"B": cfg.lamb}
+    net = models.build(cfg.arch, cfg).cuda()
+    opt = make_optimizer(net, cfg)
+    out = {}
+    for head in heads:
+        step = make_cluster_train_step(
+            net, opt, pipes[head].augment_pair, lamb=lambs[head],
+            head=head if twohead else None, sobel=cfg.sobel,
+            include_rgb=cfg.include_rgb,
+            loss_impl="fused" if twohead and cfg.fused_loss else "xla")
+        batches = [b for _, b in zip(range(8), pipes[head].epoch(1))]
+        out[head] = _profile(f"{tag} {dtype} head {head}", step, batches,
+                             trace_dir, ("iid_loss_cluster_kernel",
+                                         "iid_loss_block_kernel"))
+    return out
+
+
+def phase_mnist(root):
+    """Model 685 through the port's greyscale two-head CLI on a full-size
+    MNIST tree (``_write_mnist``), in f32 and in bf16, each launching K3
+    once a step; then the single-head greyscale CLI (``MNIST_SINGLE_ARGS``:
+    the repo has no verbatim command for model 665, the JAX package's
+    single-head MNIST model, so it is model 685's transform and batch flags
+    with ``--arch ClusterNet6c --mode IID+ --output_k 50``), which runs the
+    plain loss under --fused_loss and must launch K3 no time. Returns
+    {kernel: launches}."""
+    from iic_tpu_torch.cli import cluster_greyscale, cluster_greyscale_twohead
+
+    total = {"iid_loss_fwd": 0}
+    with tempfile.TemporaryDirectory() as out_root:
+        for dtype in ("float32", "bfloat16"):
+            _, launches, n_steps = _cluster_cli(
+                cluster_greyscale_twohead.main, MNIST685_ARGS + [
+                    "--dataset_root", root, "--model_dtype", dtype,
+                    "--out_root", out_root], f"model 685 {dtype}")
+            _k3_per_step(f"model 685 {dtype}", launches, n_steps)
+            total["iid_loss_fwd"] += launches["iid_loss_fwd"]
+        _, launches, _ = _cluster_cli(
+            cluster_greyscale.main, MNIST_SINGLE_ARGS + [
+                "--dataset_root", root, "--out_root", out_root],
+            "single-head greyscale IID+", heads="B")
+    if launches["iid_loss_fwd"]:
+        raise AssertionError(f"the single-head run launched K3: {launches}")
+    root_arg = ["--dataset_root", root]
+    for dtype in ("float32", "bfloat16"):
+        _cluster_profile("model 685", cluster_greyscale_twohead,
+                         MNIST685_ARGS + root_arg, "AB", dtype)
+    _cluster_profile("single-head greyscale", cluster_greyscale,
+                     MNIST_SINGLE_ARGS + root_arg, "B", "float32")
+    _tf2_grouping_cost(MNIST685_ARGS + root_arg)
+    return total
+
+
+def _choice_crop_resize_where(img, crop_szs, choice, top, left, out_sz):
+    """``choice_crop_resize_at`` without its host sync, for the timing
+    in ``_tf2_grouping_cost`` only: every sample cropped (at its corner,
+    clamped into the image) and resized at every size, each sample's own
+    size picked with ``where``."""
+    import torch
+    from iic_tpu_torch.data import transforms as tt
+
+    h, w = img.shape[1:3]
+    out = None
+    for i, sz in enumerate(crop_szs):
+        one = tt.resize(tt.crop_at(img, top.clamp(max=h - sz),
+                                   left.clamp(max=w - sz), sz), out_sz)
+        out = one if out is None else torch.where(
+            (choice == i)[:, None, None, None], one, out)
+    return out
+
+
+def _tf2_grouping_cost(argv):
+    """Model 685's head-A step in f32 (``argv``: its flags), its tf2's
+    crop grouped by size (the port's, one host sync a step for the group
+    sizes) against every sample cropped and resized at every size and
+    picked with ``where`` (no sync): first the two on one batch's draws
+    (equal within 1e-6), then ms of wall a step over ``TF2_STEPS`` steps,
+    each ending in ``float(loss)`` as the trainer's do, and ms of wall an
+    ``augment_pair`` call alone (synchronised), in ``TF2_ROUNDS`` x the
+    rounds grouped, where, where, grouped. Returns {(what, variant): [ms a
+    round]}."""
+    import statistics
+
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli import cluster_greyscale_twohead
+    from iic_tpu_torch.data import transforms as tt
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
+                                                   make_optimizer)
+
+    cfg = cluster_greyscale_twohead.config(argv)
+    torch.manual_seed(0)
+    pipe = cluster_twohead_create_dataloaders(cfg, device="cuda")[0]
+    net = models.build(cfg.arch, cfg).cuda()
+    step = make_cluster_train_step(
+        net, make_optimizer(net, cfg), pipe.augment_pair, lamb=cfg.lamb_A,
+        head="A", sobel=False, include_rgb=cfg.include_rgb,
+        loss_impl="fused")
+    batches = [b for _, b in zip(range(8), pipe.epoch(1))]
+    variants = {"grouped": tt.choice_crop_resize_at,
+                "where": _choice_crop_resize_where}
+    img = batches[0][0].float() / 255.0
+    draws = tt.draw_choice_crop(*img.shape[:3], tuple(cfg.tf2_crop_szs),
+                                cfg.tf2_crop, torch.Generator(
+                                    device="cuda").manual_seed(0), "cuda")
+    got = {name: fn(img, tuple(cfg.tf2_crop_szs), *draws, cfg.input_sz)
+           for name, fn in variants.items()}
+    _check("tf2 crop, where vs grouped", got["where"], got["grouped"],
+           0.0, 1e-6)
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TF2_STEPS):
+            fn(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TF2_STEPS * 1e3
+
+    walls = {}
+    try:
+        for name in ("grouped", "where", "where", "grouped") * TF2_ROUNDS:
+            tt.choice_crop_resize_at = variants[name]
+            for batch in batches[:2]:
+                float(step(*batch)[0])
+            walls.setdefault(("step", name), []).append(
+                wall(lambda *b: float(step(*b)[0])))
+            walls.setdefault(("augment_pair", name), []).append(
+                wall(pipe.augment_pair))
+    finally:
+        tt.choice_crop_resize_at = variants["grouped"]
+    for (what, name), runs in walls.items():
+        _log(f"model 685 f32 head A, {what} with the tf2 crop {name}: "
+             f"median {statistics.median(runs):.3f}, min {min(runs):.3f} "
+             f"ms of wall (rounds of {TF2_STEPS}: "
+             + ", ".join(f"{ms:.3f}" for ms in runs) + ")")
+    return walls
+
+
+def _write_stl10(root):
+    """An STL10 binary tree under root/stl10_binary, ``STL_SPLITS`` images
+    of random pixels (96 x 96 x 3, column-major as the format has them),
+    labels 1-10 for train and test."""
+    import os
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    base = os.path.join(root, "stl10_binary")
+    os.makedirs(base, exist_ok=True)
+    for part, n in STL_SPLITS.items():
+        rng.integers(0, 256, n * 3 * 96 * 96, dtype=np.uint8).tofile(
+            os.path.join(base, f"{part}_X.bin"))
+        if part != "unlabeled":
+            rng.integers(1, 11, n, dtype=np.uint8).tofile(
+                os.path.join(base, f"{part}_y.bin"))
+
+
+def phase_stl(root):
+    """Model 569 (two-head, sobel, --mix_train) and model 653 (single-head
+    IID+, batch 1400 at 64^2, k 140) through the port's CLIs on an STL10
+    tree (``_write_stl10``), each in f32 and in bf16, with the peak device
+    memory of each run; 569 launches K3 once a step, 653 no time. Returns
+    {kernel: launches}."""
+    from iic_tpu_torch.cli import cluster_sobel, cluster_sobel_twohead
+
+    total = {"iid_loss_fwd": 0}
+    with tempfile.TemporaryDirectory() as out_root:
+        for dtype in ("float32", "bfloat16"):
+            _, launches, n_steps = _cluster_cli(
+                cluster_sobel_twohead.main, STL569_ARGS + [
+                    "--dataset_root", root, "--model_dtype", dtype,
+                    "--out_root", out_root], f"model 569 {dtype}")
+            _k3_per_step(f"model 569 {dtype}", launches, n_steps)
+            total["iid_loss_fwd"] += launches["iid_loss_fwd"]
+            _, launches, _ = _cluster_cli(
+                cluster_sobel.main, STL653_ARGS + [
+                    "--dataset_root", root, "--model_dtype", dtype,
+                    "--out_root", out_root], f"model 653 {dtype}",
+                heads="B")
+            if launches["iid_loss_fwd"]:
+                raise AssertionError(f"model 653 launched K3: {launches}")
+    root_arg = ["--dataset_root", root]
+    for dtype in ("float32", "bfloat16"):
+        _cluster_profile("model 569", cluster_sobel_twohead,
+                         STL569_ARGS + root_arg, "A", dtype)
+        _cluster_profile("model 653", cluster_sobel, STL653_ARGS + root_arg,
+                         "B", dtype)
+    return total
+
+
+def phase_digits_guard():
+    """tests/test_digits_regression.py's guard through the port's greyscale
+    two-head CLI: its command on the Digits set, 12 epochs, f32,
+    --fused_loss, at seed 0, and at seeds 1-4 if seed 0 misses; a run is in
+    the band when its best eval acc reaches DIGITS_BEST and gains
+    DIGITS_GAIN over its pre-eval, and one run at least must be. Returns
+    {kernel: launches in all the runs}."""
+    import numpy as np
+    from iic_tpu_torch.cli import cluster_greyscale_twohead
+
+    total = {"iid_loss_fwd": 0}
+    passed, missed = [], []
+    for seed in DIGITS_SEEDS:
+        with tempfile.TemporaryDirectory() as out_root:
+            history, launches, n_steps = _cluster_cli(
+                cluster_greyscale_twohead.main, DIGITS_ARGS + [
+                    "--seed", str(seed), "--out_root", out_root],
+                f"digits guard, seed {seed}")
+        _k3_per_step(f"digits guard, seed {seed}", launches, n_steps)
+        total["iid_loss_fwd"] += launches["iid_loss_fwd"]
+        accs = np.array(history["eval"].epoch_acc, float)
+        pre, best = float(accs[0]), float(accs.max())
+        ok = (len(accs) == 12 and best >= DIGITS_BEST
+              and best - pre >= DIGITS_GAIN)
+        (passed if ok else missed).append(seed)
+        _log(f"digits guard, seed {seed}: eval acc "
+             f"{[round(float(a), 4) for a in accs]}; pre {pre:.4f}, best "
+             f"{best:.4f} at epoch {int(accs.argmax())} (>= {DIGITS_BEST}), "
+             f"gain {best - pre:.4f} (>= {DIGITS_GAIN}): "
+             f"{'in the band' if ok else 'outside the band'}")
+        if ok:
+            break
+    _log(f"digits guard: seeds in the band {passed}, outside {missed}")
+    if not passed:
+        raise AssertionError("no run of the port reached the digits guard's "
+                             "band")
+    return total
+
+
 def phase_tool():
     """The port's experiment tool in-process at its default size: the
     default run and every run of ``TOOL_RUNS``. Returns {kernel: launches
@@ -2101,40 +2495,12 @@ def phase_profile(trace_dir, dtype):
 
 
 def phase_cluster_profile(trace_dir, dtype):
-    """Steady head-A and head-B steps of the clustering path (K3 on) in
-    ``dtype``. Returns {head: ``_profile``'s result}."""
-    import torch
-    from iic_tpu_torch import models
-    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
-    from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
-                                                   make_optimizer)
+    """Steady head-A and head-B steps of the clustering path (model 640, K3
+    on) in ``dtype``. Returns {head: ``_profile``'s result}."""
+    from iic_tpu_torch.cli import cluster_sobel_twohead
 
-    cfg = _cluster_cfg(dtype)
-    torch.manual_seed(0)
-    pipe_a, pipe_b, _, _ = cluster_twohead_create_dataloaders(
-        cfg, seed=0, device="cuda")
-    net = models.build(cfg.arch, cfg).cuda()
-    opt = make_optimizer(net, cfg)
-    out = {}
-    for head, pipe in (("A", pipe_a), ("B", pipe_b)):
-        step = make_cluster_train_step(
-            net, opt, pipe.augment_pair, lamb=cfg.lamb, head=head, sobel=True,
-            include_rgb=cfg.include_rgb, loss_impl="fused")
-        batches = [b for _, b in zip(range(8), pipe.epoch(1))]
-        out[head] = _profile(
-            f"{dtype} cluster head {head}", step, batches, trace_dir,
-            ("iid_loss_cluster_kernel", "iid_loss_block_kernel"))
-    return out
-
-
-def _cluster_cfg(dtype):
-    """Model 640's config (``CLUSTER_CLI_ARGS``) in ``dtype``."""
-    from iic_tpu_torch.cli._args import parse_cluster_args
-
-    cfg = parse_cluster_args(CLUSTER_CLI_ARGS + ["--model_dtype", dtype])
-    cfg.lamb_A = cfg.lamb_B = cfg.lamb
-    cfg.finalize(twohead=True, sobel=True)
-    return cfg
+    return _cluster_profile("cluster", cluster_sobel_twohead,
+                            CLUSTER_CLI_ARGS, "AB", dtype, trace_dir)
 
 
 # bench.py:117-131's method: 2 warm and 4 timed passes, heads A and B
@@ -2198,11 +2564,13 @@ def _cluster_wall(dtype, prefetch):
     ``float(loss)`` barriers, as ``_seg_rate`` times them."""
     import torch
     from iic_tpu_torch import models
+    from iic_tpu_torch.cli import cluster_sobel_twohead
     from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
     from iic_tpu_torch.parallel.train_step import (make_cluster_train_step,
                                                    make_optimizer)
 
-    cfg = _cluster_cfg(dtype)
+    cfg = cluster_sobel_twohead.config(CLUSTER_CLI_ARGS
+                                       + ["--model_dtype", dtype])
     torch.manual_seed(0)
     pipe, _, _, _ = cluster_twohead_create_dataloaders(cfg, seed=0,
                                                        device="cuda")
@@ -2299,6 +2667,23 @@ def main(argv=None):
             _log(f"phase {tag}: {time.perf_counter() - t0:.1f} s")
             for k in ("seg_joint_fwd", "seg_joint_dgrad"):
                 launches[k] += (run or {}).get(k, 0)
+    # the rest of clustering's paper workloads: K3's launches of the
+    # two-head runs add to the table's
+    with tempfile.TemporaryDirectory() as data_root:
+        for tag, write, phase in (
+                ("mnist", _write_mnist, phase_mnist),
+                ("stl", _write_stl10, phase_stl),
+                ("digits guard", None, lambda _: phase_digits_guard())):
+            t0 = time.perf_counter()
+            if write is not None:
+                write(data_root)
+                _log(f"{tag} fixture tree written in "
+                     f"{time.perf_counter() - t0:.1f} s")
+            _clocks(f"phase {tag}")
+            t1 = time.perf_counter()
+            run = phase(data_root)
+            _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
+            launches["iid_loss_fwd"] += run["iid_loss_fwd"]
     _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
                      if k in TOOL_KERNELS})

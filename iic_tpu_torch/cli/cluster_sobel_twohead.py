@@ -17,12 +17,17 @@ from iic_tpu_torch.cli._args import parse_cluster_args
 from iic_tpu_torch.train.cluster_trainer import train_cluster_twohead
 
 
-def main(argv=None, device=None):
+def config(argv=None):
+    """The script's config from its flags ``argv``."""
     cfg = parse_cluster_args(argv)
     cfg.lamb_A = cfg.lamb
     cfg.lamb_B = cfg.lamb
     cfg.finalize(twohead=True, sobel=True)
-    return train_cluster_twohead(cfg, device=device)
+    return cfg
+
+
+def main(argv=None, device=None):
+    return train_cluster_twohead(config(argv), device=device)
 
 
 if __name__ == "__main__":

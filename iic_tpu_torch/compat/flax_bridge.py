@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 
 _TRUNK_KEY = "SegmentationNet10aTrunk_0"
-_CLUSTER_TRUNK_KEY = "ClusterNet5gTrunk_0"
+_CLUSTER_TRUNK_KEYS = ("ClusterNet5gTrunk_0", "ClusterNet6cTrunk_0")
 
 
 def _path_key(path):
@@ -126,13 +126,16 @@ def load_dense_heads(flax_head, head):
 
 
 def load_cluster_net(variables, net):
-    """Fill a ``ClusterNet5g[TwoHead]`` from flax ``variables``: the ResNet
-    trunk's convs and BNs (stem first, then ``ResNetLayer_<l>/BasicBlock_<b>``
-    in order), then the dense heads."""
+    """Fill a ``ClusterNet5g[TwoHead]`` or ``ClusterNet6c[TwoHead]`` from
+    flax ``variables``: the trunk's convs and BNs (the ResNet's stem first,
+    then ``ResNetLayer_<l>/BasicBlock_<b>`` in order; net6c's
+    ``VGGTrunk_0``), then the dense heads."""
     params = variables["params"]
     stats = variables.get("batch_stats") or {}
-    load_trunk(params[_CLUSTER_TRUNK_KEY], stats.get(_CLUSTER_TRUNK_KEY),
-               net.trunk)
+    key = next((k for k in _CLUSTER_TRUNK_KEYS if k in params), None)
+    if key is None:
+        raise ValueError(f"no cluster trunk among {sorted(params)}")
+    load_trunk(params[key], stats.get(key), net.trunk)
     if hasattr(net, "head_A"):
         load_dense_heads(params["head_A"], net.head_A)
         load_dense_heads(params["head_B"], net.head_B)

@@ -10,9 +10,11 @@ batched ``augment_pair`` applies tf1 once per image and tf2
 Each batch's draws come from a ``torch.Generator`` seeded from (seed,
 epoch, batch), so a run is reproducible.
 
-Ported: the single-process, host-resident path of the two-head sobel
-scripts. The greyscale transforms, STL10 / MNIST / ImageFolder, resident
-mode and multi-process sharding are not (they raise).
+Ported: the single-process, host-resident path of the two-head scripts
+(sobel and greyscale) and of the single-head IID+ scripts, over the
+eager readers (MNIST, CIFAR, STL10 with ``--mix_train``, Digits,
+Synthetic). ImageFolder, the lazy readers, resident mode and
+multi-process sharding are not (they raise).
 """
 
 import numpy as np
@@ -21,7 +23,8 @@ import torch
 from iic_tpu_torch.data import readers
 from iic_tpu_torch.data.prefetch import DeviceUpload
 from iic_tpu_torch.data.seg_pipeline import batch_generator
-from iic_tpu_torch.data.transforms import make_sobel_pair_transforms
+from iic_tpu_torch.data.transforms import (
+    make_greyscale_pair_transforms, make_sobel_pair_transforms)
 
 
 def _is_greyscale(config):
@@ -35,23 +38,34 @@ def _is_greyscale(config):
     return False
 
 
-def _sobel_transforms(config):
+def _pair_transforms(config):
     if _is_greyscale(config):
-        raise NotImplementedError(
-            f"{config.dataset}: the greyscale clustering transforms are not "
-            "ported")
+        return make_greyscale_pair_transforms(config)
     return make_sobel_pair_transforms(config)
 
 
 def _load_partitions(config, partitions):
     """(images uint8 (N, H, W, C), labels int32 (N,)) over the partitions,
-    concatenated in order."""
-    parts = [readers.load_dataset(config.dataset, config.dataset_root, p)
-             for p in partitions]
+    concatenated in order. STL10's train+unlabeled under ``--mix_train``
+    is reordered so that each labelled image is followed by its share of
+    the unlabelled ones (``readers.reorder_train_deterministic_ids``)."""
+    parts = []
+    for p in partitions:
+        d = readers.load_dataset(config.dataset, config.dataset_root, p)
+        imgs, labels = d["images"], d["labels"]
+        if (config.dataset == "STL10" and p == "train+unlabeled"
+                and config.mix_train):
+            # the labelled count from the labels (the unlabelled are -1):
+            # 5000 on the real STL10, and any size on a fixture tree
+            n_train = int((labels >= 0).sum())
+            ids = readers.reorder_train_deterministic_ids(
+                n_train=n_train, per=(len(imgs) - n_train) // n_train)
+            imgs, labels = imgs[ids], labels[ids]
+        parts.append((imgs, labels))
     if len(parts) == 1:
-        return parts[0]["images"], parts[0]["labels"]
-    return (np.concatenate([p["images"] for p in parts]),
-            np.concatenate([p["labels"] for p in parts]))
+        return parts[0]
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]))
 
 
 class ClusterTrainPipeline:
@@ -70,7 +84,7 @@ class ClusterTrainPipeline:
                                     else _load_partitions(config, partitions))
         self.num_batches = max(int(np.ceil(
             len(self.images) / self.dataloader_batch_sz)), 1)
-        tf1, tf2, _ = _sobel_transforms(config)
+        tf1, tf2, _ = _pair_transforms(config)
         r = self.num_dataloaders
         self.upload = DeviceUpload(self.device)
 
@@ -111,7 +125,7 @@ class MappingLoader:
         self.batch_sz = config.batch_sz
         self.images, self.labels = (preloaded if preloaded is not None
                                     else _load_partitions(config, partitions))
-        _, _, self.tf3 = _sobel_transforms(config)
+        _, _, self.tf3 = _pair_transforms(config)
 
     def __iter__(self):
         for start in range(0, len(self.images), self.batch_sz):
@@ -126,21 +140,40 @@ class MappingLoader:
 
 
 def _twohead_partitions(config):
-    """(train A, train B, mapping assignment, mapping test) partitions: the
-    train and test splits together everywhere (the reference's table for
-    CIFAR)."""
+    """(train A, train B, mapping assignment, mapping test) partitions, the
+    reference's table: train and test together for CIFAR, MNIST, Digits
+    and Synthetic; for STL10 head A also trains on the unlabelled images
+    (unless ``--stl_leave_out_unlabelled``), which needs ``--mix_train``."""
     ds = config.dataset
-    if "CIFAR" in ds or ds.startswith("Synthetic"):
+    if ("CIFAR" in ds or ds == "MNIST" or ds.startswith("Digits")
+            or ds.startswith("Synthetic")):
         both = [True, False]
         return both, both, both, both
+    if ds == "STL10":
+        if not config.mix_train:
+            raise ValueError("the two-head scripts on STL10 need "
+                             "--mix_train")
+        train_a = (["train", "test"] if config.stl_leave_out_unlabelled
+                   else ["train+unlabeled", "test"])
+        both = ["train", "test"]
+        return train_a, both, both, both
     raise NotImplementedError(f"dataset {ds!r} is not ported for the "
-                              "two-head clustering scripts")
+                              "clustering scripts")
+
+
+def _shared(loaded, partitions):
+    """The decoded (images, labels) of a pipeline or loader in ``loaded``,
+    a list of (partitions, data), over the same partitions, or None."""
+    return next((data for parts, data in loaded if parts == partitions),
+                None)
 
 
 def cluster_twohead_create_dataloaders(config, seed=0, device="cpu"):
     """Returns (train pipeline head A, train pipeline head B, mapping
     assignment loader, mapping test loader). Head B's pipeline is seeded
-    ``seed + 1``; all four share the decoded images."""
+    ``seed + 1``. Pipelines and loaders over the same partitions share the
+    decoded images: all four do, but on STL10, where head A's mix of
+    train+unlabeled has its own."""
     if config.mode != "IID":
         raise ValueError(f"the two-head scripts run mode IID, got "
                          f"{config.mode}")
@@ -150,9 +183,43 @@ def cluster_twohead_create_dataloaders(config, seed=0, device="cpu"):
     config.mapping_assignment_partitions = map_a
     config.mapping_test_partitions = map_t
     pipe_a = ClusterTrainPipeline(config, train_a, seed=seed, device=device)
-    data = (pipe_a.images, pipe_a.labels)
+    loaded = [(train_a, (pipe_a.images, pipe_a.labels))]
     pipe_b = ClusterTrainPipeline(config, train_b, seed=seed + 1,
-                                  device=device, preloaded=data)
-    map_assign = MappingLoader(config, map_a, device=device, preloaded=data)
-    map_test = MappingLoader(config, map_t, device=device, preloaded=data)
+                                  device=device,
+                                  preloaded=_shared(loaded, train_b))
+    loaded.append((train_b, (pipe_b.images, pipe_b.labels)))
+    map_assign = MappingLoader(config, map_a, device=device,
+                               preloaded=_shared(loaded, map_a))
+    map_test = MappingLoader(config, map_t, device=device,
+                             preloaded=_shared(loaded, map_t))
     return pipe_a, pipe_b, map_assign, map_test
+
+
+def cluster_create_dataloaders(config, seed=0, device="cpu"):
+    """The single-head IID+ scripts' (``iic_tpu/data/pipeline.py``:
+    ``cluster_create_dataloaders``): the train split trains and maps, the
+    test split is held out (STL10: train+unlabeled trains, train maps).
+    Returns (train pipeline, mapping assignment loader, mapping test
+    loader)."""
+    if config.mode != "IID+":
+        raise ValueError(f"the single-head scripts run mode IID+, got "
+                         f"{config.mode}")
+    ds = config.dataset
+    if ("CIFAR" in ds or ds == "MNIST" or ds.startswith("Digits")
+            or ds.startswith("Synthetic")):
+        train, map_a, map_t = [True], [True], [False]
+    elif ds == "STL10":
+        train, map_a, map_t = ["train+unlabeled"], ["train"], ["test"]
+    else:
+        raise NotImplementedError(f"dataset {ds!r} is not ported for the "
+                                  "clustering scripts")
+    config.train_partitions = train
+    config.mapping_assignment_partitions = map_a
+    config.mapping_test_partitions = map_t
+    pipe = ClusterTrainPipeline(config, train, seed=seed, device=device)
+    loaded = [(train, (pipe.images, pipe.labels))]
+    return (pipe,
+            MappingLoader(config, map_a, device=device,
+                          preloaded=_shared(loaded, map_a)),
+            MappingLoader(config, map_t, device=device,
+                          preloaded=_shared(loaded, map_t)))

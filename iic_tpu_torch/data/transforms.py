@@ -1,6 +1,7 @@
 """Device-side image transforms (``iic_tpu/data/transforms.py``): grey
-conversion, colour jitter, crops, resize, flip, and the clustering sobel
-path's tf1 / tf2 / tf3.
+conversion, colour jitter, crops, resize, flip, rotation, and the
+clustering paths' tf1 / tf2 / tf3: the sobel (colour) path's and the
+greyscale (MNIST) path's.
 
 Images are float32 (B, H, W, C) in [0, 1], the JAX layout, batched. Random
 transforms draw per-sample parameters from an explicit ``torch.Generator``
@@ -8,8 +9,12 @@ and apply them in a separate, deterministic step, so the tests can feed
 both packages the same draws.
 """
 
+import math
+
 import torch
 import torch.nn.functional as F
+
+from iic_tpu_torch.ops.affine import affine_grid, grid_sample
 
 # PIL ``to_grayscale`` / cv2 COLOR_RGB2GRAY weights.
 _GREY_W = (0.299, 0.587, 0.114)
@@ -135,12 +140,9 @@ def center_crop(img, crop_sz):
 
 def draw_crop(b, h, w, crop_sz, generator, device):
     """torchvision RandomCrop's draw: top-left corners (B,), uniform over
-    the valid positions."""
-    top = torch.randint(0, h - crop_sz + 1, (b,), generator=generator,
-                        device=device)
-    left = torch.randint(0, w - crop_sz + 1, (b,), generator=generator,
-                         device=device)
-    return top, left
+    the valid positions (``draw_crop_mode``'s "random" at one size)."""
+    return draw_crop_mode(b, h, w, torch.full((b,), crop_sz, device=device),
+                          "random", generator, device)
 
 
 def crop_at(img, top, left, crop_sz):
@@ -170,6 +172,113 @@ def resize(img, out_sz):
 def flip_where(img, flip):
     """Horizontal flip of the samples where ``flip`` (B,) is true."""
     return torch.where(flip[:, None, None, None], img.flip(2), img)
+
+
+def draw_rotation(b, max_deg, generator, device, p=0.5, always=False):
+    """torchvision RandomApply([RandomRotation(max_deg)], p)'s draws: angles
+    (B,) uniform in [-max_deg, max_deg] degrees, and whether each sample
+    rotates (all of them when ``always``)."""
+    angle = (torch.rand((b,), generator=generator, device=device)
+             * (2.0 * max_deg) - max_deg)
+    do = torch.rand((b,), generator=generator, device=device) < p
+    return angle, (torch.ones_like(do) if always else do)
+
+
+def rotate_where(img, angle, do):
+    """Rotate each sample of (B, H, W, C) about its centre by ``angle`` (B,)
+    degrees where ``do`` (B,) is true: bilinear, zero fill, through the
+    exact ``affine_grid`` / ``grid_sample`` (align_corners=True), the op
+    the JAX ``random_rotation`` runs."""
+    a = angle.float() * (math.pi / 180.0)
+    cos, sin, zero = torch.cos(a), torch.sin(a), torch.zeros_like(a)
+    theta = torch.stack([torch.stack([cos, -sin, zero], dim=-1),
+                         torch.stack([sin, cos, zero], dim=-1)], dim=1)
+    data = img.permute(0, 3, 1, 2)
+    rotated = grid_sample(data, affine_grid(theta, data.shape))
+    return torch.where(do[:, None, None, None], rotated.permute(0, 2, 3, 1),
+                       img)
+
+
+def random_rotation(img, generator, max_deg, p=0.5, always=False):
+    """RandomApply([RandomRotation(max_deg)], p) (always under
+    ``always``): ``draw_rotation``, then ``rotate_where``. The JAX
+    function's counterpart, for callers and tests: the pipeline's tf2
+    draws and applies in two steps (``tf2.draw`` / ``tf2.apply``)."""
+    angle, do = draw_rotation(img.shape[0], max_deg, generator, img.device,
+                              p, always)
+    return rotate_where(img, angle, do)
+
+
+def _uniform_index(n, generator, device):
+    """Integers uniform in [0, n) for a (B,) tensor of bounds ``n``."""
+    u = torch.rand(n.shape, generator=generator, device=device)
+    return torch.minimum((u * n).long(), n - 1)
+
+
+def draw_crop_mode(b, h, w, sz, mode, generator, device):
+    """Corners (top, left) (B,) of a ``mode`` crop of sizes ``sz`` (B,):
+    "random" uniform over the valid positions (torchvision RandomCrop),
+    "centre" the centre crop's (CenterCrop), "centre_half" either, 50/50."""
+    centre = ((h - sz + 1) // 2, (w - sz + 1) // 2)
+    if mode == "centre":
+        return centre
+    top = _uniform_index(h - sz + 1, generator, device)
+    left = _uniform_index(w - sz + 1, generator, device)
+    if mode == "random":
+        return top, left
+    if mode != "centre_half":
+        raise ValueError(f"crop mode {mode!r}")
+    coin = torch.rand((b,), generator=generator, device=device) < 0.5
+    return (torch.where(coin, top, centre[0]),
+            torch.where(coin, left, centre[1]))
+
+
+def crop_half_or_centre(img, crop_sz, generator):
+    """The "centre_half" crop: RandomCrop or CenterCrop, 50/50. The JAX
+    function's counterpart, for callers and tests: tf1 draws and applies in
+    two steps."""
+    b, h, w = img.shape[:3]
+    sz = torch.full((b,), crop_sz, device=img.device)
+    top, left = draw_crop_mode(b, h, w, sz, "centre_half", generator,
+                               img.device)
+    return crop_at(img, top, left, crop_sz)
+
+
+def draw_choice_crop(b, h, w, crop_szs, mode, generator, device):
+    """torchvision RandomChoice over ``mode`` crops of the sizes
+    ``crop_szs``: each sample's choice (B,) (an index into ``crop_szs``) and
+    its corner (top, left)."""
+    choice = torch.randint(0, len(crop_szs), (b,), generator=generator,
+                           device=device)
+    sz = torch.tensor(crop_szs, device=device)[choice]
+    top, left = draw_crop_mode(b, h, w, sz, mode, generator, device)
+    return choice, top, left
+
+
+def choice_crop_resize_at(img, crop_szs, choice, top, left, out_sz):
+    """Crop each sample at its corner to its chosen size, then resize to
+    ``out_sz``. The samples are grouped by size: one crop and one resize a
+    size, none for a size no sample chose."""
+    b, _, _, c = img.shape
+    out = img.new_empty((b, out_sz, out_sz, c))
+    order = torch.argsort(choice, stable=True)
+    counts = torch.bincount(choice, minlength=len(crop_szs)).tolist()
+    for sz, idx in zip(crop_szs, torch.split(order, counts)):
+        if len(idx):
+            out[idx] = resize(crop_at(img[idx], top[idx], left[idx], sz),
+                              out_sz)
+    return out
+
+
+def random_choice_crop_resize(img, crop_szs, out_sz, generator,
+                              crop_mode="random"):
+    """RandomChoice over RandomCrop(sz) for sz in ``crop_szs`` (or centre
+    crops, or centre_half), then Resize(out_sz): the greyscale tf2's. The
+    JAX function's counterpart, for callers and tests: tf2 draws and
+    applies in two steps."""
+    draws = draw_choice_crop(*img.shape[:3], tuple(crop_szs), crop_mode,
+                             generator, img.device)
+    return choice_crop_resize_at(img, tuple(crop_szs), *draws, out_sz)
 
 
 def per_img_demean(img):
@@ -249,5 +358,111 @@ def make_sobel_pair_transforms(config):
             img = resize(center_crop(img, crop_sz), input_sz)
         return finish(img)
 
+    tf2.draw, tf2.apply = draw_tf2, apply_tf2
+    return tf1, tf2, tf3
+
+
+def make_greyscale_pair_transforms(config):
+    """tf1 / tf2 / tf3 of the greyscale (MNIST) clustering path, batched,
+    on (B, H, W, 1) float32 in [0, 1] -> (B, input_sz, input_sz, 1):
+
+      tf1(img, generator): a ``tf1_crop`` crop ("random", "centre" or
+        "centre_half") of ``tf1_crop_sz`` under ``crop_orig``, then the
+        resize; tf2(img, generator): a rotation by U(-rot_val, rot_val)
+        degrees (with p 0.5, or always under ``always_rot``; none when
+        rot_val is 0), then a ``tf2_crop`` crop of a size drawn from
+        ``tf2_crop_szs`` and the resize under ``crop_other`` (else the
+        resize alone), a flip unless ``no_flip``, colour jitter unless
+        ``no_jitter`` (brightness and contrast: saturation and hue leave a
+        grey image as it is); tf3(img): the centre crop of tf1_crop_sz (or
+        ``tf3_crop_sz`` under ``tf3_crop_diff``) under ``crop_orig``, then
+        the resize. Each ends in the optional demeaning.
+
+    ``tf1.draw(b, h, w, generator, device)`` / ``tf1.apply(img, draws)``
+    and the same for tf2 split each into its per-sample draws and their
+    deterministic application.
+    """
+    crop_orig = config.crop_orig
+    crop_other = config.crop_other
+    tf1_crop = config.tf1_crop
+    tf1_crop_sz = config.tf1_crop_sz
+    tf2_crop = config.tf2_crop
+    tf2_crop_szs = tuple(config.tf2_crop_szs)
+    tf3_sz = config.tf3_crop_sz if config.tf3_crop_diff else tf1_crop_sz
+    input_sz = config.input_sz
+    rot_val = config.rot_val
+    always_rot = config.always_rot
+    no_flip = config.no_flip
+    no_jitter = config.no_jitter
+    demean = config.demean
+    data_mean = tuple(config.data_mean or ())
+    data_std = tuple(config.data_std or ())
+    do_per_img_demean = config.per_img_demean
+
+    def finish(img):
+        if demean and data_mean:
+            mean = torch.tensor(data_mean, dtype=img.dtype, device=img.device)
+            std = torch.tensor(data_std, dtype=img.dtype, device=img.device)
+            img = (img - mean) / std
+        if do_per_img_demean:
+            img = per_img_demean(img)
+        return img
+
+    def draw_tf1(b, h, w, generator, device):
+        if not crop_orig:
+            return {}
+        sz = torch.full((b,), tf1_crop_sz, device=device)
+        top, left = draw_crop_mode(b, h, w, sz, tf1_crop, generator, device)
+        return dict(top=top, left=left)
+
+    def apply_tf1(img, draws):
+        if crop_orig:
+            img = crop_at(img, draws["top"], draws["left"], tf1_crop_sz)
+        return finish(resize(img, input_sz))
+
+    def tf1(img, generator):
+        return apply_tf1(img, draw_tf1(*img.shape[:3], generator, img.device))
+
+    def draw_tf2(b, h, w, generator, device):
+        draws = {}
+        if rot_val > 0:
+            draws["angle"], draws["rotate"] = draw_rotation(
+                b, rot_val, generator, device, always=always_rot)
+        if crop_other:
+            draws["choice"], draws["top"], draws["left"] = draw_choice_crop(
+                b, h, w, tf2_crop_szs, tf2_crop, generator, device)
+        if not no_flip:  # RandomHorizontalFlip, p = 0.5
+            draws["flip"] = torch.rand((b,), generator=generator,
+                                       device=device) < 0.5
+        if not no_jitter:
+            draws["jitter_factors"], draws["jitter_order"] = draw_jitter(
+                b, generator, device)
+        return draws
+
+    def apply_tf2(img, draws):
+        if rot_val > 0:
+            img = rotate_where(img, draws["angle"], draws["rotate"])
+        if crop_other:
+            img = choice_crop_resize_at(img, tf2_crop_szs, draws["choice"],
+                                        draws["top"], draws["left"],
+                                        input_sz)
+        else:
+            img = resize(img, input_sz)
+        if not no_flip:
+            img = flip_where(img, draws["flip"])
+        if not no_jitter:
+            img = color_jitter_with(img, draws["jitter_factors"],
+                                    draws["jitter_order"])
+        return finish(img)
+
+    def tf2(img, generator):
+        return apply_tf2(img, draw_tf2(*img.shape[:3], generator, img.device))
+
+    def tf3(img):
+        if crop_orig:
+            img = center_crop(img, tf3_sz)
+        return finish(resize(img, input_sz))
+
+    tf1.draw, tf1.apply = draw_tf1, apply_tf1
     tf2.draw, tf2.apply = draw_tf2, apply_tf2
     return tf1, tf2, tf3

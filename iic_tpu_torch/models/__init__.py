@@ -1,10 +1,11 @@
 """Model registry: name -> constructor taking a config object, the
 reference's ``archs.__dict__[config.arch](config)`` lookup. Ported so far:
-the two segmentation archs and the ResNet-34 cluster nets. Every net runs
-in ``config.model_dtype`` (float32 by default, or bfloat16)."""
+the two segmentation archs and the ResNet-34 and net6c cluster nets. Every
+net runs in ``config.model_dtype`` (float32 by default, or bfloat16)."""
 
 from iic_tpu_torch.models.cluster_nets import (
-    ClusterNet5g, ClusterNet5gTrunk, ClusterNet5gTwoHead)
+    ClusterNet5g, ClusterNet5gTrunk, ClusterNet5gTwoHead, ClusterNet6c,
+    ClusterNet6cTrunk, ClusterNet6cTwoHead)
 from iic_tpu_torch.models.segmentation_nets import (
     SegmentationNet10a, SegmentationNet10aTrunk, SegmentationNet10aTwoHead)
 from iic_tpu_torch.models.layers import compute_dtype
@@ -31,6 +32,21 @@ def make_SegmentationNet10aTwoHead(config):
         config.num_sub_heads, config.input_sz, **_build_common(config))
 
 
+def make_ClusterNet6c(config):
+    return ClusterNet6c(config.in_channels, config.output_k,
+                        config.num_sub_heads, config.input_sz,
+                        **_build_common(config))
+
+
+def make_ClusterNet6cTwoHead(config):
+    if getattr(config, "semisup", False):
+        raise NotImplementedError("the semisup head B (a single Linear) is "
+                                  "not ported")
+    return ClusterNet6cTwoHead(
+        config.in_channels, config.output_k_A, config.output_k_B,
+        config.num_sub_heads, config.input_sz, **_build_common(config))
+
+
 def make_ClusterNet5g(config):
     return ClusterNet5g(config.in_channels, config.output_k,
                         config.num_sub_heads, **_build_common(config))
@@ -45,6 +61,8 @@ def make_ClusterNet5gTwoHead(config):
 ARCHS = {
     "ClusterNet5g": make_ClusterNet5g,
     "ClusterNet5gTwoHead": make_ClusterNet5gTwoHead,
+    "ClusterNet6c": make_ClusterNet6c,
+    "ClusterNet6cTwoHead": make_ClusterNet6cTwoHead,
     "SegmentationNet10a": make_SegmentationNet10a,
     "SegmentationNet10aTwoHead": make_SegmentationNet10aTwoHead,
 }
@@ -58,5 +76,6 @@ def build(name, config):
 
 
 __all__ = ["ARCHS", "build", "ClusterNet5g", "ClusterNet5gTrunk",
-           "ClusterNet5gTwoHead", "SegmentationNet10a",
+           "ClusterNet5gTwoHead", "ClusterNet6c", "ClusterNet6cTrunk",
+           "ClusterNet6cTwoHead", "SegmentationNet10a",
            "SegmentationNet10aTrunk", "SegmentationNet10aTwoHead"]

@@ -1,12 +1,13 @@
 """Clustering networks (``iic_tpu/models/cluster_nets.py``): the ResNet-34
-``ClusterNet5g`` family.
+``ClusterNet5g`` family and the VGG-style ``ClusterNet6c`` family.
 
 Input NCHW; output (num_sub_heads, B, K) softmax probabilities. Two-head
 nets dispatch on ``head="A"|"B"``. Module names follow the reference
-(``trunk.conv1``, ``trunk.layer1.0.conv1``, ``head_A.heads.<s>.0``), so its
-state_dicts load with ``load_state_dict``. ``dtype`` is the trunk's
-compute dtype (see ``layers``); its spatial mean is taken in f32, as the
-JAX trunk takes it, and the heads run in f32.
+(``trunk.conv1``, ``trunk.layer1.0.conv1``, ``trunk.features.<i>``,
+``head_A.heads.<s>.0``), so its state_dicts load with
+``load_state_dict``. ``dtype`` is the trunk's compute dtype (see
+``layers``); the ResNet's spatial mean is taken in f32, as the JAX trunk
+takes it, and the heads run in f32.
 """
 
 import torch
@@ -16,9 +17,70 @@ from iic_tpu_torch.models.layers import (
     Conv2d, MultiDenseHead, batch_norm, kaiming_normal_fan_out_,
     max_pool_2x2_pad1)
 from iic_tpu_torch.models.residual import BasicBlock, ResNetLayer
+from iic_tpu_torch.models.vgg import VGGTrunk
 
 # (planes, blocks, stride) of ResNet-34's four layers
 LAYERS = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+# (out_channels, dilation) | ("M", None): the reference's net6c cfg
+NET6C_CFG = ((64, 1), ("M", None), (128, 1), ("M", None),
+             (256, 1), ("M", None), (512, 1))
+
+
+class ClusterNet6cTrunk(VGGTrunk):
+    """Four 5x5 convs with padding 2, each with BN and relu, max-pools 2x2
+    between them, then the features flattened in NCHW order, (B, 512 * s *
+    s) with s = input_sz // 8. The JAX trunk runs NHWC and flattens through
+    ``flatten_nhwc_as_nchw``; on NCHW tensors that order is a plain
+    ``flatten(1)``."""
+
+    def __init__(self, in_channels, batchnorm_track=True,
+                 dtype=torch.float32):
+        super().__init__(NET6C_CFG, in_channels, conv_size=5, pad=2,
+                         batchnorm_track=batchnorm_track, dtype=dtype)
+
+    def forward(self, x):
+        return self.features(x).flatten(1)
+
+
+def _net6c_features(input_sz):
+    """Width of ClusterNet6cTrunk's flattened features at ``input_sz``."""
+    side = input_sz
+    for out, _ in NET6C_CFG:
+        if out == "M":
+            side //= 2
+    return NET6C_CFG[-1][0] * side * side
+
+
+class ClusterNet6c(nn.Module):
+    """Single-head net6c."""
+
+    def __init__(self, in_channels, output_k, num_sub_heads, input_sz,
+                 batchnorm_track=True, dtype=torch.float32):
+        super().__init__()
+        self.trunk = ClusterNet6cTrunk(in_channels, batchnorm_track, dtype)
+        self.head = MultiDenseHead(_net6c_features(input_sz), output_k,
+                                   num_sub_heads)
+
+    def forward(self, x):
+        return self.head(self.trunk(x))
+
+
+class ClusterNet6cTwoHead(nn.Module):
+    """Two-head net6c; ``head`` picks "A" or "B"."""
+
+    def __init__(self, in_channels, output_k_A, output_k_B, num_sub_heads,
+                 input_sz, batchnorm_track=True, dtype=torch.float32):
+        super().__init__()
+        self.trunk = ClusterNet6cTrunk(in_channels, batchnorm_track, dtype)
+        d = _net6c_features(input_sz)
+        self.head_A = MultiDenseHead(d, output_k_A, num_sub_heads)
+        self.head_B = MultiDenseHead(d, output_k_B, num_sub_heads)
+
+    def forward(self, x, head="B"):
+        if head not in ("A", "B"):
+            raise ValueError(f"unknown head {head!r}")
+        feats = self.trunk(x)
+        return (self.head_A if head == "A" else self.head_B)(feats)
 
 
 class ClusterNet5gTrunk(nn.Module):

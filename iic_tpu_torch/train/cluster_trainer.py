@@ -1,14 +1,18 @@
-"""Two-head clustering trainer (``iic_tpu/train/cluster_trainer.py``:
-``train_cluster_twohead``).
+"""Clustering trainers (``iic_tpu/train/cluster_trainer.py``:
+``train_cluster_twohead``, ``train_cluster_single``).
 
-The epoch / head / batch loop of the reference's cluster_sobel_twohead
-script on one GPU: head B first unless ``--head_A_first`` (the opposite of
-the segmentation scripts), ``head_X_epochs`` passes per head, the
-multiplicative lr schedule with Adam's moments kept, the NaN exit, a
-Hungarian eval (with double eval) before training and after every epoch,
-optional sub-head selection by loss, latest / best checkpoints, plots.png,
-``--restart`` / ``--restart_from_best``, and the ``--test_code`` mode of
-two batches per head pass and one epoch.
+The epoch / head / batch loops of the reference's clustering scripts on
+one GPU. Two-head (cluster_sobel_twohead, cluster_greyscale_twohead): head
+B first unless ``--head_A_first`` (the opposite of the segmentation
+scripts), ``head_X_epochs`` passes per head, a Hungarian eval (with double
+eval) before training and after every epoch, optional sub-head selection by
+loss. Single-head IID+ (cluster_sobel, cluster_greyscale): one pass an
+epoch, the many-to-one ("orig") eval mapped on the assignment split and
+scored on the held-out one, the losses logged in the head-B slots. Both:
+the multiplicative lr schedule with Adam's moments kept, the NaN exit,
+latest / best checkpoints, plots.png, ``--restart`` /
+``--restart_from_best``, and the ``--test_code`` mode of two batches per
+head pass and one epoch.
 
 Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
 parameters, BN statistics, the heads, the loss and Adam stay f32). f32
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 from iic_tpu_torch import models
-from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+from iic_tpu_torch.data.pipeline import (
+    cluster_create_dataloaders, cluster_twohead_create_dataloaders)
 from iic_tpu_torch.data.prefetch import host_prefetch_iter
 from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import (
@@ -42,8 +47,8 @@ from iic_tpu_torch.train.seg_trainer import make_history, resume
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.
 _REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
-            "use_orbax", "profile_dir", "save_progression", "lazy_images", "kmeans_on_features",
-            "mix_train", "stl_leave_out_unlabelled")
+            "use_orbax", "profile_dir", "save_progression", "lazy_images",
+            "kmeans_on_features")
 
 
 def _log(msg):
@@ -65,9 +70,6 @@ def check_supported(config):
     if config.joint_mode != "global":
         raise NotImplementedError(f"--joint_mode {config.joint_mode} is not "
                                   "ported")
-    if not (config.twohead and config.sobel):
-        raise NotImplementedError("only the two-head sobel clustering script "
-                                  "is ported")
 
 
 def head_order(config):
@@ -91,6 +93,26 @@ def _select_sub_head_on_loss(config, net, pipe_b):
 def train_cluster_twohead(config, device=None):
     """Two-head unsupervised clustering (IIC). Returns (net, history).
     ``device`` defaults to cuda:0; the tests pass "cpu"."""
+    if not config.twohead:
+        raise ValueError("a single-head config: use train_cluster_single")
+    return _train(config, device)
+
+
+def train_cluster_single(config, device=None):
+    """Single-head IID+ clustering (the semisup overclustering
+    pretraining). Returns (net, history). ``device`` defaults to cuda:0;
+    the tests pass "cpu".
+
+    It runs the plain loss whatever ``--fused_loss`` says, as the JAX
+    function does (its step takes no ``loss_impl``), so K3 is not on this
+    path; and ``--double_eval`` and ``--select_sub_head_on_loss`` do
+    nothing here, as there."""
+    if config.twohead:
+        raise ValueError("a two-head config: use train_cluster_twohead")
+    return _train(config, device)
+
+
+def _train(config, device):
     check_supported(config)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
@@ -99,24 +121,38 @@ def train_cluster_twohead(config, device=None):
     _log(f"device: {device}")
 
     torch.manual_seed(config.seed)  # weight init
-    pipe_a, pipe_b, map_assign, map_test = \
-        cluster_twohead_create_dataloaders(config, seed=config.seed,
-                                           device=device)
+    if config.twohead:
+        pipe_a, pipe_b, map_assign, map_test = \
+            cluster_twohead_create_dataloaders(config, seed=config.seed,
+                                               device=device)
+    else:
+        pipe_b, map_assign, map_test = cluster_create_dataloaders(
+            config, seed=config.seed, device=device)
     net = models.build(config.arch, config).to(device)
     optimizer = make_optimizer(net, config)
 
-    pipes = {"A": pipe_a, "B": pipe_b}
-    lambs = {"A": config.lamb_A, "B": config.lamb_B}
-    loss_impl = "fused" if config.fused_loss else "xla"
-    steps = {h: make_cluster_train_step(
-        net, optimizer, pipes[h].augment_pair, lamb=lambs[h], head=h,
-        sobel=config.sobel, include_rgb=config.include_rgb,
-        loss_impl=loss_impl) for h in ("A", "B")}
-    apply_kw = dict(head="B", sobel=config.sobel,
-                    include_rgb=config.include_rgb)
+    common = dict(sobel=config.sobel, include_rgb=config.include_rgb)
+    if config.twohead:
+        pipes = {"A": pipe_a, "B": pipe_b}
+        lambs = {"A": config.lamb_A, "B": config.lamb_B}
+        head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
+        loss_impl = "fused" if config.fused_loss else "xla"
+        # (history slot, pipeline, step, passes an epoch) in training order
+        passes = [(h, pipes[h], make_cluster_train_step(
+            net, optimizer, pipes[h].augment_pair, lamb=lambs[h], head=h,
+            loss_impl=loss_impl, **common), head_epochs[h])
+            for h in head_order(config)]
+        eval_head = "B"
+    else:
+        passes = [("B", pipe_b, make_cluster_train_step(
+            net, optimizer, pipe_b.augment_pair, lamb=config.lamb,
+            head=None, **common), 1)]
+        eval_head = None
+    apply_kw = dict(head=eval_head, **common)
+
     def evaluate(use_sub_head=None):
         double = (make_apply_fn(net, train_mode=True, **apply_kw)
-                  if config.double_eval else None)
+                  if config.twohead and config.double_eval else None)
         is_best, _ = cluster_eval(
             config, make_apply_fn(net, **apply_kw), map_assign, map_test,
             history=history["eval"], double_eval_apply_fn=double,
@@ -128,27 +164,25 @@ def train_cluster_twohead(config, device=None):
     else:
         history, next_epoch = make_history(), 1
         sub_head = None
-        if config.select_sub_head_on_loss:
+        if config.twohead and config.select_sub_head_on_loss:
             sub_head = _select_sub_head_on_loss(config, net, pipe_b)
         evaluate(sub_head)
         _log(f"Pre: {history['eval'].epoch_stats[-1]}")
 
-    heads = head_order(config)
-    head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
     last_saved = next_epoch - 1  # epoch of the on-disk latest weights
     for e_i in range(next_epoch, config.num_epochs):
         _log(f"Starting e_i: {e_i} {datetime.now()}")
         if e_i in set(config.lr_schedule):
             set_lr_mult(optimizer, config.lr_mult)
 
-        for head in heads:
+        for head, pipe, step, repeats in passes:
             avg_loss = avg_loss_nl = 0.0
             count = 0
-            for _ in range(head_epochs[head]):
-                it = host_prefetch_iter(pipes[head].epoch(e_i), config)
+            for _ in range(repeats):
+                it = host_prefetch_iter(pipe.epoch(e_i), config)
                 for b_i, (base, gen) in enumerate(it):
                     t0 = time.perf_counter()
-                    loss, loss_nl = steps[head](base, gen)
+                    loss, loss_nl = step(base, gen)
                     loss, loss_nl = float(loss), float(loss_nl)  # syncs
                     history[f"step_seconds_head_{head}"].append(
                         time.perf_counter() - t0)
@@ -170,10 +204,14 @@ def train_cluster_twohead(config, device=None):
 
         is_best = evaluate()
         ev = history["eval"]
-        _log(f"Epoch {e_i}: acc {ev.epoch_acc[-1]:.6f} "
-             f"avg {ev.epoch_avg_subhead_acc[-1]:.6f} "
-             f"loss A {history['epoch_loss_head_A'][-1]:.5f} "
-             f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
+        if config.twohead:
+            _log(f"Epoch {e_i}: acc {ev.epoch_acc[-1]:.6f} "
+                 f"avg {ev.epoch_avg_subhead_acc[-1]:.6f} "
+                 f"loss A {history['epoch_loss_head_A'][-1]:.5f} "
+                 f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
+        else:
+            _log(f"Epoch {e_i}: acc {ev.epoch_acc[-1]:.6f} "
+                 f"loss {history['epoch_loss_head_B'][-1]:.5f}")
 
         ckpt.save_plots(config, history)
         if e_i % config.save_freq == 0 or e_i == config.num_epochs - 1:

@@ -61,7 +61,7 @@ class ClusterConfig:
     cutout: bool = False
     cutout_p: float = 0.5
     cutout_max_box: float = 0.5
-    # transforms (greyscale path, not ported)
+    # transforms (greyscale path)
     crop_other: bool = False
     tf1_crop: str = "random"
     tf1_crop_sz: int = 20
@@ -72,7 +72,7 @@ class ClusterConfig:
     always_rot: bool = False
     no_jitter: bool = False
     no_flip: bool = False
-    # STL10 (not ported)
+    # STL10
     mix_train: bool = False
     stl_leave_out_unlabelled: bool = False
     # additions of the JAX package (most are refused by the port's trainer)

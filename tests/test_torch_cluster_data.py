@@ -85,7 +85,7 @@ def test_cifar_readers_bit_equal(tmp_path, name, train):
     assert np.array_equal(got["labels"], ref["labels"])
 
 
-@pytest.mark.parametrize("name", ["MNIST", "STL10", "ImageFolder"])
+@pytest.mark.parametrize("name", ["ImageFolder"])
 def test_unported_readers_raise(name):
     with pytest.raises(NotImplementedError, match=name):
         treaders.load_dataset(name, "", True)
@@ -236,12 +236,6 @@ def test_unported_transform_flags_raise(flag):
     tcfg, _ = _cfgs(**flag)
     with pytest.raises(NotImplementedError, match=next(iter(flag))):
         tt.make_sobel_pair_transforms(tcfg)
-
-
-def test_greyscale_datasets_raise():
-    tcfg, _ = _cfgs(dataset="Synthetic10x28x1")
-    with pytest.raises(NotImplementedError, match="greyscale"):
-        tpipe.cluster_twohead_create_dataloaders(tcfg)
 
 
 def test_demean_options_match_jax():

@@ -37,14 +37,15 @@ def cluster_cfg(track=True, arch="ClusterNet5gTwoHead", in_channels=2,
 
 
 def random_flax_variables(jnet, in_channels, heads=("A", "B"), seed=0,
-                          head_std=0.01):
+                          head_std=0.01, sz=16):
     """A full flax variable tree for ``jnet`` filled from a numpy seed: the
-    tree's structure from ``jax.eval_shape`` of the JAX init (no init pass
-    to pay for), conv kernels Kaiming fan-out, dense kernels N(0,
-    head_std), BN scale / bias and running statistics randomised."""
+    tree's structure from ``jax.eval_shape`` of the JAX init at ``sz``^2
+    (no init pass to pay for; net6c's head width depends on it), conv
+    kernels Kaiming fan-out, dense kernels N(0, head_std), BN scale / bias
+    and running statistics randomised."""
     shapes = jax.eval_shape(lambda: jmodels.init_variables(
         jnet, jax.random.PRNGKey(0),
-        jnp.zeros((2, in_channels, 16, 16), jnp.float32), heads=heads))
+        jnp.zeros((2, in_channels, sz, sz), jnp.float32), heads=heads))
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):

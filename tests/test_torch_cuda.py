@@ -308,9 +308,13 @@ def _softmax_pair(rng, *shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,bn,k", [
     (1, 1, 1), (1, 7, 3), (5, 33, 10), (5, 257, 70), (1, 660, 140),
-    (5, 660, 70), (5, 660, 10), (5, 1000, 140), (2, 99, 180), (1, 31, 1)])
+    (5, 660, 70), (5, 660, 10), (5, 1000, 140), (2, 99, 180), (1, 31, 1),
+    (5, 700, 50), (5, 700, 10), (5, 700, 70), (5, 585, 50), (5, 585, 10)])
 def test_k3_matches_plain(gpu, s, bn, k):
-    """K3 vs its plain version at small and ragged shapes: loss and loss_nl
+    """K3 vs its plain version at small and ragged shapes (and at model
+    685's heads A and B, model 569's head A, and both heads of the Digits
+    guard at the Digits set's ragged last batch of 585 rows): loss and
+    loss_nl
     within rtol 1e-5, atol 1e-5 (the JAX package's kernel contract), P
     within 1e-6 of max |P| of the plain version in float64 (the kernel
     sums each entry in row ranges, the f32 plain version in cuBLAS's
@@ -1090,3 +1094,61 @@ def test_native_batches_upload_bit_equal(gpu):
             assert gi.device.type == gm.device.type == "cuda"
             assert gi.shape[-1] == 4
             assert torch.equal(gi.cpu(), ri) and torch.equal(gm.cpu(), rm)
+
+
+@pytest.mark.cuda
+def test_greyscale_augment_pair_on_the_card_matches_the_cpu(gpu):
+    """Model 685's tf1 and tf2 (rotation, the choice crop grouped by size,
+    the resize, jitter) on the card against the CPU, given the same draws:
+    within 1e-5 (grid_sample's and the resize's f32 sums)."""
+    from iic_tpu_torch.data.transforms import make_greyscale_pair_transforms
+    from iic_tpu_torch.train.config import ClusterConfig
+    cfg = ClusterConfig(
+        crop_orig=True, crop_other=True, tf1_crop="centre_half",
+        tf2_crop="random", tf1_crop_sz=20, tf2_crop_szs=(16, 20, 24),
+        input_sz=24, rot_val=25.0, no_flip=True).finalize(sobel=False)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.random((140, 28, 28, 1)).astype(np.float32))
+    for tf in make_greyscale_pair_transforms(cfg)[:2]:
+        draws = tf.draw(140, 28, 28, torch.Generator().manual_seed(1), "cpu")
+        ref = tf.apply(img, draws)
+        got = tf.apply(img.to(gpu), {k: v.to(gpu) for k, v in draws.items()})
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_net6c_twohead_steps_on_the_card_match_the_cpu(gpu):
+    """Two ClusterNet6cTwoHead steps (heads A, B; K3 on the card, its
+    plain version on the CPU) from the same weights on the same batch:
+    losses within 1e-4, with TF32 off so that both sides convolve in f32."""
+    import copy
+    from types import SimpleNamespace
+    from iic_tpu_torch import models
+    from iic_tpu_torch.parallel.train_step import (
+        make_cluster_train_step, make_optimizer)
+    cfg = SimpleNamespace(arch="ClusterNet6cTwoHead", in_channels=1,
+                          output_k_A=50, output_k_B=10, num_sub_heads=5,
+                          input_sz=24, batchnorm_track=True, opt="Adam",
+                          lr=1e-4)
+    torch.manual_seed(0)
+    nets = {"cpu": models.build(cfg.arch, cfg)}
+    nets["card"] = copy.deepcopy(nets["cpu"]).to(gpu)
+    rng = np.random.default_rng(3)
+    batch = [rng.random((140, 1, 24, 24)).astype(np.float32)]
+    batch.append(np.clip(batch[0] + 0.1 * rng.standard_normal(
+        batch[0].shape), 0, 1).astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = {}
+        for where, net in nets.items():
+            dev = torch.device("cpu") if where == "cpu" else gpu
+            opt = make_optimizer(net, cfg)
+            losses[where] = [float(make_cluster_train_step(
+                net, opt, None, lamb=1.0, head=h, loss_impl="fused")(
+                tuple(torch.from_numpy(x).to(dev) for x in batch))[0])
+                for h in "AB"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(losses["card"], losses["cpu"], atol=1e-4)
+    assert all(np.isfinite(losses["card"]))

@@ -117,4 +117,4 @@ def test_bridge_refuses_a_mismatched_tree():
 
 def test_unported_arch_raises():
     with pytest.raises(NotImplementedError):
-        tmodels.build("ClusterNet6cTwoHead", _cfg(True))
+        tmodels.build("TripletsNet", _cfg(True))
