@@ -117,9 +117,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      dx2, at the six joint shapes of models 512, 545 and 544 (n 60 / 75 /
      60; 128^2 / 200^2 / 200^2; T 21 / 21 / 11; k 45 and 15, 24 and 3, 36
      and 6) within the JAX contract, K2 bit-equal to X8 where it runs X8's
-     kernel, K1 at 545's k=24 within K1_F64 of its bf16 function in
-     float64, with each one's CUDA-event ms beside the bf16 F.conv2d and
-     its bound; run model 545's two-head CLI (--test_code, bf16) through
+     kernel, K1's error against its bf16 function in float64 and its
+     split-K chunk depth printed at each shape, at 545's k=24 required
+     within K1_F64, with each one's CUDA-event ms beside the bf16 F.conv2d
+     and its bound; run model 545's two-head CLI (--test_code, bf16) through
      the native host prep, then --restart into the same run directory
      (it must resume at epoch 2), then the single-head IID+ CLI on the same
      tree, each with counts set to 0 just before and required to launch
@@ -148,6 +149,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      >= 0.25 over the pre-eval) at seed 0, then at seeds 1-4 if it misses,
      one run at least in the band; K3's launches of these runs add to the
      table's;
+ 10c. the semisup finetune (table 3), on the same STL10 tree: model 650
+     (model 653's command with k 70) through the single-head sobel CLI,
+     then model 698's finetune from it through IID_semisup_STL10 (table
+     3's flags, --test_code: the old run's batch of 1400 at 64^2, the
+     trunk read before layer4, SupHead5 at 20 736 -> 2048 -> 10, the
+     random affine and cutout, the 10-crop eval of all 8 000 test images
+     before training and after the epoch), once from an f32 old run and
+     once from a bf16 one, then --restart of the f32 finetune (it must
+     resume at epoch 1); each run with counts set to 0 just before must
+     launch no kernel; losses, accuracies (of random pixels: they mean
+     nothing), the eval's seconds and peak device memory printed, the
+     steady steps of model 650 and of each finetune profiled as in 12 and
+     the finetune's eval timed; then
+     tests/test_semisup_regression.py's Digits pipeline (10 epochs of the
+     greyscale IID+ pretrain, 11 of the finetune at batch 128) and its band
+     (last CE below half the first and below 0.5, best 10-crop accuracy
+     >= 0.80 and >= 0.30 over the pre-train eval) at seed 0, then at seeds
+     1-4 if it misses, one run at least in the band;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -1824,9 +1843,10 @@ def phase_seg_shapes():
     """K1, and K2 for dx1 and dx2, at the six joint shapes of the other
     three published segmentation configurations (SEG_SHAPES): each against
     its plain version within the JAX contract, K2 bit-equal to X8 where it
-    runs X8's kernel, K1 at 545's head A also within K1_F64 of max of its
-    bf16 function in float64; CUDA-event ms of each beside the bf16
-    F.conv2d library call and its bound, and the form taken."""
+    runs X8's kernel, K1's error against its bf16 function in float64 and
+    its split-K chunk depth at every shape, at 545's head A required within
+    K1_F64 of max; CUDA-event ms of each beside the bf16 F.conv2d library
+    call and its bound, and the form taken."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
@@ -1848,19 +1868,28 @@ def phase_seg_shapes():
             got = sj.joint_fwd(x1, x2, half_t)
             ref = sj.displacement_joint_dense(x1, x2, half_t)
             _compare("K1 joint", got, ref)
-            if (model, head) == ("545", "A"):
-                ref64 = sj.joint_fwd_bf16_plain(x1.double(), x2.double(),
-                                                half_t)
-                tol = K1_F64 if k1f == "wgmma" else K1_F64_FMA
-                e64 = (float((got.double() - ref64).abs().max())
-                       / float(ref64.abs().max()))
-                _log(f"  K1 vs float64 of its bf16 operands: max err / "
-                     f"max|ref| {e64:.3e} (<= {tol:g}) "
-                     f"{'ok' if e64 <= tol else 'FAIL'}")
-                if e64 > tol:
-                    raise AssertionError("K1 is off its bf16 function")
-                del ref64
-            del got, ref
+            # K1's f32 sums against its bf16 function in float64, with the
+            # depth of its split-K chunks, at every shape; only 545 A's is
+            # a check, the others are logged (a shape over the bound is a
+            # fault to record)
+            ref64 = sj.joint_fwd_bf16_plain(x1.double(), x2.double(), half_t)
+            tol = K1_F64 if k1f == "wgmma" else K1_F64_FMA
+            e64 = (float((got.double() - ref64).abs().max())
+                   / float(ref64.abs().max()))
+            if k1f == "wgmma":
+                per, splits = sj.k1_plan(n, k, hw, half_t)
+                depth = f"{per * sj.K1_RB} rows a chunk, {splits} chunks"
+            else:
+                splits, per = sj._split(n * hw, (-(-(k * t) // sj._TILE))
+                                        ** 2)
+                depth = f"{per} rows a chunk, {splits} chunks"
+            _log(f"  K1 vs float64 of its bf16 operands ({k1f}, {depth}): "
+                 f"max err / max|ref| {e64:.3e} (bound {tol:g}: "
+                 f"{'within' if e64 <= tol else 'OVER'}"
+                 f"{', checked' if (model, head) == ('545', 'A') else ''})")
+            if (model, head) == ("545", "A") and e64 > tol:
+                raise AssertionError("K1 is off its bf16 function")
+            del got, ref, ref64
             got1 = sj.joint_dgrad(g2d, x2, half_t)
             _compare("K2 dx1", got1, sj.dgrad_plain(g2d, x2, half_t))
             _compare("K2 dx2", sj.joint_dgrad(g2d_swap, x1, half_t),
@@ -2023,6 +2052,39 @@ STL653_ARGS = [
     "--batch_sz", "1400", "--num_dataloaders", "5", "--mix_train",
     "--crop_orig", "--rand_crop_sz", "64", "--input_sz", "64",
     "--mode", "IID+", "--batchnorm_track", "--test_code"]
+# Table 3 (examples/commands.md:72-78): model 650, the figure-6 run its
+# "..." stands for (model 653's command with --model_ind 650 --output_k 70;
+# --save_freq 1, so that the --test_code run leaves a latest.pytorch for
+# the finetune to read, as the full run's every 10th epoch would), then
+# model 698's finetune from it with --test_code
+STL650_ARGS = [*STL653_ARGS, "--model_ind", "650", "--output_k", "70",
+               "--save_freq", "1"]
+SEMISUP698_ARGS = [
+    "--model_ind", "698", "--old_model_ind", "650", "--head_lr", "0.001",
+    "--trunk_lr", "0.0001", "--arch", "SupHead5", "--penultimate_features",
+    "--random_affine", "--affine_p", "0.5", "--cutout", "--cutout_p", "0.5",
+    "--cutout_max_box", "0.7", "--num_epochs", "8000", "--test_code"]
+# tests/test_semisup_regression.py:37-56: the Digits pipeline (IID+
+# pretrain, 10 epochs, then 11 epochs of SupHead5) and its band (:84-94)
+SEMISUP_GUARD_OLD = [
+    "--model_ind", "910", "--arch", "ClusterNet6c", "--mode", "IID+",
+    "--dataset", "Digits", "--gt_k", "10", "--output_k", "20",
+    "--lamb", "1.0", "--lr", "0.0001", "--num_epochs", "10",
+    "--batch_sz", "700", "--num_dataloaders", "3", "--num_sub_heads", "1",
+    "--crop_orig", "--crop_other", "--tf1_crop", "centre_half",
+    "--tf2_crop", "random", "--tf1_crop_sz", "20", "--tf2_crop_szs", "16",
+    "20", "24", "--input_sz", "24", "--rot_val", "25", "--no_flip"]
+SEMISUP_GUARD_NEW = [
+    "--model_ind", "911", "--old_model_ind", "910", "--arch", "SupHead5",
+    "--head_lr", "0.001", "--trunk_lr", "0.0001", "--num_epochs", "11",
+    "--new_batch_sz", "128"]
+SEMISUP_BEST, SEMISUP_GAIN, SEMISUP_LAST_CE = 0.80, 0.30, 0.5
+SEMISUP_SEEDS = (0, 1, 2, 3, 4)
+# the kernels of the other paths, none of which a semisup step may launch
+K_KERNEL_NAMES = ("joint_fwd_mma_kernel", "jf_layout_kernel",
+                  "joint_partial_kernel", "joint_reduce_kernel",
+                  "dgrad_v8_kernel", "dgrad_kernel",
+                  "iid_loss_cluster_kernel", "iid_loss_block_kernel")
 # The STL10 tree: the real train and test splits' sizes; the unlabelled
 # split cut from 100 000 to 10 000 images, so --mix_train puts 2
 # unlabelled images after each labelled one, not 20
@@ -2328,6 +2390,148 @@ def phase_digits_guard():
         raise AssertionError("no run of the port reached the digits guard's "
                              "band")
     return total
+
+
+def _no_launches(tag, launches):
+    """The semisup path runs none of K1-K3 (nor the tool's kernels)."""
+    if any(launches.values()):
+        raise AssertionError(f"{tag} launched a kernel: {launches}")
+
+
+def _semisup_cli(argv, tag):
+    """One finetune run in-process, counts set to 0 just before and the
+    peak of device memory reset: prints its losses, step seconds, the
+    10-crop eval's accuracies and seconds, peak memory and launches; fails
+    on a loss or an accuracy that is not finite, or on any kernel launch.
+    Returns the history."""
+    import numpy as np
+    import torch
+    from iic_tpu_torch.cli import IID_semisup_STL10
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, history = IID_semisup_STL10.main(argv)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    _log(f"{tag}: epoch loss {history['epoch_loss']}, step seconds "
+         f"{[round(v, 4) for v in history['step_seconds']]}; 10-crop eval "
+         f"acc (pre-train first) {history['epoch_acc']} in "
+         f"{[round(v, 3) for v in history['eval_seconds']]} s; "
+         f"{seconds:.1f} s; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+         f"{launches}")
+    for name in ("epoch_loss", "epoch_acc"):
+        if not history[name] or not np.all(np.isfinite(history[name])):
+            raise AssertionError(f"{tag}: {name} not finite: "
+                                 f"{history[name]}")
+    _no_launches(tag, launches)
+    return history
+
+
+def _semisup_profile(tag, argv):
+    """``_profile`` of steady finetune steps of the config the CLI makes of
+    ``argv``, on its own loader's batches (the trainer's
+    ``make_finetune``), then the 10-crop eval's wall."""
+    import torch
+    from iic_tpu_torch.cli import IID_semisup_STL10
+    from iic_tpu_torch.train.semisup_trainer import make_finetune
+
+    ft = make_finetune(IID_semisup_STL10.config(argv), "cuda")
+    batches = [((imgs, labels), gen) for _, (imgs, labels, gen)
+               in zip(range(8), ft.loader.epoch(1))]
+    out = _profile(tag, lambda batch, gen: (ft.step(batch, gen),), batches,
+                   "", K_KERNEL_NAMES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = ft.evaluate()
+    _log(f"{tag}: 10-crop eval of the test split {time.perf_counter() - t0:.3f}"
+         f" s (acc {acc:.4f})")
+    return out
+
+
+def phase_semisup(root):
+    """Table 3 on the STL10 tree (``_write_stl10``): model 650 through the
+    port's cluster_sobel, then model 698's finetune from it through
+    IID_semisup_STL10 (the inherited batch of 1400 at 64^2, the head 20 736
+    -> 2048 -> 10, the 10-crop eval over all 8 000 test images before
+    training and after the epoch), once from an f32 old run and once from a
+    bf16 one; then --restart of the f32 finetune (it resumes at epoch 1).
+    Every run with counts set to 0 just before must launch no kernel; the
+    steps of model 650 and of each finetune are profiled. The accuracies
+    are of random pixels and mean nothing. Returns {kernel: launches}
+    (none)."""
+    from iic_tpu_torch.cli import cluster_sobel
+
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as out_root:
+            _, launches, _ = _cluster_cli(
+                cluster_sobel.main, STL650_ARGS + [
+                    "--dataset_root", root, "--model_dtype", dtype,
+                    "--out_root", out_root], f"model 650 {dtype}",
+                heads="B")
+            _no_launches(f"model 650 {dtype}", launches)
+            _cluster_profile("model 650", cluster_sobel,
+                             STL650_ARGS + ["--dataset_root", root], "B",
+                             dtype)
+            argv = SEMISUP698_ARGS + ["--out_root", out_root]
+            history = _semisup_cli(argv, f"model 698 from a {dtype} 650")
+            if len(history["epoch_acc"]) != 2:
+                raise AssertionError(f"model 698: {history['epoch_acc']}")
+            _semisup_profile(f"model 698 from a {dtype} 650", argv)
+            if dtype == "float32":
+                history = _semisup_cli(argv + ["--restart"],
+                                       "model 698 --restart")
+                if len(history["epoch_acc"]) != 3:
+                    raise AssertionError("the restart did not resume at "
+                                         f"epoch 1: {history['epoch_acc']}")
+    return {"iid_loss_fwd": 0}
+
+
+def phase_semisup_guard():
+    """tests/test_semisup_regression.py's guard through the port: its
+    Digits pipeline (the IID+ pretrain by cluster_greyscale, 10 epochs,
+    then IID_semisup_STL10, 11 epochs at batch 128), f32, at seed 0 and at
+    seeds 1-4 if seed 0 misses. A run is in the band when its last epoch's
+    CE is below half its first and below SEMISUP_LAST_CE, its best 10-crop
+    accuracy reaches SEMISUP_BEST and gains SEMISUP_GAIN over the pre-train
+    eval; one run at least must be. Returns {kernel: launches} (none)."""
+    import numpy as np
+    from iic_tpu_torch.cli import cluster_greyscale
+
+    passed, missed = [], []
+    for seed in SEMISUP_SEEDS:
+        tag = f"semisup guard, seed {seed}"
+        with tempfile.TemporaryDirectory() as out_root:
+            flags = ["--seed", str(seed), "--out_root", out_root]
+            history, launches, _ = _cluster_cli(
+                cluster_greyscale.main, SEMISUP_GUARD_OLD + flags,
+                f"{tag}, pretrain", heads="B")
+            _no_launches(f"{tag}, pretrain", launches)
+            if len(history["eval"].epoch_acc) != 10:
+                raise AssertionError(f"{tag}: pretrain evals "
+                                     f"{history['eval'].epoch_acc}")
+            history = _semisup_cli(SEMISUP_GUARD_NEW + flags, tag)
+        accs = np.array(history["epoch_acc"], float)
+        ce = np.array(history["epoch_loss"], float)
+        pre, best = float(accs[0]), float(accs.max())
+        ok = (len(accs) == 12 and ce[-1] < 0.5 * ce[0]
+              and ce[-1] < SEMISUP_LAST_CE and best >= SEMISUP_BEST
+              and best - pre >= SEMISUP_GAIN)
+        (passed if ok else missed).append(seed)
+        _log(f"{tag}: 10-crop acc {[round(float(a), 4) for a in accs]}; "
+             f"CE {[round(float(c), 4) for c in ce]}; pre {pre:.4f}, best "
+             f"{best:.4f} (>= {SEMISUP_BEST}), gain {best - pre:.4f} (>= "
+             f"{SEMISUP_GAIN}), last CE {ce[-1]:.4f} (< {SEMISUP_LAST_CE} "
+             f"and < half the first, {0.5 * ce[0]:.4f}): "
+             f"{'in the band' if ok else 'outside the band'}")
+        if ok:
+            break
+    _log(f"semisup guard: seeds in the band {passed}, outside {missed}")
+    if not passed:
+        raise AssertionError("no run of the port reached the semisup "
+                             "guard's band")
+    return {"iid_loss_fwd": 0}
 
 
 def phase_tool():
@@ -2673,7 +2877,9 @@ def main(argv=None):
         for tag, write, phase in (
                 ("mnist", _write_mnist, phase_mnist),
                 ("stl", _write_stl10, phase_stl),
-                ("digits guard", None, lambda _: phase_digits_guard())):
+                ("semisup", None, phase_semisup),
+                ("digits guard", None, lambda _: phase_digits_guard()),
+                ("semisup guard", None, lambda _: phase_semisup_guard())):
             t0 = time.perf_counter()
             if write is not None:
                 write(data_root)

@@ -9,7 +9,10 @@ the JAX tree), so this module needs no JAX. Mapping:
   - ``MultiConvSoftmaxHead`` kernel (1, 1, C, S*K) -> S 1x1 convs (K, C, 1, 1)
     (the flax head reshapes its kernel to (C, S, K));
   - ``MultiDenseHead`` kernel (S, D, K) and bias (S, K) -> S Linear layers,
-    weight (K, D) and bias (K,).
+    weight (K, D) and bias (K,);
+  - the semisup head B's ``head_B_kernel`` (D, K) / ``head_B_bias`` and
+    ``SupHead5Head``'s ``kernel1`` / ``bias1`` / ``BatchNorm_0`` /
+    ``kernel2`` / ``bias2`` -> Linear and BatchNorm1d modules.
 
 Convs and BatchNorms are matched by their flax path and index (``Conv_<i>``,
 ``BatchNorm_<i>`` inside ``ResNetLayer_<l>/BasicBlock_<b>``), which count
@@ -138,10 +141,41 @@ def load_cluster_net(variables, net):
     load_trunk(params[key], stats.get(key), net.trunk)
     if hasattr(net, "head_A"):
         load_dense_heads(params["head_A"], net.head_A)
-        load_dense_heads(params["head_B"], net.head_B)
+        if getattr(net, "semisup", False):
+            _load_linear(net.head_B, params["head_B_kernel"],
+                         params["head_B_bias"], "semisup head B")
+        else:
+            load_dense_heads(params["head_B"], net.head_B)
     else:
         load_dense_heads(params["MultiDenseHead_0"], net.head)
     return net
+
+
+def _load_linear(linear, kernel, bias, what):
+    """A flax (D, K) kernel and (K,) bias -> ``nn.Linear(D, K)``."""
+    _copy(linear.weight, np.asarray(kernel).T, what + " kernel")
+    _copy(linear.bias, bias, what + " bias")
+
+
+def load_sup_head(variables, head):
+    """Fill a ``models.semisup.SupHead5Head`` from the JAX
+    ``SupHead5Head``'s flax ``variables``: ``kernel1`` / ``bias1``, the
+    ``BatchNorm_0`` scale, bias (and running statistics when the head
+    tracks them), ``kernel2`` / ``bias2``."""
+    params = variables["params"]
+    _load_linear(head.linear1, params["kernel1"], params["bias1"], "linear1")
+    _load_linear(head.linear2, params["kernel2"], params["bias2"], "linear2")
+    bn = params["BatchNorm_0"]
+    _copy(head.bn.weight, bn["scale"], "BatchNorm_0/scale")
+    _copy(head.bn.bias, bn["bias"], "BatchNorm_0/bias")
+    if head.bn.track_running_stats:
+        st = (variables.get("batch_stats") or {}).get("BatchNorm_0")
+        if st is None:
+            raise ValueError("BatchNorm_0: no batch stats for a BN that "
+                             "tracks running stats")
+        _copy(head.bn.running_mean, st["mean"], "BatchNorm_0/mean")
+        _copy(head.bn.running_var, st["var"], "BatchNorm_0/var")
+    return head
 
 
 def load_seg_net(variables, net):

@@ -156,7 +156,8 @@ def host_prefetch_iter(gen, config):
     """An epoch generator behind the prefetch thread at
     ``config.prefetch_depth`` (8 by default: a deeper queue rides out the
     spikes of host preparation, for one batch of host memory each), or
-    ``gen`` itself under ``--no_host_prefetch``."""
-    if config.no_host_prefetch:
+    ``gen`` itself under ``--no_host_prefetch`` (a flag the semisup config
+    does not have: it always prefetches)."""
+    if getattr(config, "no_host_prefetch", False):
         return gen
     return ThreadedPrefetch(gen, depth=config.prefetch_depth)

@@ -1,7 +1,7 @@
 """Device-side image transforms (``iic_tpu/data/transforms.py``): grey
-conversion, colour jitter, crops, resize, flip, rotation, and the
-clustering paths' tf1 / tf2 / tf3: the sobel (colour) path's and the
-greyscale (MNIST) path's.
+conversion, colour jitter, crops, resize, flip, rotation, the random
+affine and the cutout, and the clustering paths' tf1 / tf2 / tf3: the
+sobel (colour) path's and the greyscale (MNIST) path's.
 
 Images are float32 (B, H, W, C) in [0, 1], the JAX layout, batched. Random
 transforms draw per-sample parameters from an explicit ``torch.Generator``
@@ -21,9 +21,17 @@ _GREY_W = (0.299, 0.587, 0.114)
 
 
 def to_grey(img):
-    """(..., 3) -> (..., 1) luma."""
+    """(..., 3) -> (..., 1) luma: r w_r, then + g w_g and + b w_b as fused
+    multiply-adds, the order and roundings XLA compiles the JAX package's
+    weighted sum into, so that a grey image equals its bit for bit. The
+    channel axis is added last, with stride 1, whatever the input's layout
+    (the hue adjustment returns channel planes): an NCHW view of a grey
+    batch is then channels-last, as the trainers' first image of a pair is,
+    and both images of a pair reach the net in one memory format."""
     w = torch.tensor(_GREY_W, dtype=img.dtype, device=img.device)
-    return (img * w).sum(dim=-1, keepdim=True)
+    r, g, b = img[..., 0], img[..., 1], img[..., 2]
+    return torch.addcmul(torch.addcmul(r * w[0], g, w[1]), b,
+                         w[2]).unsqueeze(-1)
 
 
 def append_grey(img, include_rgb):
@@ -209,6 +217,91 @@ def random_rotation(img, generator, max_deg, p=0.5, always=False):
     return rotate_where(img, angle, do)
 
 
+def draw_affine(b, generator, device, max_rot=18.0, scale_min=0.9,
+                scale_max=1.1, max_shear=10.0, max_translate=0.1, p=0.5):
+    """torchvision RandomApply([RandomAffine(18, translate=(.1, .1),
+    scale=(.9, 1.1), shear=10)], p)'s draws for a batch, each (B,): the
+    rotation and the shear in degrees, the scale, the translations in
+    grid units (twice the fraction of the side) and whether each sample
+    warps."""
+    def uniform(lo, hi):
+        return lo + torch.rand((b,), generator=generator,
+                               device=device) * (hi - lo)
+
+    return dict(affine_angle=uniform(-max_rot, max_rot),
+                affine_shear=uniform(-max_shear, max_shear),
+                affine_scale=uniform(scale_min, scale_max),
+                affine_tx=uniform(-max_translate, max_translate) * 2.0,
+                affine_ty=uniform(-max_translate, max_translate) * 2.0,
+                affine=torch.rand((b,), generator=generator,
+                                  device=device) < p)
+
+
+def affine_where(img, draws):
+    """Warp each sample of (B, H, W, C) by the affine map of its
+    ``draw_affine`` draws (rotate by the angle, shear, magnify by the
+    scale, translate) where ``draws["affine"]`` is true: bilinear, zero
+    fill, through the exact ``affine_grid`` / ``grid_sample``.
+    ``grid_sample``'s theta maps output to input coordinates, so it gets
+    the forward map's inverse (torchvision's
+    ``_get_inverse_affine_matrix`` does the same): with the forward map a
+    scale above 1 would shrink the content instead of magnifying it."""
+    a = draws["affine_angle"].float() * (math.pi / 180.0)
+    a_sh = a + draws["affine_shear"].float() * (math.pi / 180.0)
+    s = draws["affine_scale"].float()
+    tx, ty = draws["affine_tx"].float(), draws["affine_ty"].float()
+    m00, m01 = torch.cos(a) * s, -torch.sin(a_sh) * s
+    m10, m11 = torch.sin(a) * s, torch.cos(a_sh) * s
+    det = m00 * m11 - m01 * m10
+    i00, i01, i10, i11 = m11 / det, -m01 / det, -m10 / det, m00 / det
+    theta = torch.stack([
+        torch.stack([i00, i01, -(i00 * tx + i01 * ty)], dim=-1),
+        torch.stack([i10, i11, -(i10 * tx + i11 * ty)], dim=-1)], dim=1)
+    data = img.permute(0, 3, 1, 2)
+    warped = grid_sample(data, affine_grid(theta, data.shape))
+    return torch.where(draws["affine"][:, None, None, None],
+                       warped.permute(0, 2, 3, 1), img)
+
+
+def draw_cutout(b, h, w, min_box, max_box, generator, device, p=1.0):
+    """The reference's ``custom_cutout`` draws for a batch, each (B,): the
+    box side, uniform in [min_box, max_box]; its centre, uniform over the
+    positions that keep the box inside the image, drawn as the JAX
+    function draws it (half + floor(U[0, 1) * (side - 2 * half))), not as
+    ``randint``; and whether each sample is cut (rate ``p``)."""
+    box = min_box + _uniform_index(
+        torch.full((b,), max_box - min_box + 1, device=device), generator,
+        device)
+    half = box // 2
+
+    def centre(side):
+        n = (side - 2 * half).clamp_min(1)
+        u = torch.rand((b,), generator=generator, device=device)
+        return half + torch.minimum((u * n).long(), n - 1)
+
+    x_c = centre(w)
+    y_c = centre(h)
+    return dict(cut_box=box, cut_x=x_c, cut_y=y_c,
+                cutout=torch.rand((b,), generator=generator,
+                                  device=device) < p)
+
+
+def cutout_where(img, draws):
+    """Zero each sample's box (side ``cut_box``, centre ``cut_x``,
+    ``cut_y``: the columns and rows from centre - side // 2 up to, not
+    including, centre + side // 2) where ``draws["cutout"]`` is true."""
+    h, w = img.shape[1:3]
+    half = (draws["cut_box"] // 2)[:, None]
+    x_c, y_c = draws["cut_x"][:, None], draws["cut_y"][:, None]
+    xs = torch.arange(w, device=img.device)[None]
+    ys = torch.arange(h, device=img.device)[None]
+    cols = (xs >= x_c - half) & (xs < x_c + half)  # (B, W)
+    rows = (ys >= y_c - half) & (ys < y_c + half)  # (B, H)
+    rows = rows & draws["cutout"][:, None]
+    return img.masked_fill((rows[:, :, None] & cols[:, None, :])[..., None],
+                           0.0)
+
+
 def _uniform_index(n, generator, device):
     """Integers uniform in [0, n) for a (B,) tensor of bounds ``n``."""
     u = torch.rand(n.shape, generator=generator, device=device)
@@ -295,24 +388,41 @@ def make_sobel_pair_transforms(config):
     Each maps (B, H, W, 3) float32 in [0, 1] -> (B, input_sz, input_sz, C')
     with C' = 4 if include_rgb else 1:
 
-      tf1(img, generator): random crop -> resize; tf2(img, generator):
-        random crop -> resize -> random flip -> colour jitter; tf3(img):
+      tf1(img, generator): random crop -> resize; tf2(img, generator): a
+        random crop of rand_crop_sz, the random affine under
+        ``use_random_affine`` (rate ``affine_p``), the cutout under
+        ``cutout`` (rate ``cutout_p``, box side in [int(0.2 *
+        rand_crop_sz), int(cutout_max_box * rand_crop_sz)]), the resize,
+        a random flip, colour jitter. Under ``fluid_warp`` a rotation by
+        U(-rot_val, rot_val) degrees (rate 0.5; none when rot_val is 0)
+        and a random crop of a size drawn from ``rand_crop_szs_tf`` (or
+        rand_crop_sz), resized, take the place of the crop and the resize;
+        cutout with fluid_warp raises, as in the reference. tf3(img):
         centre crop -> resize. Each ends in ``append_grey`` (and the
         optional demeaning). Without ``crop_orig``, tf1 and tf3 do not crop
         or resize.
 
     ``tf2.draw(b, h, w, generator, device)`` returns the per-sample draws
-    and ``tf2.apply(img, draws)`` applies them. The flags the path does not
-    take raise ``NotImplementedError``.
+    and ``tf2.apply(img, draws)`` applies them.
     """
-    for flag in ("fluid_warp", "cutout", "use_random_affine", "rot_val",
-                 "rand_crop_szs_tf"):
-        if getattr(config, flag, None):  # each is off when falsy
-            raise NotImplementedError(f"--{flag} is not ported")
     include_rgb = config.include_rgb
     crop_orig = getattr(config, "crop_orig", True)
     crop_sz = config.rand_crop_sz
     input_sz = config.input_sz
+    fluid_warp = getattr(config, "fluid_warp", False)
+    rot_val = getattr(config, "rot_val", 0.0)
+    crop_szs_tf = tuple(getattr(config, "rand_crop_szs_tf", ()) or ()) \
+        or (crop_sz,)
+    cutout = getattr(config, "cutout", False)
+    if cutout and fluid_warp:
+        # the reference refuses it: its boxes are sized against the crop,
+        # which fluid_warp replaces
+        raise ValueError("--cutout with --fluid_warp is not supported")
+    cutout_p = getattr(config, "cutout_p", 0.5)
+    cut_min = int(crop_sz * 0.2)
+    cut_max = int(crop_sz * getattr(config, "cutout_max_box", 0.7))
+    use_random_affine = getattr(config, "use_random_affine", False)
+    affine_p = getattr(config, "affine_p", 0.5)
     demean = getattr(config, "demean", False)
     data_mean = tuple(getattr(config, "data_mean", ()) or ())
     data_std = tuple(getattr(config, "data_std", ()) or ())
@@ -334,17 +444,44 @@ def make_sobel_pair_transforms(config):
         return finish(img)
 
     def draw_tf2(b, h, w, generator, device):
-        top, left = draw_crop(b, h, w, crop_sz, generator, device)
-        flip_u = torch.rand((b,), generator=generator, device=device)
-        # the reference's ColorJitter(0.4, 0.4, 0.4, 0.125): the defaults
-        factors, order = draw_jitter(b, generator, device)
+        draws = {}
+        if fluid_warp:
+            if rot_val > 0:
+                draws["angle"], draws["rotate"] = draw_rotation(
+                    b, rot_val, generator, device)
+            draws["choice"], draws["top"], draws["left"] = draw_choice_crop(
+                b, h, w, crop_szs_tf, "random", generator, device)
+        else:
+            draws["top"], draws["left"] = draw_crop(b, h, w, crop_sz,
+                                                    generator, device)
+        if use_random_affine:
+            draws.update(draw_affine(b, generator, device, p=affine_p))
+        if cutout:
+            draws.update(draw_cutout(b, crop_sz, crop_sz, cut_min, cut_max,
+                                     generator, device, p=cutout_p))
         # RandomHorizontalFlip, p = 0.5
-        return dict(top=top, left=left, flip=flip_u < 0.5,
-                    jitter_factors=factors, jitter_order=order)
+        draws["flip"] = torch.rand((b,), generator=generator,
+                                   device=device) < 0.5
+        # the reference's ColorJitter(0.4, 0.4, 0.4, 0.125): the defaults
+        draws["jitter_factors"], draws["jitter_order"] = draw_jitter(
+            b, generator, device)
+        return draws
 
     def apply_tf2(img, draws):
-        img = resize(crop_at(img, draws["top"], draws["left"], crop_sz),
-                     input_sz)
+        if fluid_warp:
+            if rot_val > 0:
+                img = rotate_where(img, draws["angle"], draws["rotate"])
+            img = choice_crop_resize_at(img, crop_szs_tf, draws["choice"],
+                                        draws["top"], draws["left"],
+                                        input_sz)
+        else:
+            img = crop_at(img, draws["top"], draws["left"], crop_sz)
+        if use_random_affine:
+            img = affine_where(img, draws)
+        if cutout:
+            img = cutout_where(img, draws)
+        if not fluid_warp:
+            img = resize(img, input_sz)
         img = flip_where(img, draws["flip"])
         img = color_jitter_with(img, draws["jitter_factors"],
                                 draws["jitter_order"])

@@ -1,7 +1,9 @@
 """Model registry: name -> constructor taking a config object, the
 reference's ``archs.__dict__[config.arch](config)`` lookup. Ported so far:
-the two segmentation archs and the ResNet-34 and net6c cluster nets. Every
-net runs in ``config.model_dtype`` (float32 by default, or bfloat16)."""
+the two segmentation archs and the ResNet-34 and net6c cluster nets (the
+two-head ones with the semisup head B under ``config.semisup``). Every net
+runs in ``config.model_dtype`` (float32 by default, or bfloat16). The
+semisup finetune's head is ``models.semisup.SupHead5Head``."""
 
 from iic_tpu_torch.models.cluster_nets import (
     ClusterNet5g, ClusterNet5gTrunk, ClusterNet5gTwoHead, ClusterNet6c,
@@ -39,12 +41,10 @@ def make_ClusterNet6c(config):
 
 
 def make_ClusterNet6cTwoHead(config):
-    if getattr(config, "semisup", False):
-        raise NotImplementedError("the semisup head B (a single Linear) is "
-                                  "not ported")
     return ClusterNet6cTwoHead(
         config.in_channels, config.output_k_A, config.output_k_B,
-        config.num_sub_heads, config.input_sz, **_build_common(config))
+        config.num_sub_heads, config.input_sz,
+        semisup=getattr(config, "semisup", False), **_build_common(config))
 
 
 def make_ClusterNet5g(config):
@@ -55,7 +55,8 @@ def make_ClusterNet5g(config):
 def make_ClusterNet5gTwoHead(config):
     return ClusterNet5gTwoHead(
         config.in_channels, config.output_k_A, config.output_k_B,
-        config.num_sub_heads, **_build_common(config))
+        config.num_sub_heads, semisup=getattr(config, "semisup", False),
+        **_build_common(config))
 
 
 ARCHS = {

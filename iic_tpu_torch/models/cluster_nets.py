@@ -2,7 +2,11 @@
 ``ClusterNet5g`` family and the VGG-style ``ClusterNet6c`` family.
 
 Input NCHW; output (num_sub_heads, B, K) softmax probabilities. Two-head
-nets dispatch on ``head="A"|"B"``. Module names follow the reference
+nets dispatch on ``head="A"|"B"``; built with ``semisup``, their head B is
+one bare Linear that returns (B, output_k_B) logits. ``trunk_features``
+returns the trunk's features instead of a head's output, and
+``penultimate_features`` (the ResNets only) the features before layer4:
+layer3's output flattened in NCHW order. Module names follow the reference
 (``trunk.conv1``, ``trunk.layer1.0.conv1``, ``trunk.features.<i>``,
 ``head_A.heads.<s>.0``), so its state_dicts load with
 ``load_state_dict``. ``dtype`` is the trunk's compute dtype (see
@@ -15,7 +19,7 @@ import torch.nn as nn
 
 from iic_tpu_torch.models.layers import (
     Conv2d, MultiDenseHead, batch_norm, kaiming_normal_fan_out_,
-    max_pool_2x2_pad1)
+    linear_init_, max_pool_2x2_pad1)
 from iic_tpu_torch.models.residual import BasicBlock, ResNetLayer
 from iic_tpu_torch.models.vgg import VGGTrunk
 
@@ -51,6 +55,34 @@ def _net6c_features(input_sz):
     return NET6C_CFG[-1][0] * side * side
 
 
+def _two_heads(net, d, output_k_A, output_k_B, num_sub_heads, semisup):
+    """head_A, and head_B: sub-heads as head_A's, or under ``semisup`` one
+    Linear(d, output_k_B) with the N(0, 0.01) init and no softmax."""
+    net.semisup = semisup
+    net.head_A = MultiDenseHead(d, output_k_A, num_sub_heads)
+    net.head_B = (linear_init_(nn.Linear(d, output_k_B)) if semisup
+                  else MultiDenseHead(d, output_k_B, num_sub_heads))
+
+
+def _check_head(head):
+    if head not in ("A", "B"):
+        raise ValueError(f"unknown head {head!r}")
+
+
+def _head_out(net, feats, head):
+    """The output of ``head``; the semisup head B's logits in f32."""
+    if head == "B" and net.semisup:
+        return net.head_B(feats.float())
+    return (net.head_A if head == "A" else net.head_B)(feats)
+
+
+def _net6c_trunk(net, x, penultimate_features):
+    if penultimate_features:
+        raise ValueError("penultimate_features is not implemented for "
+                         "net6c (the reference asserts it is not set)")
+    return net.trunk(x)
+
+
 class ClusterNet6c(nn.Module):
     """Single-head net6c."""
 
@@ -61,26 +93,27 @@ class ClusterNet6c(nn.Module):
         self.head = MultiDenseHead(_net6c_features(input_sz), output_k,
                                    num_sub_heads)
 
-    def forward(self, x):
-        return self.head(self.trunk(x))
+    def forward(self, x, trunk_features=False, penultimate_features=False):
+        feats = _net6c_trunk(self, x, penultimate_features)
+        return feats if trunk_features else self.head(feats)
 
 
 class ClusterNet6cTwoHead(nn.Module):
     """Two-head net6c; ``head`` picks "A" or "B"."""
 
     def __init__(self, in_channels, output_k_A, output_k_B, num_sub_heads,
-                 input_sz, batchnorm_track=True, dtype=torch.float32):
+                 input_sz, semisup=False, batchnorm_track=True,
+                 dtype=torch.float32):
         super().__init__()
         self.trunk = ClusterNet6cTrunk(in_channels, batchnorm_track, dtype)
-        d = _net6c_features(input_sz)
-        self.head_A = MultiDenseHead(d, output_k_A, num_sub_heads)
-        self.head_B = MultiDenseHead(d, output_k_B, num_sub_heads)
+        _two_heads(self, _net6c_features(input_sz), output_k_A, output_k_B,
+                   num_sub_heads, semisup)
 
-    def forward(self, x, head="B"):
-        if head not in ("A", "B"):
-            raise ValueError(f"unknown head {head!r}")
-        feats = self.trunk(x)
-        return (self.head_A if head == "A" else self.head_B)(feats)
+    def forward(self, x, head="B", trunk_features=False,
+                penultimate_features=False):
+        _check_head(head)
+        feats = _net6c_trunk(self, x, penultimate_features)
+        return feats if trunk_features else _head_out(self, feats, head)
 
 
 class ClusterNet5gTrunk(nn.Module):
@@ -104,10 +137,12 @@ class ClusterNet5gTrunk(nn.Module):
             inplanes = planes * BasicBlock.expansion
         self.out_channels = inplanes
 
-    def forward(self, x):
+    def forward(self, x, penultimate_features=False):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.float().mean(dim=(2, 3))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        if penultimate_features:
+            return x.flatten(1)  # (B, 256 * s * s), s = input_sz // 8 + 1
+        return self.layer4(x).float().mean(dim=(2, 3))
 
 
 class ClusterNet5g(nn.Module):
@@ -120,23 +155,23 @@ class ClusterNet5g(nn.Module):
         self.head = MultiDenseHead(self.trunk.out_channels, output_k,
                                    num_sub_heads)
 
-    def forward(self, x):
-        return self.head(self.trunk(x))
+    def forward(self, x, trunk_features=False, penultimate_features=False):
+        feats = self.trunk(x, penultimate_features)
+        return feats if trunk_features else self.head(feats)
 
 
 class ClusterNet5gTwoHead(nn.Module):
     """Two-head ResNet-34 cluster net; ``head`` picks "A" or "B"."""
 
     def __init__(self, in_channels, output_k_A, output_k_B, num_sub_heads,
-                 batchnorm_track=True, dtype=torch.float32):
+                 semisup=False, batchnorm_track=True, dtype=torch.float32):
         super().__init__()
         self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track, dtype)
-        c = self.trunk.out_channels
-        self.head_A = MultiDenseHead(c, output_k_A, num_sub_heads)
-        self.head_B = MultiDenseHead(c, output_k_B, num_sub_heads)
+        _two_heads(self, self.trunk.out_channels, output_k_A, output_k_B,
+                   num_sub_heads, semisup)
 
-    def forward(self, x, head="B"):
-        if head not in ("A", "B"):
-            raise ValueError(f"unknown head {head!r}")
-        feats = self.trunk(x)
-        return (self.head_A if head == "A" else self.head_B)(feats)
+    def forward(self, x, head="B", trunk_features=False,
+                penultimate_features=False):
+        _check_head(head)
+        feats = self.trunk(x, penultimate_features)
+        return feats if trunk_features else _head_out(self, feats, head)

@@ -1,7 +1,7 @@
 """Training steps and eval forwards on one GPU
 (``iic_tpu/parallel/train_step.py``: ``make_cluster_train_step``,
-``make_seg_train_step``, ``make_apply_fn``, whose ``using_IR`` covers
-``make_seg_apply_fn``).
+``make_seg_train_step``, ``make_semisup_train_step``, ``make_apply_fn``,
+whose ``using_IR`` covers ``make_seg_apply_fn``).
 
 The network and its optimiser are updated in place. One step: optional
 device augmentation -> sobel -> two forwards (BN running stats update
@@ -18,6 +18,7 @@ reach the f32 parameters and the Adam update stay f32 in either dtype.
 from contextlib import contextmanager
 
 import torch
+import torch.nn.functional as F
 
 from iic_tpu_torch.ops.iid_loss import IID_loss
 from iic_tpu_torch.ops.iid_seg_loss import (
@@ -130,6 +131,40 @@ def make_seg_train_step(net, optimizer, lamb, head, half_T_side_dense,
 
         _optimizer_step(optimizer, params, loss)
         return loss.detach(), loss_nl.detach()
+
+    return step
+
+
+def make_semisup_optimizer(model, trunk_lr, head_lr):
+    """The reference's two Adams (trunk and head) as one ``torch.optim.Adam``
+    with a parameter group each: the JAX package's ``multi_transform`` of
+    two Adams, the same betas and eps. ``set_lr_mult`` multiplies both
+    groups' rates. The old net's clustering heads, which the finetune
+    never reaches, are in neither group (Adam would not move them)."""
+    return torch.optim.Adam([
+        {"params": list(model.net.trunk.parameters()), "lr": trunk_lr},
+        {"params": list(model.head.parameters()), "lr": head_lr}])
+
+
+def make_semisup_train_step(model, optimizer, augment=None):
+    """Returns ``step(batch, generator=None) -> loss`` (a detached 0-d
+    tensor), the semisup finetune's step: tf2 augmentation (and sobel) ->
+    trunk features -> SupHead5 -> mean cross-entropy -> one Adam step of
+    both groups.
+
+    With ``augment``: batch = (images uint8 (b, H, W, C), labels (b,)) and
+    ``augment(images, generator)`` returns the NCHW float32 net input.
+    Without: batch = (net input, labels)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    def step(batch, generator=None):
+        imgs, labels = batch
+        if augment is not None:
+            imgs = augment(imgs, generator)
+        model.train()
+        loss = F.cross_entropy(model(imgs), labels.long())
+        _optimizer_step(optimizer, params, loss)
+        return loss.detach()
 
     return step
 

@@ -3,7 +3,10 @@
 (``{"net": state_dict, "optimiser": state_dict}``, the reference's own
 segmentation save format), ``config.pickle`` (config, metric history,
 last_epoch) and a readable ``config.txt``. ``load_checkpoint`` restores a
-run from them for ``--restart``."""
+run from them for ``--restart``. The semisup finetune saves its
+``models.semisup.SemisupNet`` (old net and head) and its two-group
+optimiser the same way, and reads its old run with ``read_meta`` and
+``load_run_net``."""
 
 import dataclasses
 import os
@@ -57,6 +60,27 @@ def load_checkpoint(config, net, optimizer, device, name="latest"):
     with open(os.path.join(d, "config.pickle"), "rb") as f:
         meta = pickle.load(f)
     return meta["history"], meta["last_epoch"]
+
+
+def read_meta(out_root, model_ind):
+    """A run directory's config.pickle: {"config", "history",
+    "last_epoch"}."""
+    with open(os.path.join(out_root, str(model_ind), "config.pickle"),
+              "rb") as f:
+        return pickle.load(f)
+
+
+def load_run_net(out_root, model_ind, net, device):
+    """Fill ``net`` from another run's best.pytorch, or its latest.pytorch
+    when it has none (no epoch beat its pre-train eval). Returns the name
+    read."""
+    d = os.path.join(out_root, str(model_ind))
+    name = ("best" if os.path.exists(os.path.join(d, "best.pytorch"))
+            else "latest")
+    saved = torch.load(os.path.join(d, f"{name}.pytorch"),
+                       map_location=device, weights_only=True)
+    net.load_state_dict(saved["net"])
+    return name
 
 
 def save_plots(config, history):

@@ -1,5 +1,5 @@
 """Experiment configuration (``iic_tpu/train/config.py``:
-``ClusterConfig``, ``SegConfig``, ``config_to_str``).
+``ClusterConfig``, ``SegConfig``, ``SemisupConfig``, ``config_to_str``).
 
 The same flag names and defaults as the JAX package, so its command lines
 carry over. Flags the port does not implement yet are refused by the
@@ -255,6 +255,42 @@ class SegConfig:
         self.dataloader_batch_sz = self.batch_sz // self.num_dataloaders
         self.eval_mode = "hung" if self.mode == "IID" else "orig"
         self.bn_axis_name = "data" if self.bn_sync else None
+        return self
+
+
+@dataclasses.dataclass
+class SemisupConfig:
+    """The semi-supervised finetune's flags (the JAX ``SemisupConfig``)."""
+    model_ind: int = 0
+    old_model_ind: int = 0
+    arch: str = "SupHead5"
+    head_lr: float = 1e-3
+    trunk_lr: float = 1e-4
+    num_epochs: int = 1000
+    new_batch_sz: int = -1  # -1: the old run's batch_sz
+    no_compile_cache: bool = False  # no compile cache in the port
+    prefetch_depth: int = 8  # host prefetch queue depth
+    out_root: str = "out"
+    restart: bool = False
+    restart_new_model_ind: bool = False
+    new_model_ind: int = 0
+    penultimate_features: bool = False
+    random_affine: bool = False
+    affine_p: float = 0.5
+    cutout: bool = False
+    cutout_p: float = 0.5
+    cutout_max_box: float = 0.5
+    contiguous_sz: int = 10  # TenCrop block size
+    # the fraction of the supervised train split to keep (a fixed random
+    # subset, the fewer-labels analysis)
+    train_label_pc: float = 1.0
+    lr_schedule: Tuple[int, ...] = ()
+    lr_mult: float = 0.5
+    test_code: bool = False
+    seed: int = 0
+    n_devices: Optional[int] = None  # > 1 is refused (one GPU)
+
+    def finalize(self):
         return self
 
 

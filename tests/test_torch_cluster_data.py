@@ -229,15 +229,6 @@ def test_pipelines_yield_the_jax_batches():
     assert imgs.shape == imgs_tf.shape == (27, 1, 32, 32)
 
 
-@pytest.mark.parametrize("flag", [dict(fluid_warp=True), dict(cutout=True),
-                                  dict(rot_val=25.0),
-                                  dict(rand_crop_szs_tf=(16, 20))])
-def test_unported_transform_flags_raise(flag):
-    tcfg, _ = _cfgs(**flag)
-    with pytest.raises(NotImplementedError, match=next(iter(flag))):
-        tt.make_sobel_pair_transforms(tcfg)
-
-
 def test_demean_options_match_jax():
     """tf3 with --demean (data mean / std) and --per_img_demean."""
     kw = dict(demean=True, data_mean=(0.5,), data_std=(0.25,),

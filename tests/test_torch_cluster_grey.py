@@ -433,7 +433,7 @@ def test_net6c_running_stats_match_jax(nets):
 def test_net6c_uses_reference_names_and_widths():
     """``trunk.features.<i>`` and ``head_X.heads.<s>.0``; the heads read
     512 * (input_sz // 8)^2 features (28 -> 3^2 as 24 does); the semisup
-    head B raises."""
+    head B is one Linear of those features to output_k_B."""
     net = tmodels.build("ClusterNet6cTwoHead", _net_cfg())
     keys = set(net.state_dict())
     for key in ("trunk.features.0.weight", "trunk.features.1.running_var",
@@ -447,8 +447,9 @@ def test_net6c_uses_reference_names_and_widths():
         .in_features == 512 * 9
     semi = _net_cfg()
     semi.semisup = True
-    with pytest.raises(NotImplementedError, match="semisup"):
-        tmodels.build("ClusterNet6cTwoHead", semi)
+    head_b = tmodels.build("ClusterNet6cTwoHead", semi).head_B
+    assert isinstance(head_b, torch.nn.Linear)
+    assert (head_b.in_features, head_b.out_features) == (512 * 9, 3)
 
 
 @pytest.mark.parametrize("arch", ["ClusterNet6cTwoHead", "ClusterNet6c"])

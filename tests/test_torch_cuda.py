@@ -4,9 +4,10 @@ clustering IID loss), X1 / X2 / X7 (the experiment tool's stack-product
 probe and bf16 joint forwards), X3-X6 (its pipelined bf16 joint forwards)
 and X8 / X9 (its bf16 input gradients) on the card, against their plain
 PyTorch versions; the bf16 nets on the card against the same nets' bf16
-forwards on the CPU; and the prefetch thread's uploads against the
+forwards on the CPU; the prefetch thread's uploads against the
 synchronous ones, and the native host prep's batches uploaded to the card
-against the CPU's.
+against the CPU's; the augmentations and train steps of the clustering
+and semisup paths on the card against the CPU.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -1148,6 +1149,67 @@ def test_net6c_twohead_steps_on_the_card_match_the_cpu(gpu):
                 net, opt, None, lamb=1.0, head=h, loss_impl="fused")(
                 tuple(torch.from_numpy(x).to(dev) for x in batch))[0])
                 for h in "AB"]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(losses["card"], losses["cpu"], atol=1e-4)
+    assert all(np.isfinite(losses["card"]))
+
+
+@pytest.mark.cuda
+def test_sobel_tf2_with_affine_and_cutout_on_the_card_matches_the_cpu(gpu):
+    """Table 3's sobel tf2 (crop, random affine, cutout, resize, flip,
+    jitter) on the card against the CPU, given the same draws: within 3e-5
+    (the warp's bilinear sums in f32, then brightness and contrast factors
+    of up to 1.4 each and the hue's round trip through HSV: 1.7e-5 on 8 of
+    2.3M values on an H100; the greyscale tf2, without hue, holds 1e-5)."""
+    from types import SimpleNamespace
+    from iic_tpu_torch.data.transforms import make_sobel_pair_transforms
+    cfg = SimpleNamespace(include_rgb=True, crop_orig=True, rand_crop_sz=64,
+                          input_sz=64, use_random_affine=True, affine_p=0.5,
+                          cutout=True, cutout_p=0.5, cutout_max_box=0.7)
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.random((140, 96, 96, 3)).astype(np.float32))
+    tf2 = make_sobel_pair_transforms(cfg)[1]
+    draws = tf2.draw(140, 96, 96, torch.Generator().manual_seed(1), "cpu")
+    assert 0 < int(draws["affine"].sum()) < 140
+    assert 0 < int(draws["cutout"].sum()) < 140
+    ref = tf2.apply(img, draws)
+    got = tf2.apply(img.to(gpu), {k: v.to(gpu) for k, v in draws.items()})
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=3e-5)
+
+
+@pytest.mark.cuda
+def test_semisup_steps_on_the_card_match_the_cpu(gpu):
+    """Two finetune steps (ResNet-34 trunk read before layer4, SupHead5,
+    cross-entropy, one Adam with a trunk and a head group) from the same
+    weights on the same batch: losses within 1e-4, with TF32 off so that
+    both sides convolve in f32."""
+    import copy
+    from types import SimpleNamespace
+    from iic_tpu_torch import models
+    from iic_tpu_torch.models.semisup import SemisupNet, SupHead5Head
+    from iic_tpu_torch.parallel.train_step import (
+        make_semisup_optimizer, make_semisup_train_step)
+    cfg = SimpleNamespace(arch="ClusterNet5g", in_channels=2, output_k=70,
+                          num_sub_heads=5, input_sz=32, batchnorm_track=True)
+    torch.manual_seed(0)
+    models_ = {"cpu": SemisupNet(models.build(cfg.arch, cfg),
+                                 SupHead5Head(256 * 5 * 5, 10), True)}
+    models_["card"] = copy.deepcopy(models_["cpu"]).to(gpu)
+    rng = np.random.default_rng(3)
+    imgs = rng.random((64, 2, 32, 32)).astype(np.float32)
+    labels = rng.integers(0, 10, 64)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = {}
+        for where, model in models_.items():
+            dev = torch.device("cpu") if where == "cpu" else gpu
+            step = make_semisup_train_step(
+                model, make_semisup_optimizer(model, 1e-4, 1e-3))
+            batch = (torch.from_numpy(imgs).to(dev),
+                     torch.from_numpy(labels).to(dev))
+            losses[where] = [float(step(batch)) for _ in range(2)]
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     np.testing.assert_allclose(losses["card"], losses["cpu"], atol=1e-4)
