@@ -167,6 +167,23 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (last CE below half the first and below 0.5, best 10-crop accuracy
      >= 0.80 and >= 0.30 over the pre-train eval) at seed 0, then at seeds
      1-4 if it misses, one run at least in the band;
+ 10d. the trainable baselines through their CLIs, each run with counts set
+     to 0 just before and required to launch no kernel, with finite
+     losses and eval accuracies and an eval history of 2 entries at least:
+     triplets sobel at model 640's data shape (TripletsNet5g, 660 at 32²)
+     in f32, in bf16, with --kmeans_on_features and with --restart (it
+     must resume at epoch 2), triplets greyscale at model 685's MNIST flags
+     on the MNIST tree (TripletsNet6c, f32), Doersch (colour dropping on)
+     and Isola at model 555's data shape (120 at 128², patch side 11,
+     f32), each also with --per_sample_patches, and Doersch's --restart
+     for epochs 2 and 3 under --save_multiple (it must leave e_3); a
+     profile of steady steps of each (triplets also in bf16) with its peak
+     memory; then the port's k-means on the card at 50 000 x 512 (k 3 and
+     15) and 10 000 x 512 (k 10), timed, with its Lloyd iterations held
+     one by one to the same iterations in float64 on the host (labels
+     equal but within 1e-6 of a tie, centroids within 1e-4 of max), also
+     timed, and accuracy 1.0 on separated clusters; each part's seconds
+     printed;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -2534,6 +2551,258 @@ def phase_semisup_guard():
     return {"iid_loss_fwd": 0}
 
 
+# The baselines. Triplets at model 640's data shape: its data and
+# batch flags, the two-head flags dropped, --save_freq 1 so that the
+# --test_code run leaves a latest.pytorch for --restart
+TRIPLETS640_ARGS = [
+    "--model_ind", "640", "--arch", "TripletsNet5g", "--dataset",
+    "Synthetic10x32x3", "--dataset_root", "", "--gt_k", "10", "--lr",
+    "0.0001", "--num_epochs", "2000", "--batch_sz", "660",
+    "--num_dataloaders", "3", "--crop_orig", "--rand_crop_sz", "20",
+    "--input_sz", "32", "--batchnorm_track", "--save_freq", "1",
+    "--test_code"]
+# ... greyscale at model 685's MNIST flags (--dataset_root added where it
+# runs)
+TRIPLETS685_ARGS = [
+    "--model_ind", "685", "--arch", "TripletsNet6c", "--dataset", "MNIST",
+    "--num_epochs", "3200", *MNIST_TF_ARGS, "--test_code"]
+# Doersch and Isola at model 555's data shape (CLI_ARGS' data flags), at
+# the default patch side 11. --num_epochs 3: a --test_code run's epoch 1
+# is not its last, so it writes no latest.pytorch (3 GB with Adam's
+# moments) unless --save_freq 1 asks for one
+SEG_BASELINE_ARGS = [
+    "--mode", "IID", "--dataset", "SyntheticSeg3x146x480",
+    "--dataset_root", "", "--batch_sz", "120", "--num_dataloaders", "1",
+    "--gt_k", "3", "--input_sz", "128", "--include_rgb",
+    "--batchnorm_track", "--num_epochs", "3", "--test_code"]
+# The device k-means against its float64 replay: (samples, features, k),
+# the Doersch eval's sample at gt_k 3 and at 15, and a triplets eval's
+KMEANS_SHAPES = ((50_000, 512, 3), (50_000, 512, 15), (10_000, 512, 10))
+KMEANS_TIE_REL, KMEANS_CENTRE_REL = 1e-6, 1e-4
+
+
+def _baseline_run(main, argv, tag, min_evals=2):
+    """One baseline CLI run in-process, counts set to 0 just before and the
+    peak of device memory reset: prints its losses, step seconds, eval
+    accuracies, seconds, peak memory and launches; fails on a loss or
+    accuracy that is not finite, an eval history of fewer than
+    ``min_evals`` entries, or any kernel launch. Returns the history."""
+    import numpy as np
+    import torch
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, history = main(argv)
+    seconds = time.perf_counter() - t0
+    launches = _read_counts()
+    loss, acc = history["epoch_loss"], history["epoch_acc"]
+    _log(f"{tag}: epoch loss {loss}, step seconds "
+         f"{[round(v, 4) for v in history['step_seconds']]}; eval acc "
+         f"(pre-train first) {acc}; {seconds:.1f} s; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+         f"{launches}")
+    for name, vals in (("loss", loss), ("eval acc", acc)):
+        if not vals or not np.all(np.isfinite(vals)):
+            raise AssertionError(f"{tag}: {name} not finite: {vals}")
+    if len(acc) < min_evals:
+        raise AssertionError(f"{tag}: eval history {acc}")
+    _no_launches(tag, launches)
+    return history
+
+
+def _baseline_profile(tag, step, batches, focus):
+    """``_profile`` of steady baseline steps, with the step's peak device
+    memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    out = _profile(tag, step, batches, "", focus)
+    _log(f"profile {tag}: peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return out
+
+
+def _triplets_profile(tag, cli, argv, dtype):
+    """Steady triplets steps of the config the CLI makes of ``argv`` in
+    ``dtype``, on its own pipeline's batches and negatives."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.data.pipeline import ClusterTrainPipeline
+    from iic_tpu_torch.parallel.train_step import make_optimizer
+    from iic_tpu_torch.train import triplets_trainer as tt
+
+    cfg = cli.config(argv + ["--model_dtype", dtype])
+    torch.manual_seed(0)
+    pipe = ClusterTrainPipeline(cfg, [True, False], device="cuda")
+    net = models.build(cfg.arch, cfg).cuda()
+    step = tt.make_triplets_train_step(
+        net, make_optimizer(net, cfg), sobel=cfg.sobel,
+        include_rgb=cfg.include_rgb, augment_pair=pipe.augment_pair,
+        augment_tf1=pipe.augment_tf1)
+    batches = [b for _, b in zip(range(8), tt._with_negatives(
+        pipe, 1, tt.negative_order(0, 1, len(pipe.images))))]
+    return _baseline_profile(f"{tag} {dtype}",
+                             lambda batch, gen: (step(batch, gen),), batches,
+                             ("softmax", "xlogy"))
+
+
+def _seg_baseline_profile(tag, cli, kind, argv):
+    """Steady Doersch or Isola steps (f32, colour dropping as the CLI sets
+    it, one pair a batch from the reference geometry) on the CLI config's
+    own pipeline."""
+    import numpy as np
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.data.seg_pipeline import (
+        segmentation_create_dataloaders)
+    from iic_tpu_torch.parallel.train_step import make_optimizer
+    from iic_tpu_torch.train import seg_baseline_trainers as sb
+
+    cfg = cli.config(argv)
+    pipe = segmentation_create_dataloaders(cfg, device="cuda")[0]
+    torch.manual_seed(0)
+    net = models.build(cfg.arch, cfg).cuda()
+    side = cfg.doersch_patch_side if kind == "doersch" else \
+        cfg.isola_patch_side
+    noise = None
+    if cfg.use_doersch_datasets and cfg.include_rgb:
+        noise = tuple(torch.from_numpy(v).cuda() for v in
+                      sb.compute_doersch_rgb_stats(cfg, pipe))
+    step = sb.make_seg_baseline_train_step(
+        net, make_optimizer(net, cfg), kind, cfg.input_sz, side,
+        sobel=cfg.sobel, include_rgb=cfg.include_rgb,
+        using_IR=cfg.using_IR, augment=pipe.augment, noise_stats=noise)
+    set_fn = sb.doersch_set_patches if kind == "doersch" else \
+        sb.isola_set_patches
+    batches = [((imgs, masks), gen, set_fn(np.random.default_rng(b_i),
+                                           cfg.input_sz, side))
+               for b_i, (imgs, masks, gen) in zip(range(4), pipe.epoch(1))]
+    return _baseline_profile(f"{tag} float32", lambda *b: (step(*b),),
+                             batches, ("upsample_bilinear2d",))
+
+
+def phase_kmeans():
+    """The port's k-means on the card at ``KMEANS_SHAPES``, on overlapping
+    relu'd Gaussian clusters: its time, and its Lloyd iterations held one
+    by one to the same iterations in float64 on the CPU
+    (``replay_float64``: labels equal but within KMEANS_TIE_REL of a tie,
+    M-step centroids within KMEANS_CENTRE_REL of max), with the replay's
+    time; on separated clusters, accuracy 1.0 after the Hungarian
+    match."""
+    import numpy as np
+    import torch
+    from iic_tpu_torch.evals.kmeans_eval import (
+        KMeans, kmeans_cluster_assess, replay_float64)
+
+    for n, d, k in KMEANS_SHAPES:
+        rng = np.random.default_rng(k)
+        centres = rng.standard_normal((k, d)).astype(np.float32)
+        truth = rng.integers(0, k, n)
+        noise = rng.standard_normal((n, d)).astype(np.float32)
+        x = torch.from_numpy(np.maximum(0.15 * centres[truth] + noise,
+                                        0)).cuda()
+        KMeans(k, n_init=1, max_iter=2).fit(x)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        km = KMeans(k, seed=0).fit(x)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rep = replay_float64(x, km, tie_rel=KMEANS_TIE_REL)
+        cpu_s = time.perf_counter() - t0
+        blobs = torch.from_numpy(3.0 * centres[truth] + noise).cuda()
+        acc = kmeans_cluster_assess(blobs, truth, k)
+        _log(f"k-means {n} x {d}, k {k}: card {gpu_s:.3f} s (n_init 10, "
+             f"best run {km.n_iter_} iterations, inertia {km.inertia_:.6g}); "
+             f"float64 replay of the best run on the CPU {cpu_s:.3f} s: "
+             f"{rep['mismatches']} labels off outside ties ({rep['ties']} "
+             f"within {KMEANS_TIE_REL:g} of one, over {rep['iterations']} "
+             f"iterations and the final E-step), centroids "
+             f"{rep['centre_err']:.3e} of max off; separated clusters acc "
+             f"{acc}")
+        if rep["mismatches"] or rep["centre_err"] > KMEANS_CENTRE_REL:
+            raise AssertionError(f"k-means {n} x {d} x {k} off its float64 "
+                                 f"replay: {rep['mismatches']} labels, "
+                                 f"centroids {rep['centre_err']:.3e}")
+        if acc != 1.0:
+            raise AssertionError(f"k-means {n} x {d} x {k}: separated "
+                                 f"clusters at acc {acc}")
+
+
+def phase_baselines(root):
+    """The paper's trainable baselines through the port's CLIs, each run with
+    counts set to 0 just before and required to launch no kernel (their
+    losses are a KL divergence and cross-entropies): triplets sobel at
+    model 640's data shape (TripletsNet5g) in f32, in bf16, with
+    --kmeans_on_features and with --restart (which must resume at epoch 2);
+    triplets greyscale at model 685's MNIST flags on the MNIST tree under
+    ``root`` (TripletsNet6c, f32); Doersch (its colour dropping on) and
+    Isola at model 555's data shape, patch side 11, f32, each also with
+    --per_sample_patches, and Doersch's --restart without --test_code for
+    epochs 2 and 3 under --save_multiple (it must leave e_3.pytorch); then
+    a profile of steady steps of each (triplets in f32 and bf16), and the
+    device k-means (``phase_kmeans``). Returns {kernel: launches} (none)."""
+    import os
+    from iic_tpu_torch.cli import (
+        doersch, isola, triplets_greyscale, triplets_sobel)
+
+    phases = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_root:
+        out = ["--out_root", out_root]
+        for dtype, ind in (("float32", "640"), ("bfloat16", "642")):
+            _baseline_run(triplets_sobel.main, TRIPLETS640_ARGS + out + [
+                "--model_dtype", dtype, "--model_ind", ind],
+                f"triplets sobel {dtype}")
+        history = _baseline_run(
+            triplets_sobel.main, TRIPLETS640_ARGS + out + ["--restart"],
+            "triplets sobel --restart", min_evals=3)
+        _log(f"triplets masses after the restart: {history['masses'][-1]}")
+        _baseline_run(triplets_sobel.main, TRIPLETS640_ARGS + out + [
+            "--kmeans_on_features", "--model_ind", "641"],
+            "triplets sobel --kmeans_on_features")
+        _baseline_run(triplets_greyscale.main, TRIPLETS685_ARGS + out + [
+            "--dataset_root", root], "triplets greyscale float32")
+        phases["triplets"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for name, cli in (("doersch", doersch), ("isola", isola)):
+            # Doersch's first run leaves a latest.pytorch to --restart from
+            first = ["--save_freq", "1"] if name == "doersch" else []
+            for extra, ind in ((first, "555"),
+                               (["--per_sample_patches"], "556")):
+                _baseline_run(cli.main, SEG_BASELINE_ARGS + out + extra + [
+                    "--model_ind", ind], f"{name} {' '.join(extra)}")
+            if name == "doersch":
+                rest = [a for a in SEG_BASELINE_ARGS if a != "--test_code"]
+                rest[rest.index("--num_epochs") + 1] = "4"  # epochs 2, 3
+                history = _baseline_run(
+                    cli.main, rest + out + ["--model_ind", "555",
+                                            "--restart", "--save_multiple"],
+                    "doersch --restart --save_multiple", min_evals=4)
+                snap = os.path.join(out_root, "555", "e_3.pytorch")
+                if not os.path.exists(snap) or len(
+                        history["epoch_loss"]) != 3:
+                    raise AssertionError(f"doersch --restart: {history}, "
+                                         f"e_3 saved {os.path.exists(snap)}")
+        phases["doersch and isola"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for dtype in ("float32", "bfloat16"):
+        _triplets_profile("triplets model 640", triplets_sobel,
+                          TRIPLETS640_ARGS, dtype)
+    _triplets_profile("triplets model 685", triplets_greyscale,
+                      TRIPLETS685_ARGS + ["--dataset_root", root], "float32")
+    _seg_baseline_profile("doersch", doersch, "doersch", SEG_BASELINE_ARGS)
+    _seg_baseline_profile("isola", isola, "isola", SEG_BASELINE_ARGS)
+    phases["profiles"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_kmeans()
+    phases["k-means"] = time.perf_counter() - t0
+    _log("baseline phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()))
+    return {"iid_loss_fwd": 0}
+
+
 def phase_tool():
     """The port's experiment tool in-process at its default size: the
     default run and every run of ``TOOL_RUNS``. Returns {kernel: launches
@@ -2879,7 +3148,8 @@ def main(argv=None):
                 ("stl", _write_stl10, phase_stl),
                 ("semisup", None, phase_semisup),
                 ("digits guard", None, lambda _: phase_digits_guard()),
-                ("semisup guard", None, lambda _: phase_semisup_guard())):
+                ("semisup guard", None, lambda _: phase_semisup_guard()),
+                ("baselines", None, phase_baselines)):
             t0 = time.perf_counter()
             if write is not None:
                 write(data_root)

@@ -12,7 +12,11 @@ the JAX tree), so this module needs no JAX. Mapping:
     weight (K, D) and bias (K,);
   - the semisup head B's ``head_B_kernel`` (D, K) / ``head_B_bias`` and
     ``SupHead5Head``'s ``kernel1`` / ``bias1`` / ``BatchNorm_0`` /
-    ``kernel2`` / ``bias2`` -> Linear and BatchNorm1d modules.
+    ``kernel2`` / ``bias2`` -> Linear and BatchNorm1d modules;
+  - ``TripletsNet``'s ``kernel`` (D, K) / ``bias`` -> its Linear ``head``;
+  - the segmentation baselines' ``_SiameseJointHead_0``: ``siamese_conv``
+    and ``siamese_bn`` as above, ``joint_kernel<i>`` (D, K) /
+    ``joint_bias<i>`` -> ``joint<i>``, weight (K, D).
 
 Convs and BatchNorms are matched by their flax path and index (``Conv_<i>``,
 ``BatchNorm_<i>`` inside ``ResNetLayer_<l>/BasicBlock_<b>``), which count
@@ -165,16 +169,9 @@ def load_sup_head(variables, head):
     params = variables["params"]
     _load_linear(head.linear1, params["kernel1"], params["bias1"], "linear1")
     _load_linear(head.linear2, params["kernel2"], params["bias2"], "linear2")
-    bn = params["BatchNorm_0"]
-    _copy(head.bn.weight, bn["scale"], "BatchNorm_0/scale")
-    _copy(head.bn.bias, bn["bias"], "BatchNorm_0/bias")
-    if head.bn.track_running_stats:
-        st = (variables.get("batch_stats") or {}).get("BatchNorm_0")
-        if st is None:
-            raise ValueError("BatchNorm_0: no batch stats for a BN that "
-                             "tracks running stats")
-        _copy(head.bn.running_mean, st["mean"], "BatchNorm_0/mean")
-        _copy(head.bn.running_var, st["var"], "BatchNorm_0/var")
+    _load_bn(head.bn, params["BatchNorm_0"],
+             (variables.get("batch_stats") or {}).get("BatchNorm_0"),
+             "BatchNorm_0")
     return head
 
 
@@ -188,4 +185,53 @@ def load_seg_net(variables, net):
         load_conv_heads(params["head_B"], net.head_B)
     else:
         load_conv_heads(params["MultiConvSoftmaxHead_0"], net.head)
+    return net
+
+
+def _load_bn(bn, params, stats, what):
+    """A flax ``BatchNorm``'s scale / bias (and its running statistics when
+    ``bn`` tracks them) -> ``bn``."""
+    _copy(bn.weight, params["scale"], what + "/scale")
+    _copy(bn.bias, params["bias"], what + "/bias")
+    if bn.track_running_stats:
+        if stats is None:
+            raise ValueError(f"{what}: no batch stats for a BN that tracks "
+                             "running stats")
+        _copy(bn.running_mean, stats["mean"], what + "/mean")
+        _copy(bn.running_var, stats["var"], what + "/var")
+
+
+def load_triplets_net(variables, net):
+    """Fill a ``TripletsNet`` (either trunk) from the JAX ``TripletsNet``'s
+    flax ``variables``: the trunk as ``load_cluster_net`` fills it, then
+    the Linear head from ``kernel`` / ``bias``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    key = next((k for k in _CLUSTER_TRUNK_KEYS if k in params), None)
+    if key is None:
+        raise ValueError(f"no cluster trunk among {sorted(params)}")
+    load_trunk(params[key], stats.get(key), net.trunk)
+    _load_linear(net.head, params["kernel"], params["bias"], "triplets head")
+    return net
+
+
+def load_seg_baseline_net(variables, net):
+    """Fill a ``models.seg_baselines.SegBaselineNet`` (Doersch or Isola)
+    from the JAX ``_SegBaselineNet``'s flax ``variables``: the net10a
+    trunk, the siamese conv (HWIO -> OIHW) and BN, and the two joint
+    Linears."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    load_trunk(params[_TRUNK_KEY], stats.get(_TRUNK_KEY), net.trunk)
+    fhead = params["_SiameseJointHead_0"]
+    hstats = stats.get("_SiameseJointHead_0") or {}
+    head = net.head
+    _copy(head.siamese_conv.weight,
+          np.transpose(fhead["siamese_conv"]["kernel"], (3, 2, 0, 1)),
+          "siamese_conv")
+    _load_bn(head.siamese_bn, fhead["siamese_bn"], hstats.get("siamese_bn"),
+             "siamese_bn")
+    for i in (1, 2):
+        _load_linear(getattr(head, f"joint{i}"), fhead[f"joint_kernel{i}"],
+                     fhead[f"joint_bias{i}"], f"joint{i}")
     return net

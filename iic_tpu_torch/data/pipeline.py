@@ -71,7 +71,8 @@ def _load_partitions(config, partitions):
 class ClusterTrainPipeline:
     """Yields (base uint8 (b, H, W, C) on ``device``, generator) batches in
     the sequential order of the partitions, and exposes ``augment_pair``
-    for the train step. The ragged last batch is kept."""
+    (and ``augment_tf1``, its tf1 half) for the train step. The ragged last
+    batch is kept."""
 
     def __init__(self, config, partitions, seed=0, device="cpu",
                  preloaded=None):
@@ -99,7 +100,15 @@ class ClusterTrainPipeline:
             return (base.repeat(r, 1, 1, 1).permute(0, 3, 1, 2).contiguous(),
                     tf2(tiled, generator).permute(0, 3, 1, 2).contiguous())
 
+        def augment_tf1(imgs_u8, generator):
+            """(b, H, W, C) uint8 -> tf1 of each image tiled r times
+            block-wise, (b*r, C', sz, sz) float32 NCHW: ``augment_pair``'s
+            first output alone (the triplets baseline's negatives)."""
+            base = tf1(imgs_u8.float() / 255.0, generator)
+            return base.repeat(r, 1, 1, 1).permute(0, 3, 1, 2).contiguous()
+
         self.augment_pair = augment_pair
+        self.augment_tf1 = augment_tf1
 
     def epoch(self, epoch_idx, augmented=False):
         """The epoch's batches: (base_u8, generator), or the augmented pair

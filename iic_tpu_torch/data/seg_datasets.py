@@ -18,6 +18,7 @@ where it is missing raises ``ImportError`` naming the reader. Potsdam
 without a rescale needs scipy only.
 """
 
+import functools
 import os.path as osp
 import pickle
 from glob import glob
@@ -445,6 +446,39 @@ def _parse_name(config, prefix):
     return fields[0], fields[1], (fields[2] if len(fields) > 2 else 256)
 
 
+@functools.lru_cache(maxsize=4)
+def _synthetic_seg(k, sz, n, c_raw, seed):
+    """SyntheticSeg's (images uint8 (n, sz, sz, c_raw), labels int32 (n, sz,
+    sz)), read-only. Cached: a run's train pipeline and its two eval loaders
+    read the same split, and each would otherwise draw it anew."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:sz, 0:sz].astype(np.float32) / sz
+    images = np.zeros((n, sz, sz, c_raw), np.uint8)
+    labels = np.zeros((n, sz, sz), np.int32)
+    for i in range(n):
+        cx = rng.uniform(0.2, 0.8, k)
+        cy = rng.uniform(0.2, 0.8, k)
+        scales = rng.uniform(0.5, 2.0, k)
+        fields_ = np.stack([
+            -scales[c] * ((xx - cx[c]) ** 2 + (yy - cy[c]) ** 2)
+            for c in range(k)])
+        lab = np.argmax(fields_, axis=0)
+        chans = [
+            0.5 + 0.45 * np.sin(2 * np.pi * (lab + 1) * (c + 1) / k
+                                + xx * 3)
+            for c in range(3)]
+        if c_raw == 4:  # ir: a distinct label-dependent band
+            chans.append(
+                0.5 + 0.45 * np.cos(2 * np.pi * (lab + 1) / k + yy * 3))
+        img = np.stack(chans, axis=-1)
+        img += 0.1 * rng.standard_normal(img.shape)
+        images[i] = (np.clip(img, 0, 1) * 255).astype(np.uint8)
+        labels[i] = lab
+    images.flags.writeable = False
+    labels.flags.writeable = False
+    return images, labels
+
+
 class SyntheticSeg(_SegDatasetBase):
     """Clusterable synthetic segmentation data: label map = smooth spatial
     class field; image = class-dependent texture + noise. Name:
@@ -463,29 +497,8 @@ class SyntheticSeg(_SegDatasetBase):
         if k != self.gt_k:
             raise ValueError(f"{config.dataset}: {k} classes, gt_k "
                              f"{self.gt_k}")
-        rng = np.random.default_rng(0 if "train" in str(split) else 1)
-        yy, xx = np.mgrid[0:sz, 0:sz].astype(np.float32) / sz
-        self.images = np.zeros((n, sz, sz, c_raw), np.uint8)
-        self.labels = np.zeros((n, sz, sz), np.int32)
-        for i in range(n):
-            cx = rng.uniform(0.2, 0.8, k)
-            cy = rng.uniform(0.2, 0.8, k)
-            scales = rng.uniform(0.5, 2.0, k)
-            fields_ = np.stack([
-                -scales[c] * ((xx - cx[c]) ** 2 + (yy - cy[c]) ** 2)
-                for c in range(k)])
-            lab = np.argmax(fields_, axis=0)
-            chans = [
-                0.5 + 0.45 * np.sin(2 * np.pi * (lab + 1) * (c + 1) / k
-                                    + xx * 3)
-                for c in range(3)]
-            if c_raw == 4:  # ir: a distinct label-dependent band
-                chans.append(
-                    0.5 + 0.45 * np.cos(2 * np.pi * (lab + 1) / k + yy * 3))
-            img = np.stack(chans, axis=-1)
-            img += 0.1 * rng.standard_normal(img.shape)
-            self.images[i] = (np.clip(img, 0, 1) * 255).astype(np.uint8)
-            self.labels[i] = lab
+        self.images, self.labels = _synthetic_seg(
+            k, sz, n, c_raw, 0 if "train" in str(split) else 1)
         self.files = list(range(n))
 
     def _load_raw(self, idx):

@@ -6,7 +6,9 @@ nets dispatch on ``head="A"|"B"``; built with ``semisup``, their head B is
 one bare Linear that returns (B, output_k_B) logits. ``trunk_features``
 returns the trunk's features instead of a head's output, and
 ``penultimate_features`` (the ResNets only) the features before layer4:
-layer3's output flattened in NCHW order. Module names follow the reference
+layer3's output flattened in NCHW order. ``TripletsNet`` is the triplets
+baseline's net: either trunk and one Linear, no softmax. Module names
+follow the reference
 (``trunk.conv1``, ``trunk.layer1.0.conv1``, ``trunk.features.<i>``,
 ``head_A.heads.<s>.0``), so its state_dicts load with
 ``load_state_dict``. ``dtype`` is the trunk's compute dtype (see
@@ -175,3 +177,33 @@ class ClusterNet5gTwoHead(nn.Module):
         _check_head(head)
         feats = self.trunk(x, penultimate_features)
         return feats if trunk_features else _head_out(self, feats, head)
+
+
+class TripletsNet(nn.Module):
+    """The triplets baseline: the ResNet-34 trunk (``trunk_type`` "5g") or
+    net6c's (``"6c"``) and one Linear(d, output_k) with the N(0, 0.01)
+    init, no softmax; (B, output_k) logits in the head's dtype (f32).
+    ``kmeans_use_features``
+    returns the trunk's features instead (f32 for the ResNet's spatial
+    mean, the compute dtype for net6c's flattened map)."""
+
+    def __init__(self, in_channels, output_k, input_sz, trunk_type="5g",
+                 batchnorm_track=True, dtype=torch.float32):
+        super().__init__()
+        if trunk_type == "5g":
+            self.trunk = ClusterNet5gTrunk(in_channels, batchnorm_track,
+                                           dtype)
+            d = self.trunk.out_channels
+        elif trunk_type == "6c":
+            self.trunk = ClusterNet6cTrunk(in_channels, batchnorm_track,
+                                           dtype)
+            d = _net6c_features(input_sz)
+        else:
+            raise ValueError(f"unknown trunk_type {trunk_type!r}")
+        self.head = linear_init_(nn.Linear(d, output_k))
+
+    def forward(self, x, kmeans_use_features=False):
+        feats = self.trunk(x)
+        if kmeans_use_features:
+            return feats
+        return self.head(feats.to(self.head.weight.dtype))

@@ -189,12 +189,13 @@ def frozen_batch_stats(net):
 
 
 def make_apply_fn(net, head=None, sobel=False, include_rgb=False,
-                  using_IR=False, train_mode=False):
+                  using_IR=False, train_mode=False, **net_kw):
     """Eval forward: ``apply(imgs) -> (num_sub_heads, bn, k[, h, w])``, no
     gradients. BN runs in eval mode (batch statistics when it tracks none),
     or with ``train_mode`` (the reference's "double eval") on the batch's
-    statistics, leaving the running statistics as they were."""
-    head_kw = {} if head is None else {"head": head}
+    statistics, leaving the running statistics as they were. ``net_kw``
+    goes to the net's forward (the baselines' nets: their features)."""
+    head_kw = dict(net_kw) if head is None else {"head": head, **net_kw}
 
     @torch.no_grad()
     def apply(imgs):

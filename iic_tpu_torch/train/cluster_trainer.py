@@ -56,13 +56,13 @@ def _log(msg):
     sys.stdout.flush()
 
 
-def check_supported(config):
-    """Raise ``NotImplementedError`` naming each flag the port lacks (and
-    ``ValueError`` for a ``--model_dtype`` other than float32 or
-    bfloat16)."""
+def check_supported(config, refused=_REFUSED):
+    """Raise ``NotImplementedError`` naming each flag of ``refused`` that
+    differs from its default (and ``ValueError`` for a ``--model_dtype``
+    other than float32 or bfloat16)."""
     compute_dtype(config.model_dtype)
     defaults = ClusterConfig()
-    for name in _REFUSED:
+    for name in refused:
         if getattr(config, name) != getattr(defaults, name):
             raise NotImplementedError(f"--{name} is not ported")
     if config.n_devices is not None and config.n_devices > 1:

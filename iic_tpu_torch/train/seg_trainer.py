@@ -39,7 +39,8 @@ from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import SegConfig, config_to_str
 
 # Flags outside the ported slice: each is refused when it differs from its
-# default, never ignored.
+# default, never ignored. The baselines' flags are read by
+# ``seg_baseline_trainers`` alone, as in the JAX package.
 _REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
             "use_orbax", "profile_dir", "select_sub_head_on_loss",
             "use_doersch_datasets", "doersch_stats", "save_multiple",
@@ -52,13 +53,13 @@ def _log(msg):
     sys.stdout.flush()
 
 
-def check_supported(config):
-    """Raise ``NotImplementedError`` naming each flag the port lacks (and
-    ``ValueError`` for a ``--model_dtype`` other than float32 or
-    bfloat16)."""
+def check_supported(config, refused=_REFUSED):
+    """Raise ``NotImplementedError`` naming each flag of ``refused`` that
+    differs from its default (and ``ValueError`` for a ``--model_dtype``
+    other than float32 or bfloat16)."""
     compute_dtype(config.model_dtype)
     defaults = SegConfig()
-    for name in _REFUSED:
+    for name in refused:
         if getattr(config, name) != getattr(defaults, name):
             raise NotImplementedError(f"--{name} is not ported")
     if config.n_devices is not None and config.n_devices > 1:

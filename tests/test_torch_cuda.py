@@ -7,7 +7,8 @@ PyTorch versions; the bf16 nets on the card against the same nets' bf16
 forwards on the CPU; the prefetch thread's uploads against the
 synchronous ones, and the native host prep's batches uploaded to the card
 against the CPU's; the augmentations and train steps of the clustering
-and semisup paths on the card against the CPU.
+and semisup paths on the card against the CPU; the baselines' k-means on
+the card against its float64 replay on the CPU.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports no JAX, so it also runs on a machine without it:
 
@@ -1214,3 +1215,29 @@ def test_semisup_steps_on_the_card_match_the_cpu(gpu):
         torch.backends.cudnn.allow_tf32 = tf32
     np.testing.assert_allclose(losses["card"], losses["cpu"], atol=1e-4)
     assert all(np.isfinite(losses["card"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(50_000, 512, 3), (50_000, 512, 15),
+                                   (10_000, 512, 10)])
+def test_device_kmeans_matches_its_float64_replay(gpu, n, d, k):
+    """The port's k-means on the card (f32, the distances through one
+    matmul) against the same Lloyd iterations in float64 on the CPU
+    (``replay_float64``): each iteration's labels equal but for points
+    within 1e-6 (relative) of a tie, each M-step's centroids within 1e-4
+    of max, on overlapping relu'd Gaussian clusters; on separated
+    clusters, accuracy 1.0 after the Hungarian match."""
+    from iic_tpu_torch.evals.kmeans_eval import (
+        KMeans, kmeans_cluster_assess, replay_float64)
+
+    rng = np.random.default_rng(k)
+    centres = rng.standard_normal((k, d)).astype(np.float32)
+    truth = rng.integers(0, k, n)
+    noise = rng.standard_normal((n, d)).astype(np.float32)
+    x = torch.from_numpy(np.maximum(0.15 * centres[truth] + noise, 0))
+    km = KMeans(k, seed=0).fit(x.to(gpu))
+    rep = replay_float64(x.to(gpu), km)
+    assert rep["mismatches"] == 0, rep
+    assert rep["centre_err"] <= 1e-4, rep
+    blobs = torch.from_numpy(3.0 * centres[truth] + noise)
+    assert kmeans_cluster_assess(blobs.to(gpu), truth, k) == 1.0
