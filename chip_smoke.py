@@ -184,6 +184,28 @@ Phases, in order; any failure raises and the exit code is non-zero:
      equal but within 1e-6 of a tie, centroids within 1e-4 of max), also
      timed, and accuracy 1.0 on separated clusters; each part's seconds
      printed;
+ 10e. the serving and analysis path (``infer.py``, ``cli/export_model``,
+     ``cli/import_torch``, ``cli/analysis``): models 640 (f32), 555 (f32)
+     and 545 (bf16, on a Potsdam fixture tree) trained for one --test_code
+     epoch (set-up; their launches are printed and not the table's), then,
+     counts set to 0 and at PyTorch's TF32 defaults (cuDNN on, cuBLAS off)
+     in both processes: each run's ``load_run`` on cuda and its predictor
+     (in f32 and in bf16) against the eager eval path (the mapping
+     loader's transform, the best sub-head's argmax, the match), ids equal
+     but within 1e-4 of a tie (the near ties counted); each predictor
+     exported with a symbolic batch and served by a child that imports
+     torch alone (it asserts the port is not loaded) at batches 1, 37 and
+     the run's own, held to the eager ids the same way (the ids that
+     cuDNN's TF32 itself moves counted beside, with it off); the eager and
+     exported predictors' CUDA-event ms, images/s and peak memory at
+     batches 1, 64 and the run's; a reference-layout checkpoint of model
+     640's arch imported by ``python -m iic_tpu_torch.cli.import_torch``,
+     its forward equal to the source net's, then its --restart for one
+     epoch (finite losses); ``cli/analysis/eval`` (model 640) and
+     ``render_general --reassess_acc`` (model 555) within 1 / images of
+     the stored accuracy, ``print_sub_heads_eval`` and the fewer-labels
+     tool at pc 0.1; the PNG steps where PIL is found (else printed as
+     proved on the CPU only); no kernel launch in any of it;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -215,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 N, HW, HALF_T = 120, 128, 10
 KS = (15, 3)  # head A, head B
@@ -2803,6 +2826,457 @@ def phase_baselines(root):
     return {"iid_loss_fwd": 0}
 
 
+# The serving and analysis path (infer.py and its
+# torch.export artifact, cli/export_model, compat/torch_import and
+# cli/import_torch, cli/analysis/*): runs at the published widths, trained
+# for one --test_code epoch each, then served. No kernel lies under it.
+SERVE_TIE = 1e-4  # eager top-2 gap below which an id may flip
+SERVE_CHILD_BATCHES = (1, 37)  # and each run's own batch
+SERVE_TIME_BATCHES = (1, 64)  # and each run's own batch
+SERVE_REPS = 20
+SERVE_DTYPES = ("float32", "bfloat16")
+# The reference's config.pickle for model 640 (an argparse.Namespace):
+# CLUSTER_CLI_ARGS's flags as the reference's parser names them, without
+# the port's --fused_loss and --test_code
+SERVE_REF640 = dict(
+    model_ind=640, arch="ClusterNet5gTwoHead", mode="IID",
+    dataset="Synthetic10x32x3", dataset_root="", gt_k=10, output_k_A=70,
+    output_k_B=10, lamb=1.0, lr=0.0001, num_epochs=2000, batch_sz=660,
+    num_dataloaders=3, num_sub_heads=5, crop_orig=True, rand_crop_sz=20,
+    input_sz=32, head_A_first=True, head_B_epochs=2, double_eval=True,
+    batchnorm_track=True, opt="Adam", out_root="out")
+SERVE_CHILD = r"""
+import sys
+import torch
+assert "iic_tpu_torch" not in sys.modules
+print("TF32 as PyTorch's defaults leave it: cudnn",
+      torch.backends.cudnn.allow_tf32, "matmul",
+      torch.backends.cuda.matmul.allow_tf32)
+jobs = torch.load(sys.argv[1])
+outs = {}
+with torch.no_grad():
+    for tag, path, inputs in jobs:
+        program = torch.export.load(path).module()
+        outs[tag] = [program(x.cuda()).cpu() for x in inputs]
+assert "iic_tpu_torch" not in sys.modules, "the port was imported"
+torch.save(outs, sys.argv[2])
+print("served without the port:", sorted(outs))
+"""
+
+
+@contextmanager
+def _tf32(on):
+    """cuDNN convolutions in TF32 (``on``) or full f32 inside the block.
+    The serving checks and rates run at PyTorch's defaults (cuDNN TF32 on,
+    cuBLAS TF32 off), as a user's process and the torch-only child do;
+    TF32 off serves only to count the ids that TF32 itself moves."""
+    import torch
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def _serve_images(loader, config, n):
+    """n raw uint8 images (repeated where the set is smaller): a clustering
+    mapping set's originals, or a segmentation mapping set's prepared
+    images (geometry at input_sz, rgb then IR)."""
+    import numpy as np
+    if hasattr(loader, "images"):
+        imgs = loader.images
+    else:
+        imgs = np.stack([loader._get(i)[0]
+                         for i in range(min(n, loader.total))])
+    return np.ascontiguousarray(imgs[np.arange(n) % len(imgs)])
+
+
+def _serve_eager(config, net, stats, loader, imgs_u8):
+    """The eval path's ids for uint8 images on the device: the loader's
+    own transform, the eval forward of the best sub-head, argmax, the
+    match (``reorder_preds``). Returns (ids, top-2 gap) as numpy."""
+    import torch
+    from iic_tpu_torch.cli.analysis.eval import eval_apply
+    from iic_tpu_torch.evals.metrics import reorder_preds
+
+    if hasattr(loader, "tf3"):
+        x = loader.tf3(imgs_u8.float() / 255.0).permute(0, 3, 1, 2)
+        x = x.contiguous()
+    else:
+        x = loader.transform(imgs_u8)
+    probs = eval_apply(config, net)(x)[stats["best_train_sub_head"]]
+    top2 = probs.topk(2, dim=1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    preds = probs.argmax(dim=1).cpu().numpy()
+    ids = reorder_preds(preds.reshape(-1), stats["best_train_sub_head_match"])
+    return ids.reshape(preds.shape), gap
+
+
+def _serve_compare(tag, got, want, gap):
+    """Ids equal to the eager ids but where the eager top-2 gap is under
+    SERVE_TIE; prints the near-tie rows and the flips. Returns flips."""
+    import numpy as np
+    got = np.asarray(got)
+    tie = gap < SERVE_TIE
+    diff = got != want
+    _log(f"  {tag}: {diff.size} ids, {int(tie.sum())} near ties (eager "
+         f"top-2 gap < {SERVE_TIE:g}), {int(diff.sum())} differ, "
+         f"{int((diff & tie).sum())} of them at a near tie")
+    if (diff & ~tie).any():
+        raise AssertionError(f"{tag}: {int((diff & ~tie).sum())} ids differ "
+                             "away from a near tie")
+    return int(diff.sum())
+
+
+def _serve_net(config, net, dtype):
+    """``net`` as the run's config builds it in ``dtype`` (the weights are
+    f32 in either)."""
+    import copy
+    from iic_tpu_torch import models
+    if dtype == config.model_dtype:
+        return config, net
+    config = copy.copy(config)
+    config.model_dtype = dtype
+    other = models.build(config.arch, config).to(next(net.parameters()).device)
+    other.load_state_dict(net.state_dict())
+    return config, other.eval()
+
+
+def _serve_rate(tag, fn, imgs):
+    """CUDA-event ms a call (mean of SERVE_REPS after a warm call), the
+    images/s it gives and the peak device memory of the calls."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = _time_ms(lambda: fn(imgs), reps=SERVE_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rate = len(imgs) * 1000.0 / ms
+    _log(f"  {tag} batch {len(imgs)}: {ms:.4f} ms, {rate:.1f} images/s, "
+         f"peak {peak:.3f} GiB")
+    return ms, rate, peak
+
+
+def _serve_run(tag, out_root, model_ind, run_batch, work, loaders):
+    """One trained run: load_run on cuda, the predictor against the eager
+    eval path, then (in each dtype) the export with a symbolic batch and
+    the eager and exported rates. Adds the child's jobs to ``work`` and
+    returns {dtype: eager ids at the child's batches}."""
+    import os
+    import numpy as np
+    import torch
+    from iic_tpu_torch import infer
+
+    config, net, stats = infer.load_run(out_root, model_ind)
+    map_a = loaders(config)
+    batches = SERVE_CHILD_BATCHES + (run_batch,)
+    raw = _serve_images(map_a, config, max(batches + SERVE_TIME_BATCHES))
+    imgs = torch.from_numpy(raw).cuda()
+    _log(f"{tag}: {config.arch}, {config.model_dtype}, sub-head "
+         f"{stats['best_train_sub_head']}, input {tuple(raw.shape[1:])} "
+         f"uint8, run batch {run_batch}")
+    expected = {}
+    for dtype in SERVE_DTYPES:
+        cfg, dnet = _serve_net(config, net, dtype)
+        predict = infer.make_predictor(cfg, dnet, stats)
+        want, gap = _serve_eager(cfg, dnet, stats, map_a, imgs[:run_batch])
+        with torch.no_grad():
+            got = predict(imgs[:run_batch]).cpu().numpy()
+        _serve_compare(f"{tag} {dtype} predictor vs eager eval", got, want,
+                       gap)
+        expected[dtype] = [_serve_eager(cfg, dnet, stats, map_a, imgs[:b])
+                           for b in batches]
+        with _tf32(False):
+            full, _ = _serve_eager(cfg, dnet, stats, map_a,
+                                   imgs[:run_batch])
+        moved = full != want
+        _log(f"  {tag} {dtype}: cuDNN TF32's own effect on the eager ids: "
+             f"{int(moved.sum())} of {moved.size} differ from TF32 off, "
+             f"{int((moved & (gap < SERVE_TIE)).sum())} of them at a near "
+             "tie (reported, not held)")
+        path = os.path.join(out_root, f"{model_ind}_{dtype}.pt2")
+        t0 = time.perf_counter()
+        data = infer.export_predictor(predict, raw[:2], path=path)
+        _log(f"  {tag} {dtype}: exported in "
+             f"{time.perf_counter() - t0:.1f} s, {len(data) / 2**20:.1f} "
+             f"MiB")
+        served = infer.load_exported(path)
+        work.append((f"{tag} {dtype}", path,
+                     [torch.from_numpy(raw[:b]) for b in batches]))
+        for b in SERVE_TIME_BATCHES + (run_batch,):
+            for kind, fn in (("eager", predict), ("exported", served)):
+                _serve_rate(f"{tag} {dtype} {kind}", fn, imgs[:b])
+        del served, predict, dnet
+        torch.cuda.empty_cache()
+    return expected
+
+
+def _serve_child(work, expected, tmp):
+    """The artifacts in a child process that imports torch alone, at
+    batches 1, 37 and each run's; its ids against the eager ids."""
+    import os
+    import torch
+
+    jobs, outs = os.path.join(tmp, "jobs.pt"), os.path.join(tmp, "outs.pt")
+    torch.save(work, jobs)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", SERVE_CHILD, jobs, outs],
+                         cwd=tmp, env=env, capture_output=True, text=True,
+                         timeout=600)
+    _log(f"child (torch alone): rc {res.returncode}, "
+         f"{time.perf_counter() - t0:.1f} s; {res.stdout.strip()}")
+    if res.returncode != 0:
+        raise AssertionError(f"the child failed: {res.stderr[-3000:]}")
+    served = torch.load(outs)
+    flips = 0
+    for tag, _, inputs in work:
+        for x, got, (want, gap) in zip(inputs, served[tag], expected[tag]):
+            flips += _serve_compare(f"{tag} exported, batch {len(x)}", got,
+                                    want, gap)
+    return flips
+
+
+def _serve_import(root, device):
+    """A reference-layout run directory at model 640's arch (a bare state
+    dict under ``module.`` in best_net.pytorch and latest_net.pytorch, as
+    the reference's cluster scripts save them, and config.pickle an
+    argparse.Namespace), through ``python -m iic_tpu_torch.cli.import_torch``;
+    the imported weights' forward against the source net's; then
+    --restart of the imported run (from its latest) for one --test_code
+    epoch."""
+    import argparse
+    import os
+    import pickle
+    import numpy as np
+    import torch
+    from iic_tpu_torch import infer, models
+    from iic_tpu_torch.cli import cluster_sobel_twohead
+    from iic_tpu_torch.train.config import ClusterConfig
+
+    cfg = ClusterConfig(**{k: v for k, v in SERVE_REF640.items()
+                           if k != "out_root"}).finalize(twohead=True)
+    torch.manual_seed(640)
+    src = models.build(cfg.arch, cfg).to(device)
+    src.train()
+    with torch.no_grad():  # running statistics away from (0, 1)
+        for _ in range(3):
+            src(torch.randn(64, cfg.in_channels, 32, 32, device=device))
+    src.eval()
+    ref_dir = os.path.join(root, "ref", "640")
+    os.makedirs(ref_dir)
+    ref_sd = {"module." + k: v.cpu() for k, v in src.state_dict().items()}
+    for name in ("best_net.pytorch", "latest_net.pytorch"):
+        torch.save(ref_sd, os.path.join(ref_dir, name))
+    with open(os.path.join(ref_dir, "config.pickle"), "wb") as f:
+        pickle.dump(argparse.Namespace(**SERVE_REF640), f, protocol=2)
+    imp = os.path.join(root, "imported")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "iic_tpu_torch.cli.import_torch",
+         "--ref_dir", ref_dir, "--out_root", imp, "--model_ind", "640"],
+        capture_output=True, text=True, timeout=600)
+    _log(f"import_torch: rc {res.returncode}, "
+         f"{time.perf_counter() - t0:.1f} s: {res.stdout.strip()}")
+    if res.returncode != 0:
+        raise AssertionError(f"import_torch failed: {res.stderr[-3000:]}")
+    net = models.build(cfg.arch, cfg).to(device)
+    net.load_state_dict(torch.load(os.path.join(imp, "640", "best.pytorch"),
+                                   map_location=device,
+                                   weights_only=True)["net"])
+    net.eval()
+    x = torch.randn(660, cfg.in_channels, 32, 32, device=device)
+    with torch.no_grad():
+        err = max(float((net(x, head=h) - src(x, head=h)).abs().max())
+                  for h in "AB")
+    stats = {"best_train_sub_head": 3,
+             "best_train_sub_head_match": [(i, (i + 3) % 10)
+                                           for i in range(10)]}
+    u8 = torch.randint(0, 256, (660, 32, 32, 3), dtype=torch.uint8,
+                       device=device)
+    with torch.no_grad():
+        ids = infer.make_predictor(cfg, net, stats)(u8)
+        want = infer.make_predictor(cfg, src, stats)(u8)
+    _log(f"imported run: forward max |d| against the source net {err:.3e} "
+         f"(heads A, B; 660 images); predictor ids equal to the source "
+         f"net's: {bool(torch.equal(ids, want))}")
+    if err != 0.0 or not torch.equal(ids, want):
+        raise AssertionError("the imported run's forward is not the source "
+                             "net's")
+    argv = [a for a in CLUSTER_CLI_ARGS if a != "--fused_loss"] + [
+        "--restart", "--out_root", imp, "--num_epochs", "2"]
+    _, history = cluster_sobel_twohead.main(argv)
+    losses = [history[f"epoch_loss_head_{h}"] for h in "AB"]
+    _log(f"imported run --restart: epoch losses A, B {losses}, eval acc "
+         f"{history['eval'].epoch_acc}")
+    if not all(v and np.all(np.isfinite(v)) for v in losses) or len(
+            history["eval"].epoch_acc) != 1:
+        raise AssertionError(f"the imported run's --restart: {history}")
+
+
+def _stored_acc(out_root, model_ind):
+    """The stored accuracy of the weights an analysis CLI reloads (best,
+    else latest)."""
+    import os
+    import numpy as np
+    from iic_tpu_torch.train import checkpoint as ckpt
+    meta = ckpt.read_meta(out_root, model_ind)
+    ev = meta["history"]["eval"]
+    if os.path.exists(os.path.join(out_root, str(model_ind),
+                                   "best.pytorch")):
+        return ev.epoch_acc[int(np.argmax(ev.epoch_acc))]
+    return ev.epoch_acc[meta["last_epoch"]]
+
+
+def _serve_analysis(root, pngs):
+    """The analysis CLIs on the trained runs: eval (model 640) and
+    render_general --reassess_acc (model 555) against the stored accuracy
+    within 1 / images, print_sub_heads_eval and the fewer-labels tool at pc
+    0.1 to their ends; print_examples, render_general's renders and
+    colour_scheme_change where PIL is found (``pngs``)."""
+    import os
+    from iic_tpu_torch.cli.analysis import (
+        colour_scheme_change, eval as analysis_eval,
+        overcluster_fewer_labels_example, print_examples,
+        print_sub_heads_eval, render_general)
+    from iic_tpu_torch.data.pipeline import MappingLoader, _twohead_partitions
+    from iic_tpu_torch.data.seg_pipeline import seg_partitions
+    from iic_tpu_torch.train import checkpoint as ckpt
+    from iic_tpu_torch.train.config import config_from_dict
+
+    r640, r555 = os.path.join(root, "640"), os.path.join(root, "555")
+    checks = []
+    t0 = time.perf_counter()
+    stats = analysis_eval.main(["--model_ind", "640", "--out_root", r640])
+    cfg = config_from_dict(ckpt.read_meta(r640, 640)["config"])
+    n = len(MappingLoader(cfg, _twohead_partitions(cfg)[2]).images)
+    checks.append(("eval, model 640", stats["best"], _stored_acc(r640, 640),
+                   n, time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    res = render_general.main(["--model_ind", "555", "--out_root", r555,
+                               "--reassess_acc"])
+    cfg = config_from_dict(ckpt.read_meta(r555, 555)["config"])
+    from iic_tpu_torch.data.seg_pipeline import SegMappingLoader
+    n = SegMappingLoader(cfg, seg_partitions(cfg)[1]).total
+    checks.append(("render_general --reassess_acc, model 555",
+                   res[555]["best"], _stored_acc(r555, 555), n,
+                   time.perf_counter() - t0))
+    for tag, got, want, n, seconds in checks:
+        _log(f"{tag}: {got:.6f} against the stored {want:.6f} (|d| "
+             f"{abs(got - want):.3e}, bound 1 / {n} images = {1 / n:.3e}); "
+             f"{seconds:.1f} s")
+        if abs(got - want) > 1.0 / n:
+            raise AssertionError(f"{tag} does not reproduce the stored "
+                                 "accuracy")
+    t0 = time.perf_counter()
+    print_sub_heads_eval.main(["--model_inds", "640", "--out_root", r640])
+    _log(f"print_sub_heads_eval: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res = overcluster_fewer_labels_example.main([
+        "--model_ind", "640", "--out_root", r640, "--pcs", "0.1"])
+    _log(f"overcluster_fewer_labels_example at pc 0.1: {res}; "
+         f"{time.perf_counter() - t0:.1f} s")
+    steps = ("print_examples", "render_general renders",
+             "colour_scheme_change")
+    if not pngs:
+        _log("PNG steps not run here (no PIL): " + ", ".join(steps)
+             + "; proved on the CPU only (tests/test_torch_analysis.py)")
+        return
+    print_examples.main(["--model_ind", "640", "--out_root", r640])
+    render_general.main(["--model_ind", "555", "--out_root", r555,
+                         "--num", "4", "--imgs_dataloaders", "test"])
+    renders = os.path.join(r555, "555", "renders", "test", "best")
+    colour_scheme_change.main(["--in_dir", renders, "--file_pattern",
+                               "preds_%d.png", "--file_indices", "0", "1",
+                               "--num_classes", "3"])
+    _log("PNG steps run on the card: " + ", ".join(steps))
+
+
+def phase_serve():
+    """The serving and analysis path at full width: models 640 (f32), 555
+    (f32) and 545 (bf16, on a Potsdam fixture tree it writes) trained for
+    one --test_code epoch (set-up: launches printed, not counted), then,
+    counts set to 0, at PyTorch's TF32 defaults: each run's predictor in
+    f32 and in bf16 against the eager eval path, its export with a
+    symbolic batch (in f32 and bf16)
+    served by a child that imports torch alone at batches 1, 37 and the
+    run's own, the eager and exported rates at 1, 64 and the run's batch;
+    a reference-layout checkpoint imported and restarted; the analysis
+    CLIs. The serving part must launch no kernel. Returns {kernel:
+    launches} (none)."""
+    import importlib.util
+    import os
+    from iic_tpu_torch.cli import cluster_sobel_twohead, segmentation_twohead
+    from iic_tpu_torch.data.pipeline import MappingLoader, _twohead_partitions
+    from iic_tpu_torch.data.seg_pipeline import (
+        SegMappingLoader, seg_partitions)
+
+    import torch
+    pngs = importlib.util.find_spec("PIL") is not None
+    # PyTorch's defaults, as a user's process and the child have them
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phases = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        potsdam = os.path.join(root, "potsdam")
+        _write_potsdam(potsdam)
+        c640 = [a for a in CLUSTER_CLI_ARGS if a != "--fused_loss"] + [
+            "--num_epochs", "2"]
+        setups = (
+            ("640", cluster_sobel_twohead.main, c640),
+            ("555", segmentation_twohead.main, CLI_ARGS + [
+                "--model_ind", "555"]),
+            ("545", segmentation_twohead.main, POTSDAM3_ARGS + [
+                "--dataset_root", potsdam, "--test_code", "--num_epochs",
+                "2", "--model_dtype", "bfloat16"]))
+        for tag, main, argv in setups:
+            _reset_counts()
+            _, history = main(argv + ["--out_root", os.path.join(root, tag)])
+            _log(f"set-up run {tag}: eval acc {history['eval'].epoch_acc}; "
+                 f"launches (set-up, not the table's) {_read_counts()}")
+        phases["set-up"] = time.perf_counter() - t0
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        work, expected = [], {}
+
+        def cluster_map(cfg):
+            return MappingLoader(cfg, _twohead_partitions(cfg)[2],
+                                 device="cuda")
+
+        def seg_map(cfg):
+            return SegMappingLoader(cfg, seg_partitions(cfg)[1],
+                                    device="cuda")
+
+        for tag, model_ind, batch, loaders in (
+                ("640", 640, 660, cluster_map),
+                ("555", 555, 120, seg_map), ("545", 545, 75, seg_map)):
+            for dtype, ids in _serve_run(
+                    f"model {tag}", os.path.join(root, tag), model_ind,
+                    batch, work, loaders).items():
+                expected[f"model {tag} {dtype}"] = ids
+        phases["predictors, exports, rates"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flips = _serve_child(work, expected, root)
+        _log(f"exported artifacts: {flips} ids flipped at near ties")
+        phases["child"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _serve_import(root, "cuda")
+        phases["import"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _serve_analysis(root, pngs)
+        phases["analysis"] = time.perf_counter() - t0
+        launches = _read_counts()
+    _log(f"phase_serve kernel launches: {launches} (total "
+         f"{sum(launches.values())})")
+    _no_launches("phase_serve", launches)
+    _log("serve phase seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phases.items()))
+    return {"iid_loss_fwd": 0}
+
+
 def phase_tool():
     """The port's experiment tool in-process at its default size: the
     default run and every run of ``TOOL_RUNS``. Returns {kernel: launches
@@ -3160,6 +3634,11 @@ def main(argv=None):
             run = phase(data_root)
             _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
             launches["iid_loss_fwd"] += run["iid_loss_fwd"]
+    # the serving and analysis path: no kernel, nothing added to the table
+    _clocks("phase serve")
+    t0 = time.perf_counter()
+    phase_serve()
+    _log(f"phase serve: {time.perf_counter() - t0:.1f} s")
     _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
                      if k in TOOL_KERNELS})

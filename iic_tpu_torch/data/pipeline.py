@@ -126,14 +126,23 @@ class ClusterTrainPipeline:
 
 class MappingLoader:
     """tf3 (deterministic) eval loader: yields (imgs NCHW float32 on
-    ``device``, labels int32 numpy) in batches of ``batch_sz``."""
+    ``device``, labels int32 numpy) in batches of ``batch_sz``.
+    ``truncate_pc`` keeps a random fixed fraction of the set, the rows of
+    ``np.random.default_rng(truncate_seed).permutation`` the JAX loader
+    keeps (the fewer-labels analysis)."""
 
-    def __init__(self, config, partitions, device="cpu", preloaded=None):
+    def __init__(self, config, partitions, device="cpu", preloaded=None,
+                 truncate_pc=None, truncate_seed=0):
         self.config = config
         self.device = torch.device(device)
         self.batch_sz = config.batch_sz
         self.images, self.labels = (preloaded if preloaded is not None
                                     else _load_partitions(config, partitions))
+        if truncate_pc is not None:
+            n = int(len(self.images) * truncate_pc)
+            idx = np.random.default_rng(truncate_seed).permutation(
+                len(self.images))[:n]
+            self.images, self.labels = self.images[idx], self.labels[idx]
         _, _, self.tf3 = _pair_transforms(config)
 
     def __iter__(self):

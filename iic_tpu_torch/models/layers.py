@@ -19,8 +19,6 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from iic_tpu_torch.ops.kernels.seg_joint import full_f32
-
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -82,7 +80,12 @@ class MultiConvSoftmaxHead(nn.Module):
     """``num_sub_heads`` parallel (1x1 conv -> Softmax2d -> bilinear upsample
     to ``input_sz``) heads, the reference ``SegmentationNet10aHead``. Keeps
     its quirk: the 1x1 conv has padding=1, which adds a one-pixel ring of
-    zero logits (a uniform softmax) before the upsample.
+    zero logits (a uniform softmax) before the upsample. The parameters
+    are the reference's (``heads.<s>.0.weight``, (K, C, 1, 1)); the forward
+    is the JAX head's one f32 einsum over all sub-heads, as a cuBLAS matmul
+    with TF32 off (PyTorch's default and the trainers'), so the head's
+    precision does not follow cuDNN's TF32 flag, in a process or in an
+    exported graph.
 
     Input (B, C, H, W) -> output (num_sub_heads, B, K, input_sz, input_sz).
     """
@@ -90,6 +93,7 @@ class MultiConvSoftmaxHead(nn.Module):
     def __init__(self, in_channels, output_k, num_sub_heads, input_sz):
         super().__init__()
         self.input_sz = input_sz
+        self.output_k = output_k
         self.heads = nn.ModuleList([
             nn.Sequential(nn.Conv2d(in_channels, output_k, kernel_size=1,
                                     stride=1, dilation=1, padding=1,
@@ -100,15 +104,22 @@ class MultiConvSoftmaxHead(nn.Module):
             kaiming_normal_fan_in_(head[0].weight)
 
     def forward(self, x):
-        # The JAX head is an f32 einsum at HIGHEST precision: f32 input
-        # whatever the trunk's dtype, and the 1x1 conv out of TF32.
-        x = x.float()
-        with full_f32():
-            outs = [head(x) for head in self.heads]
-        return torch.stack([
-            F.interpolate(o, size=(self.input_sz, self.input_sz),
-                          mode="bilinear", align_corners=False)
-            for o in outs])
+        # f32 input whatever the trunk's dtype, as the JAX head. A bmm of
+        # (S*K, C) by each image's (C, H*W) keeps the logits and the
+        # input's gradient NCHW-contiguous (an einsum or a broadcast
+        # matmul hands the trunk a channels-last gradient)
+        w = torch.cat([head[0].weight.flatten(1) for head in self.heads])
+        b, _, h, wd = x.shape
+        logits = torch.bmm(w.expand(b, -1, -1),
+                           x.float().flatten(2)).view(b, -1, h, wd)
+        logits = F.pad(logits, (1, 1, 1, 1))  # the zero ring of padding=1
+        hp, wp = h + 2, wd + 2
+        s, k = len(self.heads), self.output_k
+        probs = logits.view(b, s, k, hp, wp).softmax(dim=2)
+        out = F.interpolate(probs.transpose(0, 1).reshape(s * b, k, hp, wp),
+                            size=(self.input_sz, self.input_sz),
+                            mode="bilinear", align_corners=False)
+        return out.view(s, b, k, self.input_sz, self.input_sz)
 
 
 class MultiDenseHead(nn.Module):

@@ -70,13 +70,16 @@ def read_meta(out_root, model_ind):
         return pickle.load(f)
 
 
-def load_run_net(out_root, model_ind, net, device):
-    """Fill ``net`` from another run's best.pytorch, or its latest.pytorch
-    when it has none (no epoch beat its pre-train eval). Returns the name
-    read."""
+def load_run_net(out_root, model_ind, net, device, name="best"):
+    """Fill ``net`` from a run's ``name``.pytorch (``best`` or ``latest``);
+    ``best`` reads latest.pytorch where the run has no best (no epoch beat
+    its pre-train eval). Returns the name read."""
+    if name not in ("best", "latest"):
+        raise ValueError(f"name {name!r}: expected best or latest")
     d = os.path.join(out_root, str(model_ind))
-    name = ("best" if os.path.exists(os.path.join(d, "best.pytorch"))
-            else "latest")
+    if name == "best" and not os.path.exists(os.path.join(d,
+                                                          "best.pytorch")):
+        name = "latest"
     saved = torch.load(os.path.join(d, f"{name}.pytorch"),
                        map_location=device, weights_only=True)
     net.load_state_dict(saved["net"])

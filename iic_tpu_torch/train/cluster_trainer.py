@@ -12,7 +12,8 @@ scored on the held-out one, the losses logged in the head-B slots. Both:
 the multiplicative lr schedule with Adam's moments kept, the NaN exit,
 latest / best checkpoints, plots.png, ``--restart`` /
 ``--restart_from_best``, and the ``--test_code`` mode of two batches per
-head pass and one epoch.
+head pass and one epoch. The two-head scripts also draw the
+``--save_progression`` point clouds (``utils/render.py``, with PIL).
 
 Precision: the trunk runs in ``--model_dtype`` (float32 or bfloat16;
 parameters, BN statistics, the heads, the loss and Adam stay f32). f32
@@ -43,12 +44,12 @@ from iic_tpu_torch.parallel.train_step import (
 from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import ClusterConfig, config_to_str
 from iic_tpu_torch.train.seg_trainer import make_history, resume
+from iic_tpu_torch.utils.render import save_progress
 
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.
 _REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
-            "use_orbax", "profile_dir", "save_progression", "lazy_images",
-            "kmeans_on_features")
+            "use_orbax", "profile_dir", "lazy_images", "kmeans_on_features")
 
 
 def _log(msg):
@@ -113,7 +114,10 @@ def train_cluster_single(config, device=None):
 
 
 def _train(config, device):
-    check_supported(config)
+    # the progression plots are the two-head scripts' (the JAX single-head
+    # trainer never reads the flag)
+    check_supported(config, _REFUSED + (() if config.twohead
+                                        else ("save_progression",)))
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,6 +207,10 @@ def _train(config, device):
                 avg_loss_nl / count)
 
         is_best = evaluate()
+        if config.save_progression:
+            # the MNIST progression point clouds, figure 3 of the paper
+            save_progress(config, make_apply_fn(net, **apply_kw), map_assign,
+                          map_test, index=e_i)
         ev = history["eval"]
         if config.twohead:
             _log(f"Epoch {e_i}: acc {ev.epoch_acc[-1]:.6f} "

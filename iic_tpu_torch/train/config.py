@@ -1,5 +1,6 @@
 """Experiment configuration (``iic_tpu/train/config.py``:
-``ClusterConfig``, ``SegConfig``, ``SemisupConfig``, ``config_to_str``).
+``ClusterConfig``, ``SegConfig``, ``SemisupConfig``, ``config_from_dict``,
+``config_to_str``).
 
 The same flag names and defaults as the JAX package, so its command lines
 carry over. Flags the port does not implement yet are refused by the
@@ -292,6 +293,21 @@ class SemisupConfig:
 
     def finalize(self):
         return self
+
+
+def config_from_dict(d):
+    """Rebuild the config dataclass of a run directory's pickled config
+    dict: ``SegConfig`` when the arch is a segmentation net, else
+    ``ClusterConfig``. Unknown keys are dropped, and pickled lists become
+    tuples again."""
+    cls = SegConfig if "Segmentation" in d.get("arch", "") else ClusterConfig
+    names = {f.name for f in dataclasses.fields(cls)}
+    cfg = cls(**{k: v for k, v in d.items() if k in names})
+    for f in dataclasses.fields(cls):
+        v = getattr(cfg, f.name)
+        if isinstance(v, list):
+            setattr(cfg, f.name, tuple(v))
+    return cfg
 
 
 def config_to_str(config):

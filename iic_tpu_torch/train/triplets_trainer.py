@@ -38,8 +38,10 @@ from iic_tpu_torch.train.cluster_trainer import _REFUSED as _CLUSTER_REFUSED
 from iic_tpu_torch.train.cluster_trainer import check_supported
 from iic_tpu_torch.train.config import config_to_str
 
-# The IIC trainer's refusals but the flag this trainer reads
-_REFUSED = tuple(f for f in _CLUSTER_REFUSED if f != "kmeans_on_features")
+# The IIC trainer's refusals but the flag this trainer reads, and the
+# progression plots, which the JAX triplets trainer never reads
+_REFUSED = tuple(f for f in _CLUSTER_REFUSED
+                 if f != "kmeans_on_features") + ("save_progression",)
 
 
 def _log(msg):

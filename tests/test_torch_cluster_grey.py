@@ -812,11 +812,12 @@ def test_greyscale_twohead_cli_needs_a_gpu_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag,dataset", [
-    (["--lazy_images"], None), (["--save_progression"], None),
+    (["--lazy_images"], None), (["--kmeans_on_features"], None),
     (["--mix_train", "--lazy_images"], "STL10")])
 def test_greyscale_cli_refusals(tmp_path, flag, dataset):
-    """What stays refused: the lazy readers and the progression plots on
-    the greyscale CLI, and --mix_train over the lazy STL10 reader."""
+    """What stays refused: the lazy readers and the triplets baseline's
+    flag on the greyscale CLI, and --mix_train over the lazy STL10 reader
+    (``--save_progression`` runs: tests/test_torch_analysis.py)."""
     argv = list(GREY_CLI)
     if dataset:
         argv[argv.index("Synthetic10x28x1x48")] = dataset

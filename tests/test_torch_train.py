@@ -163,15 +163,16 @@ def test_flags_outside_the_slice_raise(flag, tmp_path):
 def test_import_loads_no_jax():
     """Importing every module of the port leaves jax, flax, optax and
     iic_tpu out of sys.modules, and sklearn, which the card's machine does
-    not have (the baselines' k-means is the port's own)."""
+    not have (the baselines' k-means is the port's own), and PIL and cv2,
+    which only the functions that read or write an image import."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import iic_tpu_torch\n"
         "for m in pkgutil.walk_packages(iic_tpu_torch.__path__, "
         "'iic_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in ('jax', 'flax', 'optax', 'iic_tpu', 'sklearn') "
-        "if m in sys.modules]\n"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'iic_tpu', 'sklearn', "
+        "'PIL', 'cv2') if m in sys.modules]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
