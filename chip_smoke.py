@@ -206,6 +206,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the stored accuracy, ``print_sub_heads_eval`` and the fewer-labels
      tool at pc 0.1; the PNG steps where PIL is found (else printed as
      proved on the CPU only); no kernel launch in any of it;
+ 10f. data parallelism (``iic_tpu_torch/parallel/mesh.py``): R = min(visible
+     cards, 4) ranks, one process a card over NCCL, spawned by the
+     script (R = 1: world size 1 through the same group and collectives,
+     and a line saying that no cross-card check ran); each rank runs
+     model 555's two-head CLI with --n_devices R in f32 and bf16 (120
+     pairs global) and model 640's clustering CLI (plain loss: K3 is
+     refused under a mesh), each rank's K1, K2 and K3 launches read after
+     each run (K1 and K2 required on every rank, K3 on none; the seg runs'
+     K1 and K2 add to the table's); the R-rank step of model 555 (global
+     mode, --bn_sync, TF32 off, SGD) against one rank on the whole batch,
+     loss, gradients, parameters and BN statistics within 4x what one rank
+     moves by itself on the batch reversed (1e-4 at least); one step of
+     model 698's finetune on each rank's shard, from the semisup phase's
+     f32 model-650 run; each rank's wall and device time a head-A step
+     and its all-reduce (NCCL kernels) time by torch.profiler, beside the
+     cards' names and power limits;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -232,6 +248,7 @@ Phases, in order; any failure raises and the exit code is non-zero:
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2511,6 +2528,10 @@ def phase_semisup(root):
                     "--out_root", out_root], f"model 650 {dtype}",
                 heads="B")
             _no_launches(f"model 650 {dtype}", launches)
+            if dtype == "float32":  # the old run of phase_multigpu's step
+                import shutil
+                shutil.copytree(os.path.join(out_root, "650"), os.path.join(
+                    root, "multigpu_old_runs", "650"))
             _cluster_profile("model 650", cluster_sobel,
                              STL650_ARGS + ["--dataset_root", root], "B",
                              dtype)
@@ -3567,6 +3588,276 @@ def phase_rates():
     return rates
 
 
+# --------------------------------------------------------------- multi-GPU
+
+MULTIGPU_MAX = 4  # ranks: the cards the machine shows, at most 4
+# the R-rank seg step against one rank on the whole batch (TF32 off, SGD):
+# loss, gradients, parameters and BN statistics as a share of each kind's
+# largest entry, held within MULTIGPU_PARITY_MULT times what the one rank
+# moves by itself when only the batch's row order changes (synced BN's
+# var = E[x^2] - E[x]^2, the JAX formula, is that noisy in f32: on the
+# CPU a reversed batch moves the gradients by 2e-3 of max at 32^2), and
+# never beyond MULTIGPU_PARITY_FLOOR below that
+MULTIGPU_PARITY_MULT = 4.0
+MULTIGPU_PARITY_FLOOR = 1e-4
+MULTIGPU_PROFILE_STEPS = 3
+MULTIGPU_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
+
+
+def _multigpu_parity(mesh, device):
+    """Model 555's head-A step (uncollapsed loss, K1 and K2) in global mode
+    with --bn_sync, TF32 off, on a fixed batch of 120 pairs made on the
+    host from a seed: this rank's shard on the mesh, then (rank 0) one rank
+    on the whole batch. SGD, so the update shows the reduced gradient.
+    Rank 0 also runs the one rank on the batch in reversed row order: the
+    same sums in another order, the f32 noise floor. Returns ({kind:
+    largest difference as a share of the kind's largest entry}, the same
+    for the reversed batch) (rank 0) or None."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.models.layers import sync_batch_norm
+    from iic_tpu_torch.parallel.train_step import make_seg_train_step
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parse_seg_args(CLI_ARGS + ["--bn_sync"]).finalize(twohead=True)
+    torch.manual_seed(0)
+    state = models.build(cfg.arch, cfg).state_dict()
+    g = torch.Generator().manual_seed(1)
+    img1 = torch.rand(N, 4, HW, HW, generator=g)
+    img2 = (img1 + 0.1 * torch.randn(img1.shape, generator=g)).clamp(0, 1)
+    a = (torch.rand(N, generator=g) - 0.5) * 0.5
+    aff = torch.zeros(N, 2, 3)
+    aff[:, 0, 0], aff[:, 0, 1] = a.cos(), -a.sin()
+    aff[:, 1, 0], aff[:, 1, 1] = a.sin(), a.cos()
+    mask = (torch.rand(N, HW, HW, generator=g) > 0.1).float()
+    batch = (img1, img2, aff, mask)
+
+    def one(m, rows):
+        net = models.build(cfg.arch, cfg).to(device)
+        net.load_state_dict(state)
+        sync_batch_norm(net, m)
+        opt = torch.optim.SGD(net.parameters(), lr=0.05)
+        step = make_seg_train_step(
+            net, opt, lamb=cfg.lamb_A, head="A", half_T_side_dense=HALF_T,
+            half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
+            include_rgb=True, use_uncollapsed_loss=True, mesh=m)
+        loss, _ = step(tuple(x[rows].to(device) for x in batch))
+        return (float(loss), {k: v.detach().clone()
+                              for k, v in net.state_dict().items()},
+                {k: p.grad.detach().clone()
+                 for k, p in net.named_parameters()})
+
+    try:
+        shard = N // mesh.size
+        got = one(mesh, slice(mesh.rank * shard, (mesh.rank + 1) * shard))
+        if mesh.rank:
+            return None
+        ref = one(None, slice(None))
+        reversed_rows = one(None, torch.arange(N - 1, -1, -1))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = tf32
+
+    def errors(got):
+        errs = {"loss": abs(got[0] - ref[0]) / abs(ref[0])}
+        for kind, i, pick in (("grads", 2, lambda k: True),
+                              ("params", 1, lambda k: "running" not in k
+                               and "num_batches" not in k),
+                              ("stats", 1, lambda k: "running" in k)):
+            keys = [k for k in ref[i] if pick(k)]
+            big = max(float(ref[i][k].abs().max()) for k in keys)
+            errs[kind] = max(float((got[i][k] - ref[i][k]).abs().max())
+                             for k in keys) / big
+        return errs
+
+    return errors(got), errors(reversed_rows)
+
+
+def _multigpu_profile(mesh, device):
+    """Model 555's head-A step (f32, TF32 convs, global mode, the trainer's
+    pipeline shard and augmentation) on this rank: 2 warm-up steps, then
+    MULTIGPU_PROFILE_STEPS timed by the host clock (synchronised), the
+    same again under torch.profiler. Returns (wall ms a step, device busy
+    ms a step, all-reduce (NCCL kernel) ms a step, the NCCL kernels'
+    names, the 8 kernels of most device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
+    from iic_tpu_torch.parallel.train_step import (make_optimizer,
+                                                   make_seg_train_step)
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parse_seg_args(CLI_ARGS).finalize(twohead=True)
+    torch.manual_seed(0)
+    pipe = SegTrainPipeline(
+        cfg, ["train"], seed=0, device=device,
+        process_shard=(mesh.rank, mesh.size) if mesh.size > 1 else None)
+    net = models.build(cfg.arch, cfg).to(device)
+    opt = make_optimizer(net, cfg)
+    step = make_seg_train_step(
+        net, opt, lamb=cfg.lamb_A, head="A", half_T_side_dense=HALF_T,
+        half_T_side_sparse_min=0, half_T_side_sparse_max=0, sobel=True,
+        include_rgb=True, use_uncollapsed_loss=True, augment=pipe.augment,
+        mesh=mesh)
+    batches = []  # model 555's set holds 4 batches of 120: two epochs
+    for e_i in (1, 2):
+        batches += [((imgs, masks), gen) for imgs, masks, gen in
+                    pipe.epoch(e_i)]
+    batches = batches[:2 + MULTIGPU_PROFILE_STEPS]
+    for batch in batches[:2]:
+        float(step(*batch)[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in batches[2:]:
+        float(step(*batch)[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / MULTIGPU_PROFILE_STEPS * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for batch in batches[2:]:
+            float(step(*batch)[0])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    n = MULTIGPU_PROFILE_STEPS
+    busy = sum(e.self_device_time_total for e in events) / n / 1e3
+    nccl = [e for e in events if "nccl" in e.key.lower()]
+    reduce_ms = sum(e.self_device_time_total for e in nccl) / n / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return (wall, busy, reduce_ms, sorted({e.key[:60] for e in nccl}),
+            [(round(e.self_device_time_total / n / 1e3, 3), e.key[:70])
+             for e in top])
+
+
+def _multigpu_rank(device, root, out_root, n_ranks):
+    """One rank of ``phase_multigpu``: the CLIs with --n_devices in the
+    group the spawn made (counts set to 0 just before each run), the
+    parity check, one finetune step, the profile. Returns its readings."""
+    import numpy as np
+    import torch
+    from iic_tpu_torch.cli import (IID_semisup_STL10, cluster_sobel_twohead,
+                                   segmentation_twohead)
+    from iic_tpu_torch.parallel.mesh import make_mesh
+    from iic_tpu_torch.train.semisup_trainer import make_finetune
+
+    mesh = make_mesh(n_ranks, device)
+    ranks = ["--n_devices", str(n_ranks)]
+    out = {"rank": mesh.rank, "runs": {}}
+    for tag, main, argv in (
+            ("model 555 float32", segmentation_twohead.main, CLI_ARGS),
+            ("model 555 bfloat16", segmentation_twohead.main,
+             CLI_ARGS + ["--model_dtype", "bfloat16"]),
+            ("model 640 float32", cluster_sobel_twohead.main,
+             CLUSTER_CLI_ARGS)):
+        _reset_counts()
+        t0 = time.perf_counter()
+        _, history = main(argv + ranks + ["--out_root", out_root],
+                          device=device)
+        seconds = time.perf_counter() - t0
+        losses = {h: history[f"epoch_loss_head_{h}"] for h in "AB"}
+        if not all(np.all(np.isfinite(v)) and v for v in losses.values()):
+            raise AssertionError(f"rank {mesh.rank} {tag}: losses {losses}")
+        steps = {h: [round(s, 4) for s in history[f"step_seconds_head_{h}"]]
+                 for h in "AB"}
+        out["runs"][tag] = dict(launches=_read_counts(), losses=losses,
+                                steps=steps, seconds=seconds,
+                                acc=history["eval"].epoch_acc)
+    out["parity"] = _multigpu_parity(mesh, device)
+    cfg = IID_semisup_STL10.config(SEMISUP698_ARGS + ranks + [
+        "--out_root", os.path.join(root, "multigpu_old_runs")])
+    _reset_counts()
+    ft = make_finetune(cfg, device, mesh)
+    imgs, labels, gen = next(ft.loader.epoch(0))
+    loss = float(ft.step((imgs, labels), gen))
+    out["finetune"] = dict(loss=loss, rows=len(imgs),
+                           launches=_read_counts())
+    if not np.isfinite(loss):
+        raise AssertionError(f"rank {mesh.rank} model 698 step: {loss}")
+    out["profile"] = _multigpu_profile(mesh, device)
+    return out
+
+
+def phase_multigpu(root):
+    """Data parallelism (``iic_tpu_torch/parallel/mesh.py``) over R =
+    min(visible cards, MULTIGPU_MAX) ranks, one process a card over NCCL
+    (R = 1 runs world size 1 through the same group, collectives and
+    synced BN, and says that no cross-card check ran): model 555's
+    two-head seg CLI with --n_devices R in f32 and bf16 (120 pairs global,
+    --test_code) and model 640's clustering CLI (its --fused_loss falls
+    back to the plain loss under a mesh), each rank's K1, K2 and K3
+    launches read after each run (K1 and K2 on every rank, K3 on none); the
+    R-rank step against one rank on the whole batch (global mode,
+    --bn_sync, TF32 off) within MULTIGPU_PARITY_MULT times the one rank's
+    own f32 noise (its batch reversed); one step of model
+    698's finetune from the semisup phase's f32 model-650 run; each rank's
+    device time a head-A step and its all-reduce time by torch.profiler.
+    Returns {kernel: launches} of the seg runs summed over ranks."""
+    import torch
+    from iic_tpu_torch.parallel.mesh import spawn
+
+    n_ranks = min(torch.cuda.device_count(), MULTIGPU_MAX)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    _log(f"multigpu: {torch.cuda.device_count()} cards visible, {n_ranks} "
+         f"rank(s) over NCCL; {smi}")
+    if n_ranks == 1:
+        _log("multigpu: one card: world size 1 through the process group; "
+             "no cross-card check ran")
+    out_root = os.path.join(root, "multigpu_runs")
+    # rank 0 shares card 0 with this process: hand back its cached blocks
+    torch.cuda.empty_cache()
+    results = spawn(_multigpu_rank, n_ranks,
+                    args=(root, out_root, n_ranks), device_type="cuda",
+                    timeout=MULTIGPU_TIMEOUT_S)
+    launches = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    for res in results:
+        r = res["rank"]
+        for tag, run in res["runs"].items():
+            got = run["launches"]
+            _log(f"multigpu rank {r} {tag}: losses {run['losses']}, step "
+                 f"seconds {run['steps']}, eval acc {run['acc']}, "
+                 f"{run['seconds']:.1f} s, launches {got}")
+            if got["iid_loss_fwd"]:
+                raise AssertionError(f"rank {r} {tag}: K3 launched under a "
+                                     f"mesh: {got}")
+            if tag.startswith("model 555"):
+                if got["seg_joint_fwd"] < 4 or got["seg_joint_dgrad"] < 8:
+                    raise AssertionError(f"rank {r} {tag} missed K1/K2: "
+                                         f"{got}")
+                for k in launches:
+                    launches[k] += got[k]
+        ft = res["finetune"]
+        _log(f"multigpu rank {r} model 698 step: loss {ft['loss']:.5f} on "
+             f"{ft['rows']} rows, launches {ft['launches']}")
+        _no_launches(f"rank {r} model 698 step", ft["launches"])
+        wall, busy, reduce_ms, names, top = res["profile"]
+        _log(f"multigpu rank {r} model 555 head A f32 ({N // n_ranks} pairs "
+             f"a rank): {wall:.2f} ms a step wall, device busy {busy:.2f} "
+             f"ms a step, all-reduce (NCCL kernels) {reduce_ms:.3f} ms a "
+             f"step {names or '(no NCCL kernel)'}; {smi}; top kernels "
+             f"(ms a step) {top}")
+    errs, floor = results[0]["parity"]
+    _log(f"multigpu parity, {n_ranks} rank(s) against 1 on the whole batch "
+         f"(share of each kind's largest entry): {errs}"
+         + (" (trivial: one rank)" if n_ranks == 1 else "")
+         + f"; 1 rank on the batch reversed: {floor}")
+    for kind, err in errs.items():
+        bound = max(MULTIGPU_PARITY_MULT * floor[kind], MULTIGPU_PARITY_FLOOR)
+        if err > bound:
+            raise AssertionError(f"multigpu parity: {kind} {err} beyond "
+                                 f"{bound}")
+    return launches
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--trace_dir", default="",
@@ -3634,6 +3925,13 @@ def main(argv=None):
             run = phase(data_root)
             _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
             launches["iid_loss_fwd"] += run["iid_loss_fwd"]
+        # data parallelism: K1 and K2 launches of its seg runs (every rank)
+        # add to the table's
+        _clocks("phase multigpu")
+        t0 = time.perf_counter()
+        for k, v in phase_multigpu(data_root).items():
+            launches[k] += v
+        _log(f"phase multigpu: {time.perf_counter() - t0:.1f} s")
     # the serving and analysis path: no kernel, nothing added to the table
     _clocks("phase serve")
     t0 = time.perf_counter()

@@ -10,11 +10,11 @@ batched ``augment_pair`` applies tf1 once per image and tf2
 Each batch's draws come from a ``torch.Generator`` seeded from (seed,
 epoch, batch), so a run is reproducible.
 
-Ported: the single-process, host-resident path of the two-head scripts
-(sobel and greyscale) and of the single-head IID+ scripts, over the
-eager readers (MNIST, CIFAR, STL10 with ``--mix_train``, Digits,
-Synthetic). ImageFolder, the lazy readers, resident mode and
-multi-process sharding are not (they raise).
+Ported: the host-resident path of the two-head scripts (sobel and
+greyscale) and of the single-head IID+ scripts, over the eager readers
+(MNIST, CIFAR, STL10 with ``--mix_train``, Digits, Synthetic), and its
+sharding over ranks (``process_shard``). ImageFolder, the lazy readers and
+resident mode are not (they raise).
 """
 
 import numpy as np
@@ -72,18 +72,26 @@ class ClusterTrainPipeline:
     """Yields (base uint8 (b, H, W, C) on ``device``, generator) batches in
     the sequential order of the partitions, and exposes ``augment_pair``
     (and ``augment_tf1``, its tf1 half) for the train step. The ragged last
-    batch is kept."""
+    batch is kept, or dropped under ``drop_last``.
+
+    ``process_shard = (rank, world)`` with world > 1 (the JAX package's
+    multi-host rule): each rank yields ((its contiguous sub-block of the
+    batch, the block's weights (float32)), generator), the generator its
+    own. A ragged final batch is padded to the full batch with its last
+    image, weighted 0."""
 
     def __init__(self, config, partitions, seed=0, device="cpu",
-                 preloaded=None):
+                 preloaded=None, drop_last=False, process_shard=None):
         self.config = config
         self.seed = seed
         self.device = torch.device(device)
+        self.process_shard = process_shard or (0, 1)
         self.num_dataloaders = config.num_dataloaders
         self.dataloader_batch_sz = config.batch_sz // config.num_dataloaders
         self.images, self.labels = (preloaded if preloaded is not None
                                     else _load_partitions(config, partitions))
-        self.num_batches = max(int(np.ceil(
+        rounder = np.floor if drop_last else np.ceil
+        self.num_batches = max(int(rounder(
             len(self.images) / self.dataloader_batch_sz)), 1)
         tf1, tf2, _ = _pair_transforms(config)
         r = self.num_dataloaders
@@ -110,11 +118,39 @@ class ClusterTrainPipeline:
         self.augment_pair = augment_pair
         self.augment_tf1 = augment_tf1
 
+    def shard_indices(self, b_i):
+        """(this rank's image indices of batch ``b_i``, their weights):
+        the batch padded to the full batch with its last index (weight 0),
+        then the rank's contiguous sub-block."""
+        bsz = self.dataloader_batch_sz
+        pi, pc = self.process_shard
+        if bsz % pc:
+            raise ValueError(f"a batch of {bsz} does not split over {pc} "
+                             "ranks")
+        lo, n = b_i * bsz, len(self.images)
+        m = min(lo + bsz, n) - lo  # the valid rows
+        idx = np.minimum(np.arange(lo, lo + bsz), lo + m - 1)
+        weights = (np.arange(bsz) < m).astype(np.float32)
+        shard = bsz // pc
+        sl = slice(pi * shard, (pi + 1) * shard)
+        return idx[sl], weights[sl]
+
     def epoch(self, epoch_idx, augmented=False):
         """The epoch's batches: (base_u8, generator), or the augmented pair
-        (imgs, imgs_tf) when ``augmented``."""
+        (imgs, imgs_tf) when ``augmented``; sharded: ((base_u8, weights),
+        generator)."""
         bsz = self.dataloader_batch_sz
+        pi, pc = self.process_shard
+        if pc > 1 and augmented:
+            raise ValueError("a sharded pipeline yields base batches")
         for b_i in range(self.num_batches):
+            if pc > 1:
+                idx, weights = self.shard_indices(b_i)
+                base, w = self.upload(
+                    np.ascontiguousarray(self.images[idx]), weights)
+                yield ((base, w), batch_generator(
+                    self.seed, epoch_idx, b_i, self.device, pi))
+                continue
             base, = self.upload(
                 np.ascontiguousarray(self.images[b_i * bsz:(b_i + 1) * bsz]))
             gen = batch_generator(self.seed, epoch_idx, b_i, self.device)
@@ -186,12 +222,15 @@ def _shared(loaded, partitions):
                 None)
 
 
-def cluster_twohead_create_dataloaders(config, seed=0, device="cpu"):
+def cluster_twohead_create_dataloaders(config, seed=0, device="cpu",
+                                       drop_last=False, process_shard=None):
     """Returns (train pipeline head A, train pipeline head B, mapping
     assignment loader, mapping test loader). Head B's pipeline is seeded
     ``seed + 1``. Pipelines and loaders over the same partitions share the
     decoded images: all four do, but on STL10, where head A's mix of
-    train+unlabeled has its own."""
+    train+unlabeled has its own. ``drop_last`` and ``process_shard`` go to
+    the train pipelines; every rank's mapping loaders hold the whole
+    sets."""
     if config.mode != "IID":
         raise ValueError(f"the two-head scripts run mode IID, got "
                          f"{config.mode}")
@@ -200,11 +239,14 @@ def cluster_twohead_create_dataloaders(config, seed=0, device="cpu"):
     config.train_partitions_head_B = train_b
     config.mapping_assignment_partitions = map_a
     config.mapping_test_partitions = map_t
-    pipe_a = ClusterTrainPipeline(config, train_a, seed=seed, device=device)
+    shard = dict(drop_last=drop_last, process_shard=process_shard)
+    pipe_a = ClusterTrainPipeline(config, train_a, seed=seed, device=device,
+                                  **shard)
     loaded = [(train_a, (pipe_a.images, pipe_a.labels))]
     pipe_b = ClusterTrainPipeline(config, train_b, seed=seed + 1,
                                   device=device,
-                                  preloaded=_shared(loaded, train_b))
+                                  preloaded=_shared(loaded, train_b),
+                                  **shard)
     loaded.append((train_b, (pipe_b.images, pipe_b.labels)))
     map_assign = MappingLoader(config, map_a, device=device,
                                preloaded=_shared(loaded, map_a))
@@ -213,7 +255,8 @@ def cluster_twohead_create_dataloaders(config, seed=0, device="cpu"):
     return pipe_a, pipe_b, map_assign, map_test
 
 
-def cluster_create_dataloaders(config, seed=0, device="cpu"):
+def cluster_create_dataloaders(config, seed=0, device="cpu",
+                               drop_last=False, process_shard=None):
     """The single-head IID+ scripts' (``iic_tpu/data/pipeline.py``:
     ``cluster_create_dataloaders``): the train split trains and maps, the
     test split is held out (STL10: train+unlabeled trains, train maps).
@@ -234,7 +277,9 @@ def cluster_create_dataloaders(config, seed=0, device="cpu"):
     config.train_partitions = train
     config.mapping_assignment_partitions = map_a
     config.mapping_test_partitions = map_t
-    pipe = ClusterTrainPipeline(config, train, seed=seed, device=device)
+    pipe = ClusterTrainPipeline(config, train, seed=seed, device=device,
+                                drop_last=drop_last,
+                                process_shard=process_shard)
     loaded = [(train, (pipe.images, pipe.labels))]
     return (pipe,
             MappingLoader(config, map_a, device=device,

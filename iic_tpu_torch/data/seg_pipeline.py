@@ -11,8 +11,8 @@ negates the affine's top row, giving the training 4-tuple
 
 Two host paths prepare a batch from the same random draws: the native C++
 prep (``iic_tpu_torch/native``, threaded over the batch) and numpy (a
-batched fast path, else ``get_train`` per sample). Resident mode and
-multi-process sharding are not ported (the trainer refuses their flags).
+batched fast path, else ``get_train`` per sample). Resident mode is not
+ported (the trainer refuses its flag).
 """
 
 import ctypes
@@ -106,9 +106,14 @@ def make_seg_augment(config):
     return augment
 
 
-def batch_generator(seed, epoch_idx, b_i, device):
-    """The augmentation generator of batch ``b_i`` of one epoch."""
-    state = np.random.SeedSequence([seed + 7919, epoch_idx, b_i])
+def batch_generator(seed, epoch_idx, b_i, device, rank=None):
+    """The augmentation generator of batch ``b_i`` of one epoch (of rank
+    ``rank``'s shard, when the batch is sharded: each rank draws its own,
+    as the JAX step folds the shard's index into its key)."""
+    entropy = [seed + 7919, epoch_idx, b_i]
+    if rank is not None:
+        entropy += [97, rank]
+    state = np.random.SeedSequence(entropy)
     return torch.Generator(device=device).manual_seed(
         int(state.generate_state(1, np.uint64)[0] >> 1))
 
@@ -117,6 +122,14 @@ class SegTrainPipeline:
     """Yields (imgs_u8, masks_u8, generator) batches on ``device`` and
     exposes ``augment`` for the train step. Shuffles each epoch when
     num_dataloaders == 1, keeps sequential order otherwise.
+
+    ``process_shard = (rank, world)`` with world > 1 (the JAX package's
+    multi-host rule): the visiting order is global, and each rank preps
+    only its contiguous sub-block of each batch (after the r repeats),
+    with host draws and a generator of its own. A ragged final batch is
+    padded to the full batch with its last image, whose relevancy masks
+    are zeroed, so the loss leaves the padding out exactly; ``drop_last``
+    drops it instead (parity mode).
 
     num_dataloaders = r > 1: each training batch is the same
     ``dataloader_batch_sz`` base images repeated r times, each repeat with
@@ -132,9 +145,11 @@ class SegTrainPipeline:
     within ``IIC_TPU_MASK_CACHE_BYTES`` (256 MiB by default)."""
 
     def __init__(self, config, partitions, seed=0, device="cpu",
-                 drop_last=False, use_native=None, use_fast_host=True):
+                 drop_last=False, use_native=None, use_fast_host=True,
+                 process_shard=None):
         self.config = config
         self.seed = seed
+        self.process_shard = process_shard or (0, 1)
         self.device = torch.device(device)
         self.datasets = [build_seg_dataset(config, p, "train")
                          for p in partitions]
@@ -304,25 +319,57 @@ class SegTrainPipeline:
         return imgs_out, masks_out
 
     def _epoch_order(self, epoch_idx):
-        """(visiting order, rng continuing from the permutation draw)."""
+        """(visiting order, host rng): the rng continues from the
+        permutation draw, or is the rank's own when the batch is
+        sharded."""
         rng = np.random.default_rng(
             np.random.SeedSequence([self.seed, epoch_idx]))
         order = (rng.permutation(self.total) if self.shuffle
                  else np.arange(self.total))
+        pi, pc = self.process_shard
+        if pc > 1:
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, epoch_idx, 97, pi]))
         return order, rng
+
+    def shard_indices(self, idxs):
+        """(this rank's dataset indices of one batch, the rows of them that
+        are padding), from the batch's global indices ``idxs`` before the r
+        repeats: the ragged batch padded with its last index, repeated r
+        times, then the rank's contiguous sub-block. One process: the
+        repeats alone and no padding."""
+        r = self.config.num_dataloaders
+        pi, pc = self.process_shard
+        n_valid = len(idxs)
+        if pc > 1 and n_valid < self.batch_sz:
+            idxs = np.concatenate(
+                [idxs, np.full(self.batch_sz - n_valid, idxs[-1])])
+        idxs = np.concatenate([idxs] * r) if r > 1 else idxs
+        padding = np.tile(np.arange(len(idxs) // r) >= n_valid, r)
+        if pc > 1:
+            if len(idxs) % pc:
+                raise ValueError(f"a batch of {len(idxs)} does not split "
+                                 f"over {pc} ranks")
+            shard = len(idxs) // pc
+            sl = slice(pi * shard, (pi + 1) * shard)
+            idxs, padding = idxs[sl], padding[sl]
+        return idxs, padding
 
     def epoch(self, epoch_idx):
         order, rng = self._epoch_order(epoch_idx)
-        r = self.config.num_dataloaders
+        pi, pc = self.process_shard
         for b_i in range(self.num_batches):
-            idxs = order[b_i * self.batch_sz:(b_i + 1) * self.batch_sz]
-            if r > 1:  # r independent draws of the same base images
-                idxs = np.concatenate([idxs] * r)
+            idxs, padding = self.shard_indices(
+                order[b_i * self.batch_sz:(b_i + 1) * self.batch_sz])
             prep = (self._native_batch if self._native is not None
                     else self._numpy_batch)
-            imgs, masks = self.upload(*prep(idxs, rng))
+            imgs, masks = prep(idxs, rng)
+            if padding.any():
+                masks[padding] = 0
+            imgs, masks = self.upload(imgs, masks)
             yield (imgs, masks,
-                   batch_generator(self.seed, epoch_idx, b_i, self.device))
+                   batch_generator(self.seed, epoch_idx, b_i, self.device,
+                                   pi if pc > 1 else None))
 
     def __len__(self):
         return self.num_batches
@@ -377,9 +424,11 @@ class SegMappingLoader:
 
 
 def segmentation_create_dataloaders(config, seed=0, device="cpu",
-                                    drop_last=False):
+                                    drop_last=False, process_shard=None):
     """Partition tables + loaders. Returns (train_pipeline,
-    mapping_assignment_loader, mapping_test_loader)."""
+    mapping_assignment_loader, mapping_test_loader). ``process_shard``
+    goes to the train pipeline; every rank's mapping loaders hold the whole
+    sets."""
     if getattr(config, "mask_input", False):
         raise ValueError("mask_input is unsupported (the reference asserts "
                          "it off too)")
@@ -388,7 +437,8 @@ def segmentation_create_dataloaders(config, seed=0, device="cpu",
     config.mapping_assignment_partitions = map_a
     config.mapping_test_partitions = map_t
     return (SegTrainPipeline(config, train, seed=seed, device=device,
-                             drop_last=drop_last),
+                             drop_last=drop_last,
+                             process_shard=process_shard),
             SegMappingLoader(config, map_a, device=device),
             SegMappingLoader(config, map_t, device=device))
 

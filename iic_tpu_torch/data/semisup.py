@@ -16,6 +16,10 @@ from iic_tpu_torch.data.prefetch import DeviceUpload
 from iic_tpu_torch.data.seg_pipeline import batch_generator
 from iic_tpu_torch.data.transforms import append_grey
 
+# the label of a padded row of a sharded batch: F.cross_entropy's
+# ignore_index, so the row weighs nothing
+PAD_LABEL = -100
+
 
 def ten_crop(imgs, crop_sz):
     """(B, H, W, C) -> (B, 10, crop_sz, crop_sz, C) in TenCrop's order: top
@@ -56,14 +60,21 @@ class SemisupTrainLoader:
     the JAX loader's (numpy ``default_rng(SeedSequence([seed, epoch]))``'s
     permutation), so the batches hold the same images; each batch's
     augmentation draws from its own generator, seeded from (seed, epoch,
-    batch). The ragged last batch is kept."""
+    batch). The ragged last batch is kept.
 
-    def __init__(self, images, labels, batch_sz, seed=0, device="cpu"):
+    ``process_shard = (rank, world)`` with world > 1: each rank yields its
+    contiguous sub-block of each batch, with a generator of its own; a
+    ragged final batch is padded to the full batch with its last image,
+    labelled ``PAD_LABEL``."""
+
+    def __init__(self, images, labels, batch_sz, seed=0, device="cpu",
+                 process_shard=None):
         self.images = images
         self.labels = np.asarray(labels, np.int64)
         self.batch_sz = batch_sz
         self.seed = seed
         self.device = torch.device(device)
+        self.process_shard = process_shard or (0, 1)
         self.num_batches = int(np.ceil(len(images) / batch_sz))
         self.upload = DeviceUpload(self.device)
 
@@ -74,12 +85,27 @@ class SemisupTrainLoader:
 
     def epoch(self, epoch_idx):
         order = self.order(epoch_idx)
+        pi, pc = self.process_shard
         for b_i in range(self.num_batches):
             idx = order[b_i * self.batch_sz:(b_i + 1) * self.batch_sz]
+            labels = self.labels[idx]
+            if pc > 1:
+                if self.batch_sz % pc:
+                    raise ValueError(f"a batch of {self.batch_sz} does not "
+                                     f"split over {pc} ranks")
+                m = len(idx)
+                idx = np.concatenate(
+                    [idx, np.full(self.batch_sz - m, idx[-1])])
+                labels = np.concatenate(
+                    [labels, np.full(self.batch_sz - m, PAD_LABEL)])
+                shard = self.batch_sz // pc
+                sl = slice(pi * shard, (pi + 1) * shard)
+                idx, labels = idx[sl], labels[sl]
             imgs, labels = self.upload(
-                np.ascontiguousarray(self.images[idx]), self.labels[idx])
+                np.ascontiguousarray(self.images[idx]), labels)
             yield (imgs, labels,
-                   batch_generator(self.seed, epoch_idx, b_i, self.device))
+                   batch_generator(self.seed, epoch_idx, b_i, self.device,
+                                   pi if pc > 1 else None))
 
     def __len__(self):
         return self.num_batches

@@ -3,9 +3,10 @@
 BatchNorm is ``nn.BatchNorm2d(momentum=0.1, eps=1e-5)``: batch statistics
 in training (with the unbiased running-variance update), running statistics
 in eval when ``track_running_stats``, batch statistics always otherwise --
-the JAX ``BatchNorm`` semantics. Convs get the Kaiming-normal init with
-relu gain, fan-in for the VGG nets and fan-out for the ResNets; Linear
-layers N(0, 0.01) with zero bias.
+the JAX ``BatchNorm`` semantics (``--bn_sync``: ``SyncBatchNorm2d``,
+its statistics over the ranks of a mesh). Convs get the Kaiming-normal
+init with relu gain, fan-in for the VGG nets and fan-out for the ResNets;
+Linear layers N(0, 0.01) with zero bias.
 
 Compute dtype, as the flax modules have it: parameters and BN running
 statistics stay f32; a ``Conv2d`` casts its input and weight to its
@@ -74,6 +75,71 @@ def max_pool_2x2_pad1():
 def batch_norm(features, track_running_stats=True):
     return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1,
                           track_running_stats=track_running_stats)
+
+
+class SyncBatchNorm2d(nn.BatchNorm2d):
+    """``--bn_sync``'s BatchNorm (``iic_tpu/models/layers.py``'s
+    ``BatchNorm`` with an ``axis_name``): in a training forward under
+    autograd, each rank's per-channel mean and mean of squares are averaged
+    over the ranks of ``mesh`` (one differentiable all-reduce), var = mean2
+    - mean^2, and the running variance is the unbiased one over the global
+    count. Without a mesh the same formula runs on the rank's own rows.
+
+    Other forwards (eval mode, or a train-mode eval forward under
+    ``no_grad``) are ``nn.BatchNorm2d``'s: every rank runs the whole eval
+    batch, so its own statistics are the batch's. Parameters and buffers
+    are ``nn.BatchNorm2d``'s, so checkpoints load either way.
+    ``nn.SyncBatchNorm`` refuses CPU tensors, so the gloo ranks of the
+    tests could not run it."""
+
+    def __init__(self, *args, mesh=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.mesh = mesh
+
+    def forward(self, x):
+        if not (self.training and torch.is_grad_enabled()):
+            return super().forward(x)
+        from iic_tpu_torch.parallel.mesh import all_reduce_stats
+
+        xf = x.float()
+        dims = (0, 2, 3)
+        n = x.numel() // x.shape[1]
+        moments = torch.cat([xf.mean(dims), (xf * xf).mean(dims)])
+        if self.mesh is not None:
+            moments = all_reduce_stats(moments, self.mesh) / self.mesh.size
+            n *= self.mesh.size
+        mean, mean2 = moments.chunk(2)
+        var = mean2 - mean * mean
+        if self.track_running_stats:
+            m = self.momentum
+            with torch.no_grad():
+                self.num_batches_tracked += 1
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(
+                    m * var * (n / max(n - 1, 1)))
+        shape = (1, -1, 1, 1)
+        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+def sync_batch_norm(module, mesh):
+    """Replace, in place, every ``nn.BatchNorm2d`` of ``module`` by a
+    ``SyncBatchNorm2d`` over ``mesh`` with its parameters and buffers.
+    Returns ``module``."""
+    for name, child in module.named_children():
+        if type(child) is nn.BatchNorm2d:
+            synced = SyncBatchNorm2d(
+                child.num_features, eps=child.eps, momentum=child.momentum,
+                affine=child.affine,
+                track_running_stats=child.track_running_stats, mesh=mesh)
+            synced.load_state_dict(child.state_dict())
+            setattr(module, name, synced.to(next(child.parameters()).device)
+                    if child.affine else synced)
+        else:
+            sync_batch_norm(child, mesh)
+    return module
 
 
 class MultiConvSoftmaxHead(nn.Module):

@@ -4,8 +4,9 @@ The joint is one k x k matmul ``z^T z_tf`` in full f32 (the JAX package's
 ``Precision.HIGHEST``; the trainer keeps cuBLAS out of TF32). Every
 function also takes a leading sub-head axis, (S, bn, k), in place of the
 JAX package's ``vmap``. ``impl="fused"`` routes through K3, the fused CUDA
-kernel (``ops/kernels/iid_loss.py``). The mesh's ``axis_name`` (global
-joint across devices) is not ported.
+kernel (``ops/kernels/iid_loss.py``). Under a ``mesh`` (the JAX package's
+``axis_name``) the unnormalised joint is summed over ranks before the
+symmetrise and the normalise: the global-batch joint.
 """
 
 import sys
@@ -13,16 +14,18 @@ import sys
 import torch
 
 from iic_tpu_torch.ops.kernels.iid_loss import iid_loss_fused
+from iic_tpu_torch.parallel.mesh import all_reduce_joint
 
 # Matches the reference EPS = sys.float_info.epsilon (2^-52, not FLT_EPSILON)
 EPS = sys.float_info.epsilon
 
 
-def compute_joint(x_out, x_tf_out, weights=None):
+def compute_joint(x_out, x_tf_out, weights=None, mesh=None):
     """Joint distribution P (k x k) from paired softmax outputs (..., bn, k):
     sum of outer products over the batch, symmetrised, normalised to 1.
     ``weights`` (bn,) weights each sample's outer product; all ones is
-    identical to none."""
+    identical to none (zero masks a padded row out exactly). ``mesh``: the
+    unnormalised joint is summed over its ranks first."""
     if tuple(x_tf_out.shape) != tuple(x_out.shape):
         raise ValueError(f"shapes {tuple(x_out.shape)} and "
                          f"{tuple(x_tf_out.shape)} differ")
@@ -34,6 +37,7 @@ def compute_joint(x_out, x_tf_out, weights=None):
                              f"{x_out.shape[-2]}")
         x_out = x_out * weights.to(dtype)[:, None]
     p_i_j = torch.matmul(x_out.transpose(-1, -2), x_tf_out.to(dtype))
+    p_i_j = all_reduce_joint(p_i_j, mesh)
     p_i_j = (p_i_j + p_i_j.transpose(-1, -2)) / 2.0  # symmetrise
     return p_i_j / p_i_j.sum(dim=(-2, -1), keepdim=True)  # normalise
 
@@ -56,15 +60,21 @@ def iid_loss_from_joint(p_i_j, lamb=1.0, eps=EPS):
     return loss, loss_no_lamb
 
 
-def IID_loss(x_out, x_tf_out, lamb=1.0, EPS=EPS, impl="xla", weights=None):
+def IID_loss(x_out, x_tf_out, lamb=1.0, EPS=EPS, impl="xla", weights=None,
+             mesh=None):
     """IID clustering loss (reference ``IID_loss``): ``(loss,
     loss_no_lamb)`` for softmax outputs (bn, k), or per sub-head for
     (S, bn, k).
 
     ``impl="xla"`` is the plain torch formulation (the JAX package's name
     for its default path, kept so flags carry over); ``impl="fused"`` runs
-    K3, which hard-codes machine epsilon and takes no weights."""
+    K3, which hard-codes machine epsilon and takes no weights and no mesh
+    (its joint is one rank's). ``mesh``: the global joint over its
+    ranks."""
     if impl == "fused":
+        if mesh is not None:
+            raise ValueError("the fused kernel computes one rank's joint; "
+                             "use impl='xla' with a mesh")
         if EPS != sys.float_info.epsilon:
             raise ValueError("the fused kernel hard-codes machine epsilon; "
                              "pass impl='xla' for a custom EPS")
@@ -73,7 +83,7 @@ def IID_loss(x_out, x_tf_out, lamb=1.0, EPS=EPS, impl="xla", weights=None):
         return iid_loss_fused(x_out, x_tf_out, lamb)
     if impl != "xla":
         raise ValueError(f"unknown impl {impl!r}")
-    p_i_j = compute_joint(x_out, x_tf_out, weights=weights)
+    p_i_j = compute_joint(x_out, x_tf_out, weights=weights, mesh=mesh)
     return iid_loss_from_joint(p_i_j, lamb=lamb, eps=EPS)
 
 

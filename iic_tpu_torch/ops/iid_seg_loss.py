@@ -5,7 +5,10 @@ Inputs keep the JAX layout: head maps (N, K, H, W), affines (N, 2, 3),
 relevancy masks (N, H, W). The displacement joint of the uncollapsed loss
 runs the hand-written CUDA kernels (``joint_impl="pallas"``, the JAX
 package's name for its own kernel, kept so command lines carry over) or
-the plain conv (``joint_impl="conv"``).
+the plain conv (``joint_impl="conv"``). Under a ``mesh`` (the JAX
+package's ``axis_name``) each rank's raw joint is summed over the ranks
+before any normalisation: K1 runs on the rank's shard, and K2 receives the
+same upstream gradient on every rank.
 """
 
 import sys
@@ -15,6 +18,7 @@ import torch
 from iic_tpu_torch.ops.affine import perform_affine_tf
 from iic_tpu_torch.ops.kernels.seg_joint import (
     displacement_joint_dense, displacement_joint_dense_kernel)
+from iic_tpu_torch.parallel.mesh import all_reduce_joint
 
 EPS = sys.float_info.epsilon
 
@@ -95,13 +99,16 @@ def IID_segmentation_loss(x1_outs, x2_outs, all_affine2_to_1=None,
                           all_mask_img1=None, lamb=1.0,
                           half_T_side_dense=None,
                           half_T_side_sparse_min=None,
-                          half_T_side_sparse_max=None, generator=None):
+                          half_T_side_sparse_max=None, generator=None,
+                          mesh=None):
     """Collapsed loss: normalise by a detached total, THEN symmetrise,
-    clamp joint and marginals. Returns ``(loss, loss_no_lamb)``."""
+    clamp joint and marginals. Returns ``(loss, loss_no_lamb)``. ``mesh``:
+    the raw joint is summed over its ranks first."""
     x1m, x2m = _warp_mask(x1_outs, x2_outs, all_affine2_to_1, all_mask_img1,
                           half_T_side_sparse_min, half_T_side_sparse_max,
                           generator)
     p = displacement_joint_collapsed(x1m, x2m, half_T_side_dense)
+    p = all_reduce_joint(p, mesh)
     p = p / p.sum().detach()
     p = (p + p.t()) / 2.0
     k = p.shape[0]
@@ -115,9 +122,11 @@ def IID_segmentation_loss_uncollapsed(x1_outs, x2_outs,
                                       half_T_side_dense=None,
                                       half_T_side_sparse_min=None,
                                       half_T_side_sparse_max=None,
-                                      generator=None, joint_impl="pallas"):
+                                      generator=None, joint_impl="pallas",
+                                      mesh=None):
     """Uncollapsed loss: each of the T x T displacement joints is normalised,
-    symmetrised and clamped on its own; the sum is divided by T^2.
+    symmetrised and clamped on its own; the sum is divided by T^2. ``mesh``:
+    the raw (k, k, T, T) joint is summed over its ranks first.
 
     joint_impl: "pallas" runs the hand-written CUDA kernels (the plain conv
     for CPU tensors), "conv" the plain conv; "fft" is not ported.
@@ -136,6 +145,7 @@ def IID_segmentation_loss_uncollapsed(x1_outs, x2_outs,
                           generator)
     t_side = 2 * half_T_side_dense + 1
     p = joint_fn(x1m, x2m, half_T_side_dense)      # (k, k, T, T)
+    p = all_reduce_joint(p, mesh)
     p = p.permute(2, 3, 0, 1)                      # (T, T, k, k)
     p = p / p.sum(dim=(2, 3), keepdim=True)        # per-displacement norm
     p = (p + p.transpose(2, 3)) / 2.0

@@ -46,6 +46,28 @@ def save_checkpoint(config, net, optimizer, history, name="latest",
     save_meta(config, history, last_epoch, name=name)
 
 
+def save_epoch(config, net, optimizer, history, e_i, is_best, last_saved,
+               write=True):
+    """The end of an IIC trainer's epoch ``e_i``: plots.png, latest.pytorch
+    every ``save_freq`` epochs and at the last, best.pytorch when
+    ``is_best``, config.pickle always. Returns the epoch of the weights in
+    latest.pytorch (``last_saved`` unless saved now). ``write=False`` (a
+    rank other than 0) writes nothing."""
+    if e_i % config.save_freq == 0 or e_i == config.num_epochs - 1:
+        last_saved = e_i
+    if not write:
+        return last_saved
+    save_plots(config, history)
+    if last_saved == e_i:
+        save_checkpoint(config, net, optimizer, history, "latest",
+                        last_epoch=e_i)
+    if is_best:
+        save_checkpoint(config, net, optimizer, history, "best",
+                        last_epoch=last_saved)
+    save_meta(config, history, last_saved)
+    return last_saved
+
+
 def load_checkpoint(config, net, optimizer, device, name="latest"):
     """Restore ``net`` and ``optimizer`` in place from <name>.pytorch (onto
     ``device``) and return (history, last_epoch) from config.pickle, which

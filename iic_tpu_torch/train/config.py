@@ -289,7 +289,7 @@ class SemisupConfig:
     lr_mult: float = 0.5
     test_code: bool = False
     seed: int = 0
-    n_devices: Optional[int] = None  # > 1 is refused (one GPU)
+    n_devices: Optional[int] = None  # > 1: that many ranks
 
     def finalize(self):
         return self

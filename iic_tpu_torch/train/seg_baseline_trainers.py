@@ -286,7 +286,7 @@ def train_seg_baseline(config, kind, device=None):
     defaults to cuda:0; the tests pass "cpu"."""
     if kind not in ("doersch", "isola"):
         raise ValueError(f"unknown baseline {kind!r}")
-    check_supported(config, refused=_REFUSED)
+    check_supported(config, refused=_REFUSED, one_device=True)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -2,7 +2,9 @@
 ``train_segmentation_twohead``, ``train_segmentation_single``).
 
 The epoch / head / batch loops of the reference's segmentation_twohead and
-segmentation (single-head IID+ overclustering) scripts on one GPU: head A
+segmentation (single-head IID+ overclustering) scripts, on one GPU or on
+several ranks (``--n_devices``, the JAX package's multi-host rules; see
+``train_segmentation_twohead``): head A
 first (``--head_B_first`` flips), the NaN exit, a Hungarian eval before
 training and after every epoch, latest / best checkpoints, plots.png,
 ``--restart`` / ``--restart_from_best``, and the ``--test_code`` mode of
@@ -17,6 +19,15 @@ package's HIGHEST-precision einsums.
 
 Input: each head pass's epoch runs behind the host prefetch thread
 (``--prefetch_depth``, 8) unless ``--no_host_prefetch``.
+
+Several ranks: each steps on its shard of the batch (``--joint_mode
+global``: the (k, k, T, T) or k x k joint summed over ranks, a ragged final
+batch padded with zeroed relevancy masks; ``parity``: each rank's joint,
+the ragged batch dropped), ``--bn_sync`` syncs BatchNorm's batch
+statistics, every rank evaluates the whole eval set and rank 0 alone
+writes the run's files. The helpers here (``adjust_batch_for_mesh``,
+``mesh_drop_last``, ``shard_of``, the history and ``resume``) serve the
+clustering trainer too.
 """
 
 import sys
@@ -32,7 +43,8 @@ from iic_tpu_torch.data.seg_pipeline import segmentation_create_dataloaders
 from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import EvalHistory
 from iic_tpu_torch.evals.segmentation_eval import segmentation_eval
-from iic_tpu_torch.models.layers import compute_dtype
+from iic_tpu_torch.models.layers import compute_dtype, sync_batch_norm
+from iic_tpu_torch.parallel.mesh import broadcast_state, run_data_parallel
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_optimizer, make_seg_train_step, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -41,7 +53,7 @@ from iic_tpu_torch.train.config import SegConfig, config_to_str
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored. The baselines' flags are read by
 # ``seg_baseline_trainers`` alone, as in the JAX package.
-_REFUSED = ("bn_sync", "epoch_scan", "resident_data", "fused_pair_forward",
+_REFUSED = ("epoch_scan", "resident_data", "fused_pair_forward",
             "use_orbax", "profile_dir", "select_sub_head_on_loss",
             "use_doersch_datasets", "doersch_stats", "save_multiple",
             "per_sample_patches", "max_num_kmeans_samples", "verbose",
@@ -53,23 +65,63 @@ def _log(msg):
     sys.stdout.flush()
 
 
-def check_supported(config, refused=_REFUSED):
+def check_supported(config, refused=_REFUSED, one_device=False):
     """Raise ``NotImplementedError`` naming each flag of ``refused`` that
     differs from its default (and ``ValueError`` for a ``--model_dtype``
-    other than float32 or bfloat16)."""
+    other than float32 or bfloat16, or an unknown ``--joint_mode``).
+    ``one_device`` (the baselines, whose JAX trainers read no mesh flag)
+    also refuses ``--n_devices`` above 1 and ``--joint_mode parity``."""
     compute_dtype(config.model_dtype)
     defaults = SegConfig()
     for name in refused:
         if getattr(config, name) != getattr(defaults, name):
             raise NotImplementedError(f"--{name} is not ported")
-    if config.n_devices is not None and config.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1 is not ported (one GPU)")
-    if config.joint_mode != "global":
-        raise NotImplementedError(f"--joint_mode {config.joint_mode} is not "
-                                  "ported")
+    if one_device and config.n_devices is not None and config.n_devices > 1:
+        raise NotImplementedError("--n_devices > 1: the baselines run on one "
+                                  "device")
+    if one_device and config.joint_mode != "global":
+        raise NotImplementedError(f"--joint_mode {config.joint_mode}: the "
+                                  "baselines run on one device")
+    if config.joint_mode not in ("global", "parity"):
+        raise ValueError(f"--joint_mode {config.joint_mode}: expected global "
+                         "or parity")
     if config.joint_impl not in ("pallas", "conv"):
         raise NotImplementedError(f"--joint_impl {config.joint_impl} is not "
                                   "ported")
+
+
+def adjust_batch_for_mesh(config, n_ranks=None):
+    """Round the per-step base batch (``dataloader_batch_sz``) down to a
+    multiple of ``n_ranks`` (None: ``--n_devices``), at least ``n_ranks``
+    (paper batches such as 660 and 700 do not divide 8), and ``batch_sz``
+    with it. Returns whether the run is sharded (more than one rank)."""
+    if n_ranks is None:
+        n_ranks = config.n_devices or 1
+    if n_ranks <= 1:
+        return False
+    dbs = config.batch_sz // config.num_dataloaders
+    new_dbs = max((dbs // n_ranks) * n_ranks, n_ranks)
+    if new_dbs != dbs:
+        config.batch_sz = new_dbs * config.num_dataloaders
+        config.dataloader_batch_sz = new_dbs
+        _log(f"mesh({n_ranks}): adjusted batch_sz to {config.batch_sz} "
+             f"(dataloader_batch_sz {new_dbs})")
+    return True
+
+
+def mesh_drop_last(config, sharded):
+    """Whether the pipelines drop a ragged final batch: in a sharded
+    parity run (a padded batch can leave a rank all padding, whose own
+    joint would normalise zero). Global mode pads it and weights (or masks)
+    the padding out."""
+    return sharded and config.joint_mode == "parity"
+
+
+def shard_of(mesh):
+    """A pipeline's ``process_shard`` on ``mesh``: (rank, world) when the
+    batch is sharded over more than one rank, else None."""
+    return (mesh.rank, mesh.size) if mesh is not None and mesh.size > 1 \
+        else None
 
 
 def head_order(config):
@@ -112,33 +164,44 @@ def resume(config, net, optimizer, device):
 
 def train_segmentation_twohead(config, device=None):
     """Two-head unsupervised segmentation (IIC). Returns (net, history).
-    ``device`` defaults to cuda:0; the tests pass "cpu"."""
+    ``device`` defaults to cuda:0; the tests pass "cpu". With
+    ``--n_devices N > 1`` it runs N ranks (``run_data_parallel``: spawned
+    here, or the ranks of ``torchrun`` or of a caller's process group) and
+    returns rank 0's net (on the CPU where spawned) and history."""
     if not config.twohead:
         raise ValueError("a single-head config: use "
                          "train_segmentation_single")
-    return _train(config, device)
+    return run_data_parallel(_train, config, device)
 
 
 def train_segmentation_single(config, device=None):
     """Single-head IID+ segmentation (overclustering). Returns (net,
-    history). ``device`` defaults to cuda:0; the tests pass "cpu"."""
+    history). ``device`` defaults to cuda:0; the tests pass "cpu";
+    ``--n_devices`` as ``train_segmentation_twohead``."""
     if config.twohead:
         raise ValueError("a two-head config: use train_segmentation_twohead")
-    return _train(config, device)
+    return run_data_parallel(_train, config, device)
 
 
-def _train(config, device):
+def _train(config, device, mesh):
     check_supported(config)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
+    main_rank = mesh is None or mesh.is_main
+    sharded = adjust_batch_for_mesh(config, mesh.size if mesh else 1)
     _log(config_to_str(config))
-    _log(f"device: {device}")
+    _log(f"device: {device}" + (f", rank {mesh.rank} of {mesh.size}"
+                                if mesh else ""))
 
     torch.manual_seed(config.seed)  # weight init
     pipe, map_assign, map_test = segmentation_create_dataloaders(
-        config, seed=config.seed, device=device)
+        config, seed=config.seed, device=device,
+        drop_last=mesh_drop_last(config, sharded),
+        process_shard=shard_of(mesh))
     net = models.build(config.arch, config).to(device)
+    if config.bn_sync:
+        sync_batch_norm(net, mesh)
     optimizer = make_optimizer(net, config)
 
     common = dict(
@@ -148,7 +211,8 @@ def _train(config, device):
         sobel=config.sobel, include_rgb=config.include_rgb,
         using_IR=config.using_IR,
         use_uncollapsed_loss=config.use_uncollapsed_loss,
-        augment=pipe.augment, joint_impl=config.joint_impl)
+        augment=pipe.augment, joint_impl=config.joint_impl, mesh=mesh,
+        joint_mode=config.joint_mode)
     if config.twohead:
         lambs = {"A": config.lamb_A, "B": config.lamb_B}
         head_epochs = {"A": config.head_A_epochs, "B": config.head_B_epochs}
@@ -169,10 +233,10 @@ def _train(config, device):
         return segmentation_eval(config, apply_fn, map_assign, map_test,
                                  history=history["eval"])
 
-    if config.restart:
-        history, next_epoch = resume(config, net, optimizer, device)
-    else:
-        history, next_epoch = make_history(), 1
+    history, next_epoch = (resume(config, net, optimizer, device)
+                           if config.restart else (make_history(), 1))
+    broadcast_state(net, optimizer, mesh)  # every rank from rank 0's state
+    if not config.restart:
         if not config.no_pre_eval:
             evaluate()
             _log(f"Pre: {history['eval'].epoch_stats[-1]}")
@@ -218,15 +282,8 @@ def _train(config, device):
         _log(f"Epoch {e_i}: acc {history['eval'].epoch_acc[-1]:.6f} "
              f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
 
-        ckpt.save_plots(config, history)
-        if e_i % config.save_freq == 0 or e_i == config.num_epochs - 1:
-            ckpt.save_checkpoint(config, net, optimizer, history, "latest",
-                                 last_epoch=e_i)
-            last_saved = e_i
-        if is_best:
-            ckpt.save_checkpoint(config, net, optimizer, history, "best",
-                                 last_epoch=last_saved)
-        ckpt.save_meta(config, history, last_saved)
+        last_saved = ckpt.save_epoch(config, net, optimizer, history, e_i,
+                                     is_best, last_saved, main_rank)
         if config.test_code:
             break
     return net, history

@@ -1,5 +1,9 @@
 """The semi-supervised finetune (``iic_tpu/train/semisup_trainer.py``: the
-reference's IID_semisup_STL10 script) on one GPU.
+reference's IID_semisup_STL10 script) on one GPU or on several ranks
+(``--n_devices``: each rank steps on its shard of the batch, which is
+rounded down to a multiple of the ranks; the cross-entropy is the global
+batch's mean, a ragged final batch padded with rows it ignores; every
+rank evaluates, rank 0 alone writes the run's files).
 
 Reads a pretrained IID+ overclustering run by ``--old_model_ind`` (its
 config.pickle and best.pytorch, or latest.pytorch when no epoch beat its
@@ -43,6 +47,7 @@ from iic_tpu_torch.data.transforms import (
 from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.models.semisup import SemisupNet, SupHead5Head
 from iic_tpu_torch.ops.sobel import sobel_process
+from iic_tpu_torch.parallel.mesh import broadcast_state, run_data_parallel
 from iic_tpu_torch.parallel.train_step import (
     make_semisup_optimizer, make_semisup_train_step, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -128,12 +133,14 @@ def _supervised_tf2(config, old_config):
     return make(sup)[1], grey
 
 
-def make_finetune(config, device):
+def make_finetune(config, device, mesh=None):
     """The finetune's parts on ``device``: reads the old run, builds the
     head, the ``SemisupNet`` and its optimiser, the train loader, the step
     and the 10-crop eval. Returns a namespace of them: ``model``,
     ``optimizer``, ``loader``, ``step`` (``step((images, labels),
-    generator)``) and ``evaluate()`` (the test accuracy)."""
+    generator)``) and ``evaluate()`` (the test accuracy). On a ``mesh`` of
+    several ranks the loader yields the rank's shard of a batch rounded
+    down to a multiple of the ranks."""
     old_config, net, name = load_old_run(config, device)
     _log(f"old model {config.old_model_ind}: {name}.pytorch")
     if config.new_batch_sz == -1:
@@ -151,9 +158,18 @@ def make_finetune(config, device):
         train_imgs, train_labels = train_imgs[keep], train_labels[keep]
         _log(f"train_label_pc {config.train_label_pc}: {len(train_imgs)} "
              "labelled samples")
-    loader = SemisupTrainLoader(
-        train_imgs, train_labels, min(config.new_batch_sz, len(train_imgs)),
-        seed=config.seed, device=device)
+    batch_sz = min(config.new_batch_sz, len(train_imgs))
+    shard = None
+    if mesh is not None and mesh.size > 1:
+        shard = (mesh.rank, mesh.size)
+        if batch_sz % mesh.size:
+            rounded = max((batch_sz // mesh.size) * mesh.size, mesh.size)
+            _log(f"mesh({mesh.size}): adjusted semisup batch_sz {batch_sz} "
+                 f"-> {rounded}")
+            batch_sz = rounded
+    loader = SemisupTrainLoader(train_imgs, train_labels, batch_sz,
+                                seed=config.seed, device=device,
+                                process_shard=shard)
     tencrop_fn = make_tencrop_batch_fn(old_config.input_sz,
                                        old_config.include_rgb,
                                        grey_append=not grey)
@@ -189,22 +205,28 @@ def make_finetune(config, device):
 
     return SimpleNamespace(
         model=model, optimizer=optimizer, loader=loader,
-        step=make_semisup_train_step(model, optimizer, augment),
+        step=make_semisup_train_step(model, optimizer, augment, mesh=mesh),
         evaluate=evaluate)
 
 
 def train_semisup(config, device=None):
     """Run the finetune. Returns (model, history): the ``SemisupNet`` and
     {"epoch_acc" (the pre-train eval first), "epoch_loss", "step_seconds",
-    "eval_seconds"}. ``device`` defaults to cuda:0; the tests pass "cpu"."""
-    if config.n_devices is not None and config.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1 is not ported (one GPU)")
+    "eval_seconds"}. ``device`` defaults to cuda:0; the tests pass "cpu".
+    ``--n_devices N > 1`` runs N ranks (``run_data_parallel``) and returns
+    rank 0's model (on the CPU where spawned) and history."""
+    return run_data_parallel(_train, config, device)
+
+
+def _train(config, device, mesh):
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
+    main_rank = mesh is None or mesh.is_main
     _log(config_to_str(config))
-    _log(f"device: {device}")
-    ft = make_finetune(config, device)
+    _log(f"device: {device}" + (f", rank {mesh.rank} of {mesh.size}"
+                                if mesh else ""))
+    ft = make_finetune(config, device, mesh)
     model, optimizer, loader, step = (ft.model, ft.optimizer, ft.loader,
                                       ft.step)
 
@@ -235,6 +257,7 @@ def train_semisup(config, device=None):
         _log(f"pre: model {config.model_ind} old model "
              f"{config.old_model_ind}, acc {acc:.6f} {datetime.now()}")
         history["epoch_acc"].append(acc)
+    broadcast_state(model, optimizer, mesh)  # every rank from rank 0's
 
     last_saved = start_epoch - 1  # epoch of the on-disk latest weights
     for e_i in range(start_epoch, config.num_epochs):
@@ -269,13 +292,15 @@ def train_semisup(config, device=None):
         history["epoch_loss"].append(avg_loss)
 
         if e_i % 10 == 0 or e_i == config.num_epochs - 1:
-            ckpt.save_checkpoint(config, model, optimizer, history, "latest",
-                                 last_epoch=e_i)
             last_saved = e_i
-        if is_best:
-            ckpt.save_checkpoint(config, model, optimizer, history, "best",
-                                 last_epoch=last_saved)
-        ckpt.save_meta(config, history, last_saved)
+            if main_rank:
+                ckpt.save_checkpoint(config, model, optimizer, history,
+                                     "latest", last_epoch=e_i)
+        if main_rank:
+            if is_best:
+                ckpt.save_checkpoint(config, model, optimizer, history,
+                                     "best", last_epoch=last_saved)
+            ckpt.save_meta(config, history, last_saved)
         if config.test_code:
             break
     return model, history

@@ -38,10 +38,12 @@ from iic_tpu_torch.train.cluster_trainer import _REFUSED as _CLUSTER_REFUSED
 from iic_tpu_torch.train.cluster_trainer import check_supported
 from iic_tpu_torch.train.config import config_to_str
 
-# The IIC trainer's refusals but the flag this trainer reads, and the
-# progression plots, which the JAX triplets trainer never reads
+# The IIC trainer's refusals but the flag this trainer reads, the
+# progression plots, which the JAX triplets trainer never reads, and
+# --bn_sync (one device)
 _REFUSED = tuple(f for f in _CLUSTER_REFUSED
-                 if f != "kmeans_on_features") + ("save_progression",)
+                 if f != "kmeans_on_features") + ("save_progression",
+                                                  "bn_sync")
 
 
 def _log(msg):
@@ -149,7 +151,7 @@ def make_history():
 def train_triplets(config, device=None):
     """The triplets baseline. Returns (net, history). ``device`` defaults
     to cuda:0; the tests pass "cpu"."""
-    check_supported(config, refused=_REFUSED)
+    check_supported(config, refused=_REFUSED, one_device=True)
     device = resolve_device(device)
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False

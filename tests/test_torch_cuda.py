@@ -1241,3 +1241,152 @@ def test_device_kmeans_matches_its_float64_replay(gpu, n, d, k):
     assert rep["centre_err"] <= 1e-4, rep
     blobs = torch.from_numpy(3.0 * centres[truth] + noise)
     assert kmeans_cluster_assess(blobs.to(gpu), truth, k) == 1.0
+
+
+# ------------------------------------------------------ data parallelism
+
+@pytest.mark.cuda
+def test_sync_batch_norm_on_the_card_matches_the_cpu(gpu):
+    """``SyncBatchNorm2d`` without a mesh (var = E[x^2] - E[x]^2 on the
+    rank's rows): its train-mode output, input and weight gradients and
+    running statistics on the card within rtol 1e-4 / atol 1e-5 of the CPU's,
+    in f32 and on a bf16 input."""
+    from iic_tpu_torch.models.layers import SyncBatchNorm2d
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((6, 8, 5, 7)).astype(
+        np.float32) * 2 + 1)
+    g = torch.from_numpy(rng.standard_normal(x.shape).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = {}
+        for dev in ("cpu", gpu):
+            bn = SyncBatchNorm2d(8).to(dev)
+            with torch.no_grad():
+                bn.weight.copy_(torch.linspace(0.5, 1.5, 8))
+            xi = x.to(dev, dtype).detach().requires_grad_()
+            y = bn(xi)
+            (y.float() * g.to(dev)).sum().backward()
+            out[str(dev)] = [t.detach().float().cpu() for t in (
+                y, xi.grad, bn.weight.grad, bn.running_mean,
+                bn.running_var)]
+        for a, b in zip(out["cpu"], out[str(gpu)]):
+            tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+            np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
+                                       atol=tol)
+
+
+def _world_one_rank(device):
+    """One NCCL rank: the differentiable all-reduces and a synced BN at
+    world size 1."""
+    from iic_tpu_torch.models.layers import SyncBatchNorm2d
+    from iic_tpu_torch.parallel import mesh as mesh_lib
+
+    mesh = mesh_lib.make_mesh(1, device)
+    x = torch.arange(6.0, device=device).requires_grad_()
+    out = {}
+    for name, fn in (("joint", mesh_lib.all_reduce_joint),
+                     ("stats", mesh_lib.all_reduce_stats)):
+        y = fn(x * 2, mesh)
+        (y * torch.arange(6.0, device=device)).sum().backward()
+        out[name] = (y.detach().cpu(), x.grad.detach().cpu().clone())
+        x.grad = None
+    inp = torch.randn(4, 3, 5, 5, generator=torch.Generator().manual_seed(0))
+    bns = [SyncBatchNorm2d(3, mesh=m).to(device) for m in (mesh, None)]
+    out["bn"] = [bn(inp.to(device)).detach().cpu() for bn in bns]
+    return out
+
+
+@pytest.mark.cuda
+def test_all_reduce_at_world_size_one_over_nccl(gpu):
+    """A spawned rank over NCCL at world size 1: both all-reduces return
+    their input and the gradient unchanged (the sum over one rank), and a
+    synced BN over the group equals it without a mesh."""
+    from iic_tpu_torch.parallel.mesh import spawn
+
+    out, = spawn(_world_one_rank, 1, device_type="cuda", timeout=600)
+    for name in ("joint", "stats"):
+        y, grad = out[name]
+        assert torch.equal(y, torch.arange(6.0) * 2)
+        assert torch.equal(grad, torch.arange(6.0) * 2)
+    assert torch.equal(*out["bn"])
+
+
+def _seg_step_rank(device, n_ranks, cfg, state, batch, rows_order=None):
+    """Model 555's head-A step (k 15, T=21, K1 and K2) with --bn_sync on a
+    fixed batch: this rank's shard (or, without a group, one process on the
+    whole batch in ``rows_order``); TF32 off, SGD. Returns (loss, grads)."""
+    from iic_tpu_torch import models
+    from iic_tpu_torch.models.layers import sync_batch_norm
+    from iic_tpu_torch.parallel.mesh import make_mesh
+    from iic_tpu_torch.parallel.train_step import make_seg_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(n_ranks, device) if n_ranks else None
+    net = models.build("SegmentationNet10aTwoHead", cfg).to(device)
+    net.load_state_dict(state)
+    sync_batch_norm(net, mesh)
+    step = make_seg_train_step(
+        net, torch.optim.SGD(net.parameters(), lr=0.05), lamb=1.0, head="A",
+        half_T_side_dense=10, half_T_side_sparse_min=0,
+        half_T_side_sparse_max=0, sobel=True, include_rgb=True,
+        use_uncollapsed_loss=True, mesh=mesh)
+    n = len(batch[0])
+    if mesh is not None:
+        rows = slice(mesh.rank * n // n_ranks, (mesh.rank + 1) * n // n_ranks)
+    else:
+        rows = rows_order if rows_order is not None else slice(None)
+    loss, _ = step(tuple(x[rows].to(device) for x in batch))
+    return float(loss), {k: p.grad.detach().cpu()
+                         for k, p in net.named_parameters()}
+
+
+def _seg_step_inputs():
+    """(config, state_dict, batch of 8 pairs at 64^2) made from seeds."""
+    from types import SimpleNamespace
+
+    from iic_tpu_torch import models
+
+    cfg = SimpleNamespace(in_channels=5, output_k_A=15, output_k_B=3,
+                          num_sub_heads=1, input_sz=64, batchnorm_track=True)
+    torch.manual_seed(0)
+    state = models.build("SegmentationNet10aTwoHead", cfg).state_dict()
+    g = torch.Generator().manual_seed(1)
+    img1 = torch.rand(8, 4, 64, 64, generator=g)
+    img2 = (img1 + 0.1 * torch.randn(img1.shape, generator=g)).clamp(0, 1)
+    aff = torch.eye(2, 3).expand(8, 2, 3).contiguous()
+    mask = (torch.rand(8, 64, 64, generator=g) > 0.1).float()
+    return cfg, state, (img1, img2, aff, mask)
+
+
+def _seg_step_spawned(device, n_ranks):
+    return _seg_step_rank(device, n_ranks, *_seg_step_inputs())
+
+
+@pytest.mark.cuda
+def test_two_rank_seg_step_equals_one_rank(gpu):
+    """Where two cards are visible: 2 NCCL ranks of the seg step (K1 and
+    K2 on each rank's 4 of 8 pairs at 64^2, k 15, T=21, --bn_sync, TF32
+    off) against one card on the whole batch: the loss and every gradient
+    within 4x (and 1e-4 of max at least) what one card moves by itself on
+    the batch reversed (the f32 noise of the synced BN's E[x^2] - E[x]^2
+    and of K1's split-K sums)."""
+    from iic_tpu_torch.parallel.mesh import spawn
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    two = spawn(_seg_step_spawned, 2, args=(2,), device_type="cuda",
+                timeout=600)
+    inputs = _seg_step_inputs()
+    ref = _seg_step_rank(gpu, 0, *inputs)
+    rev = _seg_step_rank(gpu, 0, *inputs, torch.arange(7, -1, -1))
+    big = max(float(v.abs().max()) for v in ref[1].values())
+
+    def err(got):
+        return (abs(got[0] - ref[0]) / abs(ref[0]),
+                max(float((got[1][k] - v).abs().max())
+                    for k, v in ref[1].items()) / big)
+
+    floor = err(rev)
+    for got in two:
+        for e, f in zip(err(got), floor):
+            assert e <= max(4 * f, 1e-4), (err(got), floor)

@@ -193,9 +193,3 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="no GPU"):
         IID_semisup_STL10.main(["--out_root", str(tmp_path)])
-
-
-def test_n_devices_above_one_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="n_devices"):
-        IID_semisup_STL10.main(["--out_root", str(tmp_path),
-                                "--n_devices", "2"], device="cpu")

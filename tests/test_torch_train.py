@@ -150,7 +150,6 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--n_devices", "2"], ["--bn_sync"], ["--joint_mode", "parity"],
     ["--epoch_scan"], ["--resident_data"], ["--fused_pair_forward"],
     ["--use_orbax"], ["--profile_dir", "p"],
     ["--joint_impl", "fft"]])
