@@ -149,6 +149,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      >= 0.25 over the pre-eval) at seed 0, then at seeds 1-4 if it misses,
      one run at least in the band; K3's launches of these runs add to the
      table's;
+ 10b'. the clustering data entry points, on the same STL10 tree: the
+     first 3 uint8 base batches of both heads of model 569's pipelines
+     under --lazy_images (memory-mapped readers, --mix_train's lazy
+     reorder) equal to the eager pipelines' on the card, bit for bit; then
+     model 569's CLI in bf16 with --mix_train --lazy_images and the same
+     eager, counts set to 0 just before each, one K3 launch a step
+     required, each with the growth of the process's host memory (VmRSS
+     and its RssAnon and RssFile parts, sampled every 20 ms) and its wall
+     a step; then one --profile_dir epoch of
+     the segmentation two-head CLI (model 555's shape) and of the
+     clustering one (model 640's), counts set to 0 just before each, each
+     trace required to exist, parse as JSON and hold a step_head_<X> span
+     a step and K1's and K2's symbols (seg) or K3's (cluster), its size in
+     MB printed; their K1, K2 and K3 launches add to the table's; the
+     phase's wall time printed;
  10c. the semisup finetune (table 3), on the same STL10 tree: model 650
      (model 653's command with k 70) through the single-head sobel CLI,
      then model 698's finetune from it through IID_semisup_STL10 (table
@@ -2410,6 +2425,194 @@ def phase_stl(root):
     return total
 
 
+# --profile_dir's traces: the step spans and the kernels' own symbols
+K1_SYMBOLS = ("joint_fwd_mma_kernel", "joint_partial_kernel")
+K2_SYMBOLS = ("dgrad_v8_kernel", "dgrad_kernel")
+K3_SYMBOLS = ("iid_loss_cluster_kernel",)
+LAZY_BATCHES = 3  # base batches of each head held lazy against eager
+
+
+RSS_KEYS = ("VmRSS", "RssAnon", "RssFile", "statm shared")
+
+
+def _rss_mb():
+    """This process's resident host memory, MB, as far as the kernel
+    reports it: VmRSS and its anonymous (RssAnon: the heap, decoded
+    arrays) and file-backed (RssFile: mapped files, the memory-mapped
+    datasets' pages among them) parts, and /proc/self/statm's shared
+    resident pages (file-backed and shared memory). A key the kernel does
+    not report is left out."""
+    out = {}
+    with open("/proc/self/status") as f:
+        for line in f:
+            key = line.split(":")[0]
+            if key in RSS_KEYS:
+                out[key] = int(line.split()[1]) / 1024.0
+    try:
+        with open("/proc/self/statm") as f:
+            shared = int(f.read().split()[2])
+        out["statm shared"] = shared * os.sysconf("SC_PAGE_SIZE") / 2**20
+    except (OSError, IndexError, ValueError):
+        pass
+    return out
+
+
+@contextmanager
+def _rss_peak(out):
+    """Sample ``_rss_mb`` every 20 ms while the block runs; ``out`` gets
+    each key's value at the start and its peak (MB)."""
+    import threading
+
+    out["start"] = _rss_mb()
+    out["peak"] = dict(out["start"])
+    stop = threading.Event()
+
+    def sample():
+        while True:
+            for k, v in _rss_mb().items():
+                out["peak"][k] = max(out["peak"].get(k, v), v)
+            if stop.wait(0.02):
+                return
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+
+
+def _lazy_batches_equal(argv):
+    """The first ``LAZY_BATCHES`` uint8 base batches of both heads'
+    pipelines under --lazy_images, on the card, equal to the eager
+    pipelines' bit for bit."""
+    import gc
+    import torch
+    from iic_tpu_torch.cli import cluster_sobel_twohead
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.data.readers import LazyBinaryArray
+
+    rss0 = _rss_mb()["VmRSS"]
+    pipes = {}
+    for tag, extra in (("lazy", ["--lazy_images"]), ("eager", [])):
+        cfg = cluster_sobel_twohead.config(argv + extra)
+        pipes[tag] = cluster_twohead_create_dataloaders(
+            cfg, seed=cfg.seed, device="cuda")[:2]
+        _log(f"data paths: {tag} pipelines built, VmRSS "
+             f"{_rss_mb()['VmRSS'] - rss0:+.1f} MB")
+    for head, lazy, eager in zip("AB", pipes["lazy"], pipes["eager"]):
+        if not isinstance(lazy.images, LazyBinaryArray):
+            raise AssertionError(f"head {head}'s lazy pipeline holds "
+                                 f"{type(lazy.images).__name__}")
+        for b_i, ((lb, _), (eb, _)) in enumerate(zip(lazy.epoch(1),
+                                                     eager.epoch(1))):
+            if b_i == LAZY_BATCHES:
+                break
+            if lb.device.type != "cuda" or not torch.equal(lb, eb):
+                raise AssertionError(f"head {head} batch {b_i}: the lazy "
+                                     "base batch differs from the eager")
+        _log(f"data paths: head {head}'s first {LAZY_BATCHES} base batches "
+             f"({tuple(lb.shape)} uint8) lazy == eager on the card")
+    del pipes, lazy, eager, lb, eb
+    gc.collect()
+    _log(f"data paths: pipelines freed, VmRSS "
+         f"{_rss_mb()['VmRSS'] - rss0:+.1f} MB")
+
+
+def _trace_check(tag, path, spans, symbols):
+    """The chrome trace at ``path`` parses as JSON and holds each host span
+    of ``spans`` ({name: count}) and, for each group of ``symbols``, a CUDA
+    kernel named by one of them. Returns its size in MB."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    # the host's spans (the card's mirror of each is "gpu_user_annotation")
+    names = [e.get("name", "") for e in events
+             if e.get("cat") == "user_annotation"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    for span, n in spans.items():
+        if names.count(span) != n:
+            raise AssertionError(f"{tag} trace: {names.count(span)} "
+                                 f"{span} spans, expected {n}")
+    for group in symbols:
+        hits = [k for k in kernels if any(s in k for s in group)]
+        if not hits:
+            raise AssertionError(f"{tag} trace: no kernel named {group}")
+        _log(f"{tag} trace: {len(hits)} events of {group}")
+    size = os.path.getsize(path) / 2**20
+    _log(f"{tag} trace: {path} parses, {len(events)} events, "
+         f"{len(kernels)} kernel events, {size:.1f} MB")
+    return size
+
+
+def phase_data_paths(root):
+    """The clustering data entry points on the card, over the STL10 tree
+    ``_write_stl10`` wrote: model 569 in bf16 with --mix_train
+    --lazy_images (the pipelines' first base batches held bit-equal to the
+    eager ones on the card before it; K3 once a step), beside the same
+    run eager, each with its growth of host VmRSS and its wall a step;
+    then one --profile_dir epoch of the segmentation two-head CLI (model
+    555's shape) and of the clustering one (model 640's), each trace
+    required to parse and to hold its step spans and the kernels' symbols
+    (K1's and K2's; K3's). Returns {kernel: launches}."""
+    import numpy as np
+    from iic_tpu_torch.cli import cluster_sobel_twohead, segmentation_twohead
+
+    t0 = time.perf_counter()
+    argv = STL569_ARGS + ["--dataset_root", root, "--model_dtype",
+                          "bfloat16"]
+    _lazy_batches_equal(argv)
+    total = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0, "iid_loss_fwd": 0}
+    with tempfile.TemporaryDirectory() as out_root:
+        for tag, extra in (("lazy", ["--lazy_images"]), ("eager", [])):
+            rss = {}
+            with _rss_peak(rss):
+                history, launches, n_steps = _cluster_cli(
+                    cluster_sobel_twohead.main,
+                    argv + extra + ["--out_root", out_root],
+                    f"model 569 bfloat16 {tag}")
+            steps = [s for h in "AB"
+                     for s in history[f"step_seconds_head_{h}"][1:]]
+            growth = ", ".join(
+                f"{k} {rss['start'][k]:.1f} -> peak {rss['peak'][k]:.1f} "
+                f"({rss['peak'][k] - rss['start'][k]:+.1f})"
+                if k in rss["start"] else f"{k} not reported"
+                for k in RSS_KEYS)
+            _log(f"data paths: model 569 bf16 {tag}: host MB {growth}; "
+                 f"{1e3 * float(np.mean(steps)):.2f} ms of wall a step "
+                 f"(mean of {len(steps)}, each head's first step left out)")
+            _k3_per_step(f"model 569 bf16 {tag}", launches, n_steps)
+            total["iid_loss_fwd"] += launches["iid_loss_fwd"]
+        traces = {}
+        for tag, main, args, symbols, spans in (
+                ("seg", segmentation_twohead.main, CLI_ARGS,
+                 (K1_SYMBOLS, K2_SYMBOLS), {"step_head_A": 2,
+                                            "step_head_B": 2}),
+                ("cluster", cluster_sobel_twohead.main, CLUSTER_CLI_ARGS,
+                 (K3_SYMBOLS,), {"step_head_A": 2, "step_head_B": 4})):
+            prof_dir = os.path.join(out_root, f"profile_{tag}")
+            run_argv = args + ["--out_root", out_root, "--model_ind", "9",
+                               "--profile_dir", prof_dir]
+            t1 = time.perf_counter()
+            if tag == "seg":
+                _, launches = _seg_cli(main, run_argv, "profiled seg")
+            else:
+                _, launches, n_steps = _cluster_cli(main, run_argv,
+                                                    "profiled cluster")
+                _k3_per_step("profiled cluster", launches, n_steps)
+            _log(f"data paths: profiled {tag} epoch run "
+                 f"{time.perf_counter() - t1:.1f} s")
+            for k in total:
+                total[k] += launches[k]
+            traces[tag] = _trace_check(
+                f"profiled {tag}", os.path.join(prof_dir,
+                                                "trace_epoch_1.json"),
+                spans, symbols)
+    _log(f"data paths: phase wall {time.perf_counter() - t0:.1f} s; trace "
+         f"sizes {', '.join(f'{k} {v:.1f} MB' for k, v in traces.items())}")
+    return total
+
+
 def phase_digits_guard():
     """tests/test_digits_regression.py's guard through the port's greyscale
     two-head CLI: its command on the Digits set, 12 epochs, f32,
@@ -3906,11 +4109,13 @@ def main(argv=None):
             for k in ("seg_joint_fwd", "seg_joint_dgrad"):
                 launches[k] += (run or {}).get(k, 0)
     # the rest of clustering's paper workloads: K3's launches of the
-    # two-head runs add to the table's
+    # two-head runs (and K1's and K2's of the profiled seg epoch) add to
+    # the table's
     with tempfile.TemporaryDirectory() as data_root:
         for tag, write, phase in (
                 ("mnist", _write_mnist, phase_mnist),
                 ("stl", _write_stl10, phase_stl),
+                ("data paths", None, phase_data_paths),
                 ("semisup", None, phase_semisup),
                 ("digits guard", None, lambda _: phase_digits_guard()),
                 ("semisup guard", None, lambda _: phase_semisup_guard()),
@@ -3924,7 +4129,8 @@ def main(argv=None):
             t1 = time.perf_counter()
             run = phase(data_root)
             _log(f"phase {tag}: {time.perf_counter() - t1:.1f} s")
-            launches["iid_loss_fwd"] += run["iid_loss_fwd"]
+            for k, v in run.items():
+                launches[k] += v
         # data parallelism: K1 and K2 launches of its seg runs (every rank)
         # add to the table's
         _clocks("phase multigpu")

@@ -10,12 +10,22 @@ batched ``augment_pair`` applies tf1 once per image and tf2
 Each batch's draws come from a ``torch.Generator`` seeded from (seed,
 epoch, batch), so a run is reproducible.
 
-Ported: the host-resident path of the two-head scripts (sobel and
-greyscale) and of the single-head IID+ scripts, over the eager readers
-(MNIST, CIFAR, STL10 with ``--mix_train``, Digits, Synthetic), and its
-sharding over ranks (``process_shard``). ImageFolder, the lazy readers and
-resident mode are not (they raise).
+Ported: the two-head scripts' pipelines (sobel and greyscale) and the
+single-head IID+ scripts', over the readers (MNIST, CIFAR, STL10 with
+``--mix_train``, Digits, DigitsNuisance, Synthetic), eager or, under
+``--lazy_images``, decoded on access; their sharding over ranks
+(``process_shard``); and ``create_basic_clustering_dataloaders``, which
+clusters a user's own image folder in a seeded shuffled order. Resident
+mode is not ported.
+
+With a lazy reader a batch's rows are read from disk (or decoded) inside
+``ClusterTrainPipeline.epoch``'s generator. The trainers run that
+generator on the host prefetch thread (``host_prefetch_iter``), so batch
+i + 1 is read while batch i trains; ``MappingLoader`` reads each eval
+batch as it yields it.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -25,6 +35,7 @@ from iic_tpu_torch.data.prefetch import DeviceUpload
 from iic_tpu_torch.data.seg_pipeline import batch_generator
 from iic_tpu_torch.data.transforms import (
     make_greyscale_pair_transforms, make_sobel_pair_transforms)
+from iic_tpu_torch.device import resolve_device
 
 
 def _is_greyscale(config):
@@ -48,10 +59,14 @@ def _load_partitions(config, partitions):
     """(images uint8 (N, H, W, C), labels int32 (N,)) over the partitions,
     concatenated in order. STL10's train+unlabeled under ``--mix_train``
     is reordered so that each labelled image is followed by its share of
-    the unlabelled ones (``readers.reorder_train_deterministic_ids``)."""
+    the unlabelled ones (``readers.reorder_train_deterministic_ids``).
+    Under ``--lazy_images`` the images stay on disk through both: the
+    reorder is a ``.select`` and lazy parts are joined by a lazy array."""
+    lazy = getattr(config, "lazy_images", False)
     parts = []
     for p in partitions:
-        d = readers.load_dataset(config.dataset, config.dataset_root, p)
+        d = readers.load_dataset(config.dataset, config.dataset_root, p,
+                                 lazy=lazy)
         imgs, labels = d["images"], d["labels"]
         if (config.dataset == "STL10" and p == "train+unlabeled"
                 and config.mix_train):
@@ -60,12 +75,18 @@ def _load_partitions(config, partitions):
             n_train = int((labels >= 0).sum())
             ids = readers.reorder_train_deterministic_ids(
                 n_train=n_train, per=(len(imgs) - n_train) // n_train)
-            imgs, labels = imgs[ids], labels[ids]
+            # fancy indexing would read the whole 105 000-image mix
+            imgs = imgs.select(ids) if hasattr(imgs, "select") else imgs[ids]
+            labels = labels[ids]
         parts.append((imgs, labels))
     if len(parts) == 1:
         return parts[0]
-    return (np.concatenate([p[0] for p in parts]),
-            np.concatenate([p[1] for p in parts]))
+    labels = np.concatenate([p[1] for p in parts])
+    if lazy and all(hasattr(p[0], "select") for p in parts):
+        # each lazy part reads its own rows; the join adds no layout
+        return readers.LazyBinaryArray(
+            [p[0] for p in parts], lambda x: x, parts[0][0].shape[1:]), labels
+    return np.concatenate([np.asarray(p[0]) for p in parts]), labels
 
 
 class ClusterTrainPipeline:
@@ -74,16 +95,23 @@ class ClusterTrainPipeline:
     (and ``augment_tf1``, its tf1 half) for the train step. The ragged last
     batch is kept, or dropped under ``drop_last``.
 
+    ``deterministic_shuffle`` visits each epoch in a seeded order instead,
+    ``np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+    .permutation(n)``, the JAX pipeline's (so restart-reproducible).
+
     ``process_shard = (rank, world)`` with world > 1 (the JAX package's
     multi-host rule): each rank yields ((its contiguous sub-block of the
     batch, the block's weights (float32)), generator), the generator its
     own. A ragged final batch is padded to the full batch with its last
-    image, weighted 0."""
+    image, weighted 0. A rank reads only its own rows, from a lazy array
+    too."""
 
     def __init__(self, config, partitions, seed=0, device="cpu",
-                 preloaded=None, drop_last=False, process_shard=None):
+                 preloaded=None, drop_last=False, process_shard=None,
+                 deterministic_shuffle=False):
         self.config = config
         self.seed = seed
+        self.deterministic_shuffle = deterministic_shuffle
         self.device = torch.device(device)
         self.process_shard = process_shard or (0, 1)
         self.num_dataloaders = config.num_dataloaders
@@ -118,10 +146,19 @@ class ClusterTrainPipeline:
         self.augment_pair = augment_pair
         self.augment_tf1 = augment_tf1
 
-    def shard_indices(self, b_i):
+    def epoch_order(self, epoch_idx):
+        """The epoch's visiting order under ``deterministic_shuffle``, else
+        None (sequential)."""
+        if not self.deterministic_shuffle:
+            return None
+        return np.random.default_rng(np.random.SeedSequence(
+            [self.seed, epoch_idx])).permutation(len(self.images))
+
+    def shard_indices(self, b_i, order=None):
         """(this rank's image indices of batch ``b_i``, their weights):
-        the batch padded to the full batch with its last index (weight 0),
-        then the rank's contiguous sub-block."""
+        the batch's indices (in ``order`` when given) padded to the full
+        batch with its last index (weight 0), then the rank's contiguous
+        sub-block."""
         bsz = self.dataloader_batch_sz
         pi, pc = self.process_shard
         if bsz % pc:
@@ -130,6 +167,8 @@ class ClusterTrainPipeline:
         lo, n = b_i * bsz, len(self.images)
         m = min(lo + bsz, n) - lo  # the valid rows
         idx = np.minimum(np.arange(lo, lo + bsz), lo + m - 1)
+        if order is not None:
+            idx = order[idx]
         weights = (np.arange(bsz) < m).astype(np.float32)
         shard = bsz // pc
         sl = slice(pi * shard, (pi + 1) * shard)
@@ -138,21 +177,24 @@ class ClusterTrainPipeline:
     def epoch(self, epoch_idx, augmented=False):
         """The epoch's batches: (base_u8, generator), or the augmented pair
         (imgs, imgs_tf) when ``augmented``; sharded: ((base_u8, weights),
-        generator)."""
+        generator). A lazy array's rows are read here, on the thread that
+        iterates the generator."""
         bsz = self.dataloader_batch_sz
         pi, pc = self.process_shard
         if pc > 1 and augmented:
             raise ValueError("a sharded pipeline yields base batches")
+        order = self.epoch_order(epoch_idx)
         for b_i in range(self.num_batches):
             if pc > 1:
-                idx, weights = self.shard_indices(b_i)
+                idx, weights = self.shard_indices(b_i, order)
                 base, w = self.upload(
                     np.ascontiguousarray(self.images[idx]), weights)
                 yield ((base, w), batch_generator(
                     self.seed, epoch_idx, b_i, self.device, pi))
                 continue
-            base, = self.upload(
-                np.ascontiguousarray(self.images[b_i * bsz:(b_i + 1) * bsz]))
+            rows = (slice(b_i * bsz, (b_i + 1) * bsz) if order is None
+                    else order[b_i * bsz:(b_i + 1) * bsz])
+            base, = self.upload(np.ascontiguousarray(self.images[rows]))
             gen = batch_generator(self.seed, epoch_idx, b_i, self.device)
             yield self.augment_pair(base, gen) if augmented else (base, gen)
 
@@ -178,7 +220,11 @@ class MappingLoader:
             n = int(len(self.images) * truncate_pc)
             idx = np.random.default_rng(truncate_seed).permutation(
                 len(self.images))[:n]
-            self.images, self.labels = self.images[idx], self.labels[idx]
+            # a lazy array stays lazy: re-indexed, not read
+            self.images = (self.images.select(idx)
+                           if hasattr(self.images, "select")
+                           else self.images[idx])
+            self.labels = self.labels[idx]
         _, _, self.tf3 = _pair_transforms(config)
 
     def __iter__(self):
@@ -211,8 +257,9 @@ def _twohead_partitions(config):
                    else ["train+unlabeled", "test"])
         both = ["train", "test"]
         return train_a, both, both, both
-    raise NotImplementedError(f"dataset {ds!r} is not ported for the "
-                              "clustering scripts")
+    raise NotImplementedError(f"dataset {ds!r} has no partition table in "
+                              "the clustering scripts (an image folder: "
+                              "create_basic_clustering_dataloaders)")
 
 
 def _shared(loaded, partitions):
@@ -255,6 +302,45 @@ def cluster_twohead_create_dataloaders(config, seed=0, device="cpu",
     return pipe_a, pipe_b, map_assign, map_test
 
 
+def create_basic_clustering_dataloaders(config, seed=0, device=None):
+    """The one-function entry point for a user's own images (the
+    reference's ``create_basic_clustering_dataloaders``): class-per-
+    subfolder images under ``config.dataset_root/train`` (``--dataset
+    ImageFolder``; ``--lazy_images`` decodes them on access), visited in a
+    seeded shuffled order (``deterministic_shuffle``), the same images and
+    order for both heads (head B shares head A's decoded arrays). The
+    labelled mapping loaders are built over ``dataset_root/none`` only
+    where that directory exists, else they are None. ``config.greyscale``
+    picks the greyscale transforms. Any other dataset name falls back to
+    ``cluster_twohead_create_dataloaders``. ``device`` defaults to cuda:0
+    (an error with no GPU).
+
+    Returns (train pipeline head A, train pipeline head B, mapping
+    assignment loader, mapping test loader)."""
+    device = resolve_device(device)
+    if config.dataset != "ImageFolder":
+        return cluster_twohead_create_dataloaders(config, seed=seed,
+                                                  device=device)
+    assert config.batchnorm_track  # as the reference recommends
+    train = ["train"]
+    config.train_partitions_head_A = train
+    config.train_partitions_head_B = train
+    pipe_a = ClusterTrainPipeline(config, train, seed=seed, device=device,
+                                  deterministic_shuffle=True)
+    pipe_b = ClusterTrainPipeline(config, train, seed=seed, device=device,
+                                  deterministic_shuffle=True,
+                                  preloaded=(pipe_a.images, pipe_a.labels))
+    map_assign = map_test = None
+    if os.path.isdir(os.path.join(config.dataset_root, "none")):
+        config.mapping_assignment_partitions = ["none"]
+        config.mapping_test_partitions = ["none"]
+        map_assign = MappingLoader(config, ["none"], device=device)
+        map_test = MappingLoader(config, ["none"], device=device,
+                                 preloaded=(map_assign.images,
+                                            map_assign.labels))
+    return pipe_a, pipe_b, map_assign, map_test
+
+
 def cluster_create_dataloaders(config, seed=0, device="cpu",
                                drop_last=False, process_shard=None):
     """The single-head IID+ scripts' (``iic_tpu/data/pipeline.py``:
@@ -272,8 +358,10 @@ def cluster_create_dataloaders(config, seed=0, device="cpu",
     elif ds == "STL10":
         train, map_a, map_t = ["train+unlabeled"], ["train"], ["test"]
     else:
-        raise NotImplementedError(f"dataset {ds!r} is not ported for the "
-                                  "clustering scripts")
+        raise NotImplementedError(f"dataset {ds!r} has no partition table "
+                                  "in the clustering scripts (an image "
+                                  "folder: create_basic_clustering_"
+                                  "dataloaders)")
     config.train_partitions = train
     config.mapping_assignment_partitions = map_a
     config.mapping_test_partitions = map_t

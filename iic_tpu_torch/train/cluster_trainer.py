@@ -22,7 +22,13 @@ cuDNN convolutions run in TF32 and matmuls (the heads, the plain loss) in
 full f32; both flags are set here.
 
 Input: each head pass's epoch runs behind the host prefetch thread
-(``--prefetch_depth``, 8) unless ``--no_host_prefetch``.
+(``--prefetch_depth``, 8) unless ``--no_host_prefetch``; under
+``--lazy_images`` that thread also reads the next batches' rows from disk.
+
+``--profile_dir``: a ``torch.profiler`` chrome trace of the first epoch the
+run trains, its eval included (``<profile_dir>/trace_epoch_<e>.json``,
+written by rank 0 alone), each step a ``step_head_<A|B>`` span (the
+single-head scripts' steps are ``step_head_B``).
 
 Several ranks (the JAX package's multi-host rules, ``parallel/mesh.py``):
 the batch is rounded down to a multiple of the ranks
@@ -40,6 +46,7 @@ from datetime import datetime
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from iic_tpu_torch import models
 from iic_tpu_torch.data.pipeline import (
@@ -56,13 +63,14 @@ from iic_tpu_torch.parallel.train_step import (
 from iic_tpu_torch.train import checkpoint as ckpt
 from iic_tpu_torch.train.config import ClusterConfig, config_to_str
 from iic_tpu_torch.train.seg_trainer import (
-    adjust_batch_for_mesh, make_history, mesh_drop_last, resume, shard_of)
+    adjust_batch_for_mesh, make_history, mesh_drop_last, resume, shard_of,
+    start_epoch_trace, stop_epoch_trace)
 from iic_tpu_torch.utils.render import save_progress
 
 # Flags outside the ported slice: each is refused when it differs from its
 # default, never ignored.
 _REFUSED = ("epoch_scan", "resident_data", "fused_pair_forward",
-            "use_orbax", "profile_dir", "lazy_images", "kmeans_on_features")
+            "use_orbax", "kmeans_on_features")
 
 
 def _log(msg):
@@ -229,6 +237,7 @@ def _train(config, device, mesh):
     last_saved = next_epoch - 1  # epoch of the on-disk latest weights
     for e_i in range(next_epoch, config.num_epochs):
         _log(f"Starting e_i: {e_i} {datetime.now()}")
+        prof = start_epoch_trace(config, e_i, next_epoch, main_rank, device)
         if e_i in set(config.lr_schedule):
             set_lr_mult(optimizer, config.lr_mult)
 
@@ -241,8 +250,9 @@ def _train(config, device, mesh):
                     if sharded and not weighted:
                         base = base[0]  # parity: the all-ones weights
                     t0 = time.perf_counter()
-                    loss, loss_nl = step(base, gen)
-                    loss, loss_nl = float(loss), float(loss_nl)  # syncs
+                    with record_function(f"step_head_{head}"):
+                        loss, loss_nl = step(base, gen)
+                        loss, loss_nl = float(loss), float(loss_nl)  # syncs
                     history[f"step_seconds_head_{head}"].append(
                         time.perf_counter() - t0)
                     if not np.isfinite(loss):
@@ -275,6 +285,7 @@ def _train(config, device, mesh):
         else:
             _log(f"Epoch {e_i}: acc {ev.epoch_acc[-1]:.6f} "
                  f"loss {history['epoch_loss_head_B'][-1]:.5f}")
+        stop_epoch_trace(config, prof, e_i)
 
         last_saved = ckpt.save_epoch(config, net, optimizer, history, e_i,
                                      is_best, last_saved, main_rank)

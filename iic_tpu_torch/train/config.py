@@ -83,13 +83,13 @@ class ClusterConfig:
     bn_sync: bool = False
     seed: int = 0
     eval_batch_sz: Optional[int] = None
-    profile_dir: str = ""
+    profile_dir: str = ""  # a torch.profiler trace of one epoch here
     no_compile_cache: bool = False  # no compile cache in the port
     use_orbax: bool = False
     fused_loss: bool = False  # K3, the fused IID-loss CUDA kernel
     fused_pair_forward: bool = False
     resident_data: bool = False
-    lazy_images: bool = False
+    lazy_images: bool = False  # MNIST, STL10, ImageFolder: read per batch
     epoch_scan: bool = False
     no_host_prefetch: bool = False
     prefetch_depth: int = 8
@@ -220,7 +220,7 @@ class SegConfig:
     # (the hand-written CUDA kernels; the JAX package's name for its own
     # kernel), "conv" (the plain conv) or "fft" (not ported)
     joint_impl: str = "pallas"
-    profile_dir: str = ""  # not ported: refused
+    profile_dir: str = ""  # a torch.profiler trace of one epoch here
     no_compile_cache: bool = False  # no compile cache in the port
     use_orbax: bool = False  # not ported: refused
     fused_pair_forward: bool = False  # one 2B forward (BN stats over union)

@@ -25,17 +25,25 @@ global``: the (k, k, T, T) or k x k joint summed over ranks, a ragged final
 batch padded with zeroed relevancy masks; ``parity``: each rank's joint,
 the ragged batch dropped), ``--bn_sync`` syncs BatchNorm's batch
 statistics, every rank evaluates the whole eval set and rank 0 alone
-writes the run's files. The helpers here (``adjust_batch_for_mesh``,
-``mesh_drop_last``, ``shard_of``, the history and ``resume``) serve the
+writes the run's files.
+
+``--profile_dir``: a ``torch.profiler`` chrome trace of the first epoch the
+run trains, its eval included (``<profile_dir>/trace_epoch_<e>.json``,
+written by rank 0 alone), each step a ``step_head_<A|B>`` span.
+
+The helpers here (``adjust_batch_for_mesh``, ``mesh_drop_last``,
+``shard_of``, the history, ``resume`` and the epoch trace) serve the
 clustering trainer too.
 """
 
+import os
 import sys
 import time
 from datetime import datetime
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from iic_tpu_torch import models
 from iic_tpu_torch.data.prefetch import host_prefetch_iter
@@ -54,7 +62,7 @@ from iic_tpu_torch.train.config import SegConfig, config_to_str
 # default, never ignored. The baselines' flags are read by
 # ``seg_baseline_trainers`` alone, as in the JAX package.
 _REFUSED = ("epoch_scan", "resident_data", "fused_pair_forward",
-            "use_orbax", "profile_dir", "select_sub_head_on_loss",
+            "use_orbax", "select_sub_head_on_loss",
             "use_doersch_datasets", "doersch_stats", "save_multiple",
             "per_sample_patches", "max_num_kmeans_samples", "verbose",
             "doersch_patch_side", "isola_patch_side")
@@ -162,6 +170,36 @@ def resume(config, net, optimizer, device):
     return history, next_epoch
 
 
+def start_epoch_trace(config, e_i, next_epoch, main_rank, device):
+    """``--profile_dir``: start a ``torch.profiler`` trace of epoch ``e_i``
+    if it is the first the run trains (``next_epoch``) and this process
+    writes the run's files (``main_rank``): CPU activity and, on a CUDA
+    device, CUDA's. Returns the running profiler, or None."""
+    if not config.profile_dir or e_i != next_epoch or not main_rank:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def stop_epoch_trace(config, prof, e_i):
+    """Stop ``prof`` (None: nothing to do) and write its chrome trace to
+    ``<profile_dir>/trace_epoch_<e_i>.json``. Returns the path, or None."""
+    if prof is None:
+        return None
+    prof.stop()
+    os.makedirs(config.profile_dir, exist_ok=True)
+    path = os.path.join(config.profile_dir, f"trace_epoch_{e_i}.json")
+    prof.export_chrome_trace(path)
+    _log(f"profile: epoch {e_i}'s trace written to {path}")
+    return path
+
+
 def train_segmentation_twohead(config, device=None):
     """Two-head unsupervised segmentation (IIC). Returns (net, history).
     ``device`` defaults to cuda:0; the tests pass "cpu". With
@@ -248,6 +286,7 @@ def _train(config, device, mesh):
     last_saved = next_epoch - 1  # epoch of the on-disk latest weights
     for e_i in range(next_epoch, config.num_epochs):
         _log(f"Starting e_i: {e_i} {datetime.now()}")
+        prof = start_epoch_trace(config, e_i, next_epoch, main_rank, device)
         if e_i in set(config.lr_schedule):
             set_lr_mult(optimizer, config.lr_mult)
 
@@ -258,8 +297,9 @@ def _train(config, device, mesh):
                 it = host_prefetch_iter(pipe.epoch(e_i), config)
                 for b_i, (imgs, masks, gen) in enumerate(it):
                     t0 = time.perf_counter()
-                    loss, loss_nl = step((imgs, masks), gen)
-                    loss, loss_nl = float(loss), float(loss_nl)  # syncs
+                    with record_function(f"step_head_{head}"):
+                        loss, loss_nl = step((imgs, masks), gen)
+                        loss, loss_nl = float(loss), float(loss_nl)  # syncs
                     history[f"step_seconds_head_{head}"].append(
                         time.perf_counter() - t0)
                     if not np.isfinite(loss):
@@ -281,6 +321,7 @@ def _train(config, device, mesh):
         is_best = evaluate()
         _log(f"Epoch {e_i}: acc {history['eval'].epoch_acc[-1]:.6f} "
              f"loss B {history['epoch_loss_head_B'][-1]:.5f}")
+        stop_epoch_trace(config, prof, e_i)
 
         last_saved = ckpt.save_epoch(config, net, optimizer, history, e_i,
                                      is_best, last_saved, main_rank)

@@ -39,11 +39,11 @@ from iic_tpu_torch.train.cluster_trainer import check_supported
 from iic_tpu_torch.train.config import config_to_str
 
 # The IIC trainer's refusals but the flag this trainer reads, the
-# progression plots, which the JAX triplets trainer never reads, and
-# --bn_sync (one device)
+# progression plots and the epoch trace, which the JAX triplets trainer
+# never reads, and --bn_sync (one device)
 _REFUSED = tuple(f for f in _CLUSTER_REFUSED
                  if f != "kmeans_on_features") + ("save_progression",
-                                                  "bn_sync")
+                                                  "profile_dir", "bn_sync")
 
 
 def _log(msg):

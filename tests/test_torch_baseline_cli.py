@@ -6,6 +6,7 @@ name; the IIC trainers still refusing the baselines' flags; and cuda:0 as
 the default device."""
 
 import pickle
+import shutil
 
 import numpy as np
 import pytest
@@ -103,19 +104,22 @@ def test_doersch_restart_and_save_multiple(tmp_path):
     assert not (tmp_path / "0" / "e_2.pytorch").exists()
     with open(tmp_path / "0" / "config.pickle", "rb") as f:
         assert pickle.load(f)["last_epoch"] == 3
+    shutil.rmtree(tmp_path / "0")  # four checkpoints: about 1 GB
 
 
 @pytest.mark.parametrize("cli,base,flag", [
     (triplets_sobel, TRIPLETS_CLI, ["--resident_data"]),
     (triplets_sobel, TRIPLETS_CLI, ["--epoch_scan"]),
-    (triplets_sobel, TRIPLETS_CLI, ["--lazy_images"]),
+    (triplets_sobel, TRIPLETS_CLI, ["--profile_dir", "p"]),
     (triplets_sobel, TRIPLETS_CLI, ["--save_progression"]),
     (triplets_sobel, TRIPLETS_CLI, ["--n_devices", "2"]),
     (triplets_greyscale, GREY_CLI, ["--bn_sync"]),
     (doersch, SEG_CLI, ["--resident_data"]),
     (doersch, SEG_CLI, ["--fused_pair_forward"]),
     (isola, SEG_CLI, ["--use_orbax"]),
-    (isola, SEG_CLI, ["--n_devices", "2"])])
+    (isola, SEG_CLI, ["--n_devices", "2"]),
+    (doersch, SEG_CLI, ["--profile_dir", "p"]),
+    (isola, SEG_CLI, ["--profile_dir", "p"])])
 def test_flags_the_port_lacks_are_refused(tmp_path, cli, base, flag):
     with pytest.raises(NotImplementedError, match=flag[0][2:]):
         cli.main(base + flag + ["--out_root", str(tmp_path)], device="cpu")

@@ -590,10 +590,13 @@ def test_digits_copy_equals_scikit_learn():
         assert np.array_equal(z["target"], d.target)
 
 
-@pytest.mark.parametrize("name", ["DigitsNuisance", "ImageFolder"])
-def test_unported_readers_raise_naming_themselves(name):
+@pytest.mark.parametrize("name", ["ImageFolder"])
+def test_unported_readers_raise_naming_themselves(name, tmp_path):
+    """The two-head scripts' partition table takes no image folder (that
+    is ``create_basic_clustering_dataloaders``'), as in the JAX package."""
+    tcfg, _ = _cfgs(dataset=name, dataset_root=str(tmp_path))
     with pytest.raises(NotImplementedError, match=name):
-        treaders.load_dataset(name, "", True)
+        tpipe._twohead_partitions(tcfg)
 
 
 # ---------------------------------------- partitions, --mix_train, pipelines
@@ -812,12 +815,11 @@ def test_greyscale_twohead_cli_needs_a_gpu_without_a_device(tmp_path):
 
 
 @pytest.mark.parametrize("flag,dataset", [
-    (["--lazy_images"], None), (["--kmeans_on_features"], None),
-    (["--mix_train", "--lazy_images"], "STL10")])
+    (["--kmeans_on_features"], None)])
 def test_greyscale_cli_refusals(tmp_path, flag, dataset):
-    """What stays refused: the lazy readers and the triplets baseline's
-    flag on the greyscale CLI, and --mix_train over the lazy STL10 reader
-    (``--save_progression`` runs: tests/test_torch_analysis.py)."""
+    """What stays refused: the triplets baseline's flag on the greyscale
+    CLI (``--save_progression`` runs: tests/test_torch_analysis.py;
+    ``--lazy_images``: tests/test_torch_data_paths.py)."""
     argv = list(GREY_CLI)
     if dataset:
         argv[argv.index("Synthetic10x28x1x48")] = dataset

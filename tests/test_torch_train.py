@@ -151,8 +151,7 @@ def test_cli_needs_a_gpu_without_a_device(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--epoch_scan"], ["--resident_data"], ["--fused_pair_forward"],
-    ["--use_orbax"], ["--profile_dir", "p"],
-    ["--joint_impl", "fft"]])
+    ["--use_orbax"], ["--joint_impl", "fft"]])
 def test_flags_outside_the_slice_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0][2:]):
         segmentation_twohead.main(CLI + ["--out_root", str(tmp_path)] + flag,
