@@ -2977,6 +2977,123 @@ def phase_kmeans():
                                  f"clusters at acc {acc}")
 
 
+# the k-means + SIFT baseline's archetype: model 555's shape, one batch of
+# 120 images at 128^2 (the CLI has no --max_num_train default)
+KMEANS_SIFT_DATASET = "SyntheticSeg3x146x120"
+KMEANS_SIFT_MAX_TRAIN = 1_000_000
+
+
+def phase_kmeans_sift():
+    """The k-means + SIFT baseline's CLI (``cli/kmeans_and_sift.py``) in
+    colour mode on cuda:0, without --test_code: an IID archetype at model
+    555's shape (``KMEANS_SIFT_DATASET``, gt_k 3, colour) written by
+    ``save_meta``, every masked pixel of its train batch sampled on the
+    card, ``KMEANS_SIFT_MAX_TRAIN`` of them fitted, every mapping pixel
+    predicted. The samples and the centroids must lie on the card; the fit
+    is held to ``replay_float64`` as ``phase_kmeans`` holds its fits, and
+    the mapping loader's uint8 round trip (raw colour / 255, times 255,
+    truncated) to all 256 levels on the card. Prints the sample counts, the
+    seconds of sampling, fitting and prediction, the peak device memory and
+    the accuracy (which means nothing on synthetic data). --do_sift is not
+    run: SIFT needs OpenCV, which this machine lacks."""
+    import numpy as np
+    import torch
+    from iic_tpu_torch.cli import kmeans_and_sift as ks
+    from iic_tpu_torch.cli._args import parse_seg_args
+    from iic_tpu_torch.data.seg_pipeline import SegMappingLoader
+    from iic_tpu_torch.evals import kmeans_eval
+    from iic_tpu_torch.evals.kmeans_eval import replay_float64
+    from iic_tpu_torch.train import checkpoint as ckpt
+
+    real_kmeans = kmeans_eval.KMeans
+    real_sample = ks.get_vectorised_colour_samples
+    fits, seconds, counts = [], {}, []
+
+    class Timed(real_kmeans):
+        def fit(self, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super().fit(x)
+            torch.cuda.synchronize()
+            seconds["fit"] = time.perf_counter() - t0
+            fits.append((x, self))
+            return self
+
+        def predict(self, x):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().predict(x)
+            torch.cuda.synchronize()
+            seconds["predict"] = time.perf_counter() - t0
+            return out
+
+    def timed_sample(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_sample(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.setdefault("sampling", []).append(time.perf_counter() - t0)
+        counts.append(len(out[0] if isinstance(out, tuple) else out))
+        return out
+
+    argv = [a for a in CLI_ARGS if a != "--test_code"]
+    argv[argv.index("--dataset") + 1] = KMEANS_SIFT_DATASET
+    with tempfile.TemporaryDirectory() as out_root:
+        cfg = parse_seg_args(argv + ["--model_ind", "555", "--out_root",
+                                     out_root]).finalize(twohead=True)
+        os.makedirs(os.path.join(out_root, "555"))
+        ckpt.save_meta(cfg, {}, 0)
+        kmeans_eval.KMeans, ks.get_vectorised_colour_samples = \
+            Timed, timed_sample
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            acc = ks.main(["--model_ind", "900", "--IID_model_ind", "555",
+                           "--max_num_train", str(KMEANS_SIFT_MAX_TRAIN),
+                           "--out_root", out_root], device="cuda:0")
+            wall = time.perf_counter() - t0
+        finally:
+            kmeans_eval.KMeans, ks.get_vectorised_colour_samples = \
+                real_kmeans, real_sample
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    (x, km), = fits
+    if x.device.type != "cuda" or km.cluster_centers_.device.type != "cuda":
+        raise AssertionError(f"k-means + SIFT: samples on {x.device}, "
+                             f"centroids on {km.cluster_centers_.device}")
+    t0 = time.perf_counter()
+    rep = replay_float64(x, km, tie_rel=KMEANS_TIE_REL)
+    replay_s = time.perf_counter() - t0
+    levels = torch.arange(256, dtype=torch.uint8).reshape(16, 16)
+    imgs = torch.stack([levels, levels.T, levels.flip(0)], -1)[None].cuda()
+    loader = SegMappingLoader(ks.raw_colour_config(cfg), ["train"],
+                              device="cuda:0")
+    (back, _, _), = ks._iter_mapping([(
+        loader.transform(imgs), np.zeros((1, 16, 16), np.int32),
+        np.ones((1, 16, 16), bool))])
+    levels_back = int(torch.unique(back).numel())
+    _log(f"k-means + SIFT (colour, {KMEANS_SIFT_DATASET} at 128^2, "
+         f"--max_num_train {KMEANS_SIFT_MAX_TRAIN}): {counts[0]} train "
+         f"samples, {x.shape[0]} fitted ({x.dtype} on {x.device}), "
+         f"{counts[1]} mapping samples predicted; sampling "
+         f"{seconds['sampling'][0]:.3f} s train / "
+         f"{seconds['sampling'][1]:.3f} s mapping, fit {seconds['fit']:.3f} "
+         f"s (n_init 10, best run {km.n_iter_} iterations, inertia "
+         f"{km.inertia_:.6g}), predict {seconds['predict']:.3f} s, CLI "
+         f"{wall:.2f} s; peak device memory {peak:.1f} MiB; accuracy "
+         f"{acc:.6f} (synthetic data); float64 replay {replay_s:.3f} s: "
+         f"{rep['mismatches']} labels off outside ties ({rep['ties']} "
+         f"within {KMEANS_TIE_REL:g} of one), centroids "
+         f"{rep['centre_err']:.3e} of max off; uint8 round trip "
+         f"{levels_back} of 256 levels")
+    if rep["mismatches"] or rep["centre_err"] > KMEANS_CENTRE_REL:
+        raise AssertionError(f"k-means + SIFT fit off its float64 replay: "
+                             f"{rep['mismatches']} labels, centroids "
+                             f"{rep['centre_err']:.3e}")
+    if not torch.equal(back, imgs):
+        raise AssertionError(f"k-means + SIFT: the uint8 round trip gave "
+                             f"{levels_back} of 256 levels back")
+
+
 def phase_baselines(root):
     """The paper's trainable baselines through the port's CLIs, each run with
     counts set to 0 just before and required to launch no kernel (their
@@ -2988,8 +3105,9 @@ def phase_baselines(root):
     Isola at model 555's data shape, patch side 11, f32, each also with
     --per_sample_patches, and Doersch's --restart without --test_code for
     epochs 2 and 3 under --save_multiple (it must leave e_3.pytorch); then
-    a profile of steady steps of each (triplets in f32 and bf16), and the
-    device k-means (``phase_kmeans``). Returns {kernel: launches} (none)."""
+    a profile of steady steps of each (triplets in f32 and bf16), the
+    device k-means (``phase_kmeans``) and the k-means + SIFT baseline's CLI
+    (``phase_kmeans_sift``). Returns {kernel: launches} (none)."""
     import os
     from iic_tpu_torch.cli import (
         doersch, isola, triplets_greyscale, triplets_sobel)
@@ -3045,6 +3163,9 @@ def phase_baselines(root):
     t0 = time.perf_counter()
     phase_kmeans()
     phases["k-means"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_kmeans_sift()
+    phases["k-means + SIFT"] = time.perf_counter() - t0
     _log("baseline phase seconds: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phases.items()))
     return {"iid_loss_fwd": 0}
@@ -3804,6 +3925,11 @@ MULTIGPU_MAX = 4  # ranks: the cards the machine shows, at most 4
 MULTIGPU_PARITY_MULT = 4.0
 MULTIGPU_PARITY_FLOOR = 1e-4
 MULTIGPU_PROFILE_STEPS = 3
+# the sharded eval's gathered output against one rank's, as probabilities:
+# within MULTIGPU_EVAL_MULT times the one rank's own difference when its
+# batch is reversed, and never beyond MULTIGPU_EVAL_FLOOR below that
+MULTIGPU_EVAL_MULT = 4.0
+MULTIGPU_EVAL_FLOOR = 1e-4
 MULTIGPU_TIMEOUT_S = 600  # a rank stuck in a collective fails the phase
 
 
@@ -3940,16 +4066,216 @@ def _multigpu_profile(mesh, device):
              for e in top])
 
 
-def _multigpu_rank(device, root, out_root, n_ranks):
-    """One rank of ``phase_multigpu``: the CLIs with --n_devices in the
-    group the spawn made (counts set to 0 just before each run), the
-    parity check, one finetune step, the profile. Returns its readings."""
+def _multigpu_eval(mesh, device):
+    """The sharded eval (``make_sharded_eval``) of model 555 (eval-mode BN
+    on running statistics) and of model 640 (the same, and its double
+    eval's train-mode BN, whose batch statistics are taken over the ranks)
+    over their CLIs' mapping-assignment sets, on a net built from seed 0
+    (the same on every rank), TF32 off: on this rank each batch sharded,
+    then unsharded (one rank on the batch padded as the sharded eval pads
+    it), each timed (synchronised; both run once untimed on the first
+    batch before), the rows of the sharded forwards
+    counted by a forward hook (ceil(b / R) for each batch of b), and the
+    largest difference of the gathered output from the unsharded one beside
+    that rank's own noise (the unsharded eval of the batch in reversed row
+    order). Returns {tag: (the rows of its forwards, whether each batch's
+    were ceil(b / R), sharded s, unsharded s, difference, noise,
+    batches)}."""
+    import torch
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_cluster_args, parse_seg_args
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.data.seg_pipeline import (
+        segmentation_create_dataloaders)
+    from iic_tpu_torch.parallel.mesh import make_sharded_eval
+    from iic_tpu_torch.parallel.train_step import make_apply_fn
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seg = parse_seg_args(CLI_ARGS).finalize(twohead=True)
+    cluster = parse_cluster_args(CLUSTER_CLI_ARGS).finalize(twohead=True,
+                                                            sobel=True)
+    seg_loader = segmentation_create_dataloaders(seg, device=device)[1]
+    cluster_loader = cluster_twohead_create_dataloaders(
+        cluster, device=device)[2]
+    out = {}
+    try:
+        for tag, cfg, train_mode, loader in (
+                ("model 555 eval", seg, False, seg_loader),
+                ("model 640 eval", cluster, False, cluster_loader),
+                ("model 640 double eval", cluster, True, cluster_loader)):
+            torch.manual_seed(0)
+            net = models.build(cfg.arch, cfg).to(device)
+            apply = make_apply_fn(net, head="B", sobel=cfg.sobel,
+                                  include_rgb=cfg.include_rgb,
+                                  using_IR=getattr(cfg, "using_IR", False),
+                                  train_mode=train_mode)
+            sharded = make_sharded_eval(apply, net, mesh)
+            rows, secs, err, noise, n = [], [0.0, 0.0], 0.0, 0.0, 0
+            rows_ok = True
+            for batch in loader:
+                imgs = batch[0]
+                b = len(imgs)
+                seen = len(rows)
+                pad = (-b) % mesh.size
+                padded = torch.cat([imgs, imgs[-1:].expand(
+                    pad, *imgs.shape[1:])]) if pad else imgs
+                if n == 0:  # warm-up: cuDNN picks its algorithms
+                    sharded(imgs)
+                    apply(padded)
+                hook = net.register_forward_pre_hook(
+                    lambda m, a: rows.append(int(a[0].shape[0])))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = sharded(imgs)
+                torch.cuda.synchronize()
+                secs[0] += time.perf_counter() - t0
+                hook.remove()
+                rows_ok &= rows[seen:] == [-(-b // mesh.size)]
+                t0 = time.perf_counter()
+                want = apply(padded)[:, :b]
+                torch.cuda.synchronize()
+                secs[1] += time.perf_counter() - t0
+                rev = apply(padded.flip(0)).flip(1)[:, :b]
+                err = max(err, float((got - want).abs().max()))
+                noise = max(noise, float((rev - want).abs().max()))
+                n += 1
+            out[tag] = (sorted(set(rows)), rows_ok, secs[0], secs[1], err,
+                        noise, n)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = tf32
+    return out
+
+
+class _FixedPairs:
+    """Head B's pipeline for the sub-head pick, on fixed pairs: unsharded,
+    ``epoch(0, augmented=True)`` yields each whole pair; sharded, each
+    batch is a base (its index) with all-ones weights and
+    ``augment_pair`` gives this rank's contiguous rows of the pair."""
+
+    def __init__(self, pairs, mesh=None):
+        self.pairs = pairs
+        self.mesh = mesh
+
+    def _rows(self, n):
+        shard = n // self.mesh.size
+        return slice(self.mesh.rank * shard, (self.mesh.rank + 1) * shard)
+
+    def epoch(self, epoch_idx, augmented=False):
+        import torch
+        for i, pair in enumerate(self.pairs):
+            if augmented:
+                yield pair
+            else:
+                rows = self._rows(len(pair[0]))
+                yield (torch.tensor([i]), torch.ones(
+                    rows.stop - rows.start, device=pair[0].device)), None
+
+    def augment_pair(self, base, generator):
+        imgs, imgs_tf = self.pairs[int(base[0])]
+        rows = self._rows(len(imgs))
+        return imgs[rows], imgs_tf[rows]
+
+
+MULTIGPU_PICK_BATCHES = 2
+# the sub-heads' summed losses, R ranks against 1, relative to the largest:
+# within MULTIGPU_PICK_MULT times one rank's own difference when the pairs'
+# rows are reversed, and never beyond MULTIGPU_PICK_REL below that (at 4
+# gloo ranks on a cut-down model 640 on the CPU: 2.4e-5)
+MULTIGPU_PICK_MULT = 4.0
+MULTIGPU_PICK_REL = 1e-4
+# head B's init (N(0, 0.01)) scaled up: at init its outputs are so near
+# uniform that every sub-head's loss is ~1e-6, at the f32 noise
+MULTIGPU_PICK_HEAD_SCALE = 100.0
+
+
+def _multigpu_pick(mesh, device):
+    """The clustering trainer's sub-head pick by loss
+    (``_select_sub_head_on_loss``) at model 640's shape with
+    ``--batchnorm_track`` off (eval-mode BN on batch statistics), TF32 off,
+    head B's weights scaled by MULTIGPU_PICK_HEAD_SCALE, on fixed pairs: head B's first MULTIGPU_PICK_BATCHES augmented batches
+    of its unsharded pipeline (the same on every rank), then on this rank
+    the pick sharded over the mesh (the rank's rows, BN statistics over the
+    ranks), the pick of one rank on the whole pairs and one rank's on the
+    pairs' rows reversed (its f32 noise), each sub-head's summed loss
+    recorded. Returns (sharded pick, one-rank pick, the largest loss
+    difference relative to the largest loss, the same for the reversed
+    rows, the losses)."""
     import numpy as np
     import torch
-    from iic_tpu_torch.cli import (IID_semisup_STL10, cluster_sobel_twohead,
-                                   segmentation_twohead)
+    from iic_tpu_torch import models
+    from iic_tpu_torch.cli._args import parse_cluster_args
+    from iic_tpu_torch.data.pipeline import cluster_twohead_create_dataloaders
+    from iic_tpu_torch.evals import cluster_eval
+    from iic_tpu_torch.train import cluster_trainer
+
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = parse_cluster_args([a for a in CLUSTER_CLI_ARGS
+                              if a != "--batchnorm_track"]).finalize(
+        twohead=True, sobel=True)
+    pipe_b = cluster_twohead_create_dataloaders(cfg, device=device)[1]
+    pairs = [pair for _, pair in zip(range(MULTIGPU_PICK_BATCHES),
+                                     pipe_b.epoch(0, augmented=True))]
+    torch.manual_seed(0)
+    net = models.build(cfg.arch, cfg).to(device)
+    with torch.no_grad():  # confident sub-heads: losses well off zero
+        for p in net.head_B.parameters():
+            p.mul_(MULTIGPU_PICK_HEAD_SCALE)
+    # each pick's per-sub-head losses, from whichever loss it calls (the
+    # sharded pick IID_loss, one rank's iid_loss_multihead)
+    losses = {"sharded": [], "one": [], "reversed": []}
+    current = []
+    real = (cluster_trainer.IID_loss, cluster_eval.iid_loss_multihead)
+
+    def recorded(fn, pick):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            losses[current[-1]].append(
+                out[pick].detach().double().cpu().numpy())
+            return out
+        return call
+
+    reversed_pairs = [(a.flip(0), b.flip(0)) for a, b in pairs]
+    cluster_trainer.IID_loss = recorded(real[0], 0)
+    cluster_eval.iid_loss_multihead = recorded(real[1], 2)
+    try:
+        current.append("sharded")
+        sharded = cluster_trainer._select_sub_head_on_loss(
+            cfg, net, _FixedPairs(pairs, mesh), mesh)
+        current.append("one")
+        one = cluster_trainer._select_sub_head_on_loss(
+            cfg, net, _FixedPairs(pairs), None)
+        current.append("reversed")
+        cluster_trainer._select_sub_head_on_loss(
+            cfg, net, _FixedPairs(reversed_pairs), None)
+    finally:
+        cluster_trainer.IID_loss, cluster_eval.iid_loss_multihead = real
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.\
+            allow_tf32 = tf32
+    want = np.sum(losses["one"], axis=0)
+    got = np.sum(losses["sharded"], axis=0)
+    scale = np.abs(want).max()
+    rel = float(np.abs(got - want).max() / scale)
+    noise = float(np.abs(np.sum(losses["reversed"], axis=0)
+                         - want).max() / scale)
+    return sharded, one, rel, noise, got.tolist()
+
+
+def _multigpu_sharded_rank(device, out_root, n_ranks):
+    """The sharded part of one rank of ``phase_multigpu``: the CLIs with
+    --n_devices in the group the spawn made (counts set to 0 just before
+    each run; their evals sharded), the sharded eval against one rank
+    (``_multigpu_eval``) and the sub-head pick (``_multigpu_pick``).
+    Returns its readings."""
+    import numpy as np
+    from iic_tpu_torch.cli import cluster_sobel_twohead, segmentation_twohead
     from iic_tpu_torch.parallel.mesh import make_mesh
-    from iic_tpu_torch.train.semisup_trainer import make_finetune
 
     mesh = make_mesh(n_ranks, device)
     ranks = ["--n_devices", str(n_ranks)]
@@ -3959,7 +4285,10 @@ def _multigpu_rank(device, root, out_root, n_ranks):
             ("model 555 bfloat16", segmentation_twohead.main,
              CLI_ARGS + ["--model_dtype", "bfloat16"]),
             ("model 640 float32", cluster_sobel_twohead.main,
-             CLUSTER_CLI_ARGS)):
+             CLUSTER_CLI_ARGS),
+            ("model 640 float32 --select_sub_head_on_loss",
+             cluster_sobel_twohead.main,
+             CLUSTER_CLI_ARGS + ["--select_sub_head_on_loss"])):
         _reset_counts()
         t0 = time.perf_counter()
         _, history = main(argv + ranks + ["--out_root", out_root],
@@ -3973,9 +4302,26 @@ def _multigpu_rank(device, root, out_root, n_ranks):
         out["runs"][tag] = dict(launches=_read_counts(), losses=losses,
                                 steps=steps, seconds=seconds,
                                 acc=history["eval"].epoch_acc)
+    out["eval"] = _multigpu_eval(mesh, device)
+    out["pick"] = _multigpu_pick(mesh, device)
+    return out
+
+
+def _multigpu_rank(device, root, out_root, n_ranks):
+    """One rank of ``phase_multigpu``: its sharded part
+    (``_multigpu_sharded_rank``), the parity check, one finetune step, the
+    profile. Returns its readings."""
+    import numpy as np
+    from iic_tpu_torch.cli import IID_semisup_STL10
+    from iic_tpu_torch.parallel.mesh import make_mesh
+    from iic_tpu_torch.train.semisup_trainer import make_finetune
+
+    out = _multigpu_sharded_rank(device, out_root, n_ranks)
+    mesh = make_mesh(n_ranks, device)
     out["parity"] = _multigpu_parity(mesh, device)
-    cfg = IID_semisup_STL10.config(SEMISUP698_ARGS + ranks + [
-        "--out_root", os.path.join(root, "multigpu_old_runs")])
+    cfg = IID_semisup_STL10.config(SEMISUP698_ARGS + [
+        "--n_devices", str(n_ranks), "--out_root",
+        os.path.join(root, "multigpu_old_runs")])
     _reset_counts()
     ft = make_finetune(cfg, device, mesh)
     imgs, labels, gen = next(ft.loader.epoch(0))
@@ -3986,6 +4332,61 @@ def _multigpu_rank(device, root, out_root, n_ranks):
         raise AssertionError(f"rank {mesh.rank} model 698 step: {loss}")
     out["profile"] = _multigpu_profile(mesh, device)
     return out
+
+
+def _report_sharded(results, n_ranks, smi):
+    """Log and check the ranks' readings of ``_multigpu_sharded_rank``: each
+    CLI run's K1 / K2 launches (K3 none under a mesh), the sharded eval's
+    rows, seconds and difference from one rank within its bound, the pick
+    equal to one rank's on every rank. Returns {kernel: launches} of the
+    seg runs summed over ranks."""
+    launches = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    for res in results:
+        r = res["rank"]
+        for tag, run in res["runs"].items():
+            got = run["launches"]
+            _log(f"multigpu rank {r} {tag}: losses {run['losses']}, step "
+                 f"seconds {run['steps']}, eval acc {run['acc']}, "
+                 f"{run['seconds']:.1f} s, launches {got}")
+            if got["iid_loss_fwd"]:
+                raise AssertionError(f"rank {r} {tag}: K3 launched under a "
+                                     f"mesh: {got}")
+            if tag.startswith("model 555"):
+                if got["seg_joint_fwd"] < 4 or got["seg_joint_dgrad"] < 8:
+                    raise AssertionError(f"rank {r} {tag} missed K1/K2: "
+                                         f"{got}")
+                for k in launches:
+                    launches[k] += got[k]
+    for res in results:
+        r = res["rank"]
+        for tag, (rows, rows_ok, sharded_s, one_s, err, noise, n) in \
+                res["eval"].items():
+            bound = max(MULTIGPU_EVAL_MULT * noise, MULTIGPU_EVAL_FLOOR)
+            _log(f"multigpu rank {r} sharded {tag} ({n} batches, TF32 off): "
+                 f"rows a forward {rows} at R = {n_ranks}, {sharded_s:.3f} s "
+                 f"sharded against {one_s:.3f} s for one rank on the whole "
+                 f"batches; gathered output {err:.3e} off the one rank's "
+                 f"(its reversed batches {noise:.3e}, bound {bound:.3e}); "
+                 f"{smi}")
+            if not rows_ok or err > bound:
+                raise AssertionError(f"multigpu rank {r} sharded {tag}: rows "
+                                     f"{rows}, difference {err} beyond "
+                                     f"{bound}")
+        sharded, one, rel, noise, losses = res["pick"]
+        bound = max(MULTIGPU_PICK_MULT * noise, MULTIGPU_PICK_REL)
+        _log(f"multigpu rank {r} sub-head pick, model 640 with "
+             f"--batchnorm_track off on fixed pairs: {sharded} at R = "
+             f"{n_ranks}, {one} at R = 1; losses {losses}, {rel:.3e} of max "
+             f"off one rank's (its reversed rows {noise:.3e}, bound "
+             f"{bound:.3e})" + (" (trivial: one rank)" if n_ranks == 1
+                                else ""))
+        if sharded != one or rel > bound:
+            raise AssertionError(f"multigpu rank {r} pick: {sharded} against "
+                                 f"{one}, losses {rel} off")
+    picks = {res["pick"][0] for res in results}
+    if len(picks) != 1:
+        raise AssertionError(f"multigpu: the ranks picked {picks}")
+    return launches
 
 
 def phase_multigpu(root):
@@ -3999,7 +4400,13 @@ def phase_multigpu(root):
     launches read after each run (K1 and K2 on every rank, K3 on none); the
     R-rank step against one rank on the whole batch (global mode,
     --bn_sync, TF32 off) within MULTIGPU_PARITY_MULT times the one rank's
-    own f32 noise (its batch reversed); one step of model
+    own f32 noise (its batch reversed); the sharded eval of models 555 and
+    640 (and 640's double eval) against one rank on the same weights,
+    each rank's rows a forward and the eval's seconds at R beside one rank
+    (``_multigpu_eval``); model 640's CLI with --select_sub_head_on_loss,
+    and its pick with --batchnorm_track off on fixed pairs at R ranks
+    against one rank (``_multigpu_pick``: the same sub-head on every rank,
+    the losses within MULTIGPU_PICK_REL); one step of model
     698's finetune from the semisup phase's f32 model-650 run; each rank's
     device time a head-A step and its all-reduce time by torch.profiler.
     Returns {kernel: launches} of the seg runs summed over ranks."""
@@ -4021,23 +4428,9 @@ def phase_multigpu(root):
     results = spawn(_multigpu_rank, n_ranks,
                     args=(root, out_root, n_ranks), device_type="cuda",
                     timeout=MULTIGPU_TIMEOUT_S)
-    launches = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0}
+    launches = _report_sharded(results, n_ranks, smi)
     for res in results:
         r = res["rank"]
-        for tag, run in res["runs"].items():
-            got = run["launches"]
-            _log(f"multigpu rank {r} {tag}: losses {run['losses']}, step "
-                 f"seconds {run['steps']}, eval acc {run['acc']}, "
-                 f"{run['seconds']:.1f} s, launches {got}")
-            if got["iid_loss_fwd"]:
-                raise AssertionError(f"rank {r} {tag}: K3 launched under a "
-                                     f"mesh: {got}")
-            if tag.startswith("model 555"):
-                if got["seg_joint_fwd"] < 4 or got["seg_joint_dgrad"] < 8:
-                    raise AssertionError(f"rank {r} {tag} missed K1/K2: "
-                                         f"{got}")
-                for k in launches:
-                    launches[k] += got[k]
         ft = res["finetune"]
         _log(f"multigpu rank {r} model 698 step: loss {ft['loss']:.5f} on "
              f"{ft['rows']} rows, launches {ft['launches']}")

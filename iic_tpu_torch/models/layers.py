@@ -77,18 +77,50 @@ def batch_norm(features, track_running_stats=True):
                           track_running_stats=track_running_stats)
 
 
+def batch_norm_over(bn, x, mesh, update_running=False):
+    """``bn`` (a ``nn.BatchNorm2d``) on ``x`` by batch statistics taken over
+    the ranks of ``mesh`` (this rank's rows alone without one): each rank's
+    per-channel mean and mean of squares, averaged over the ranks by one
+    differentiable all-reduce, var = mean2 - mean^2 (the JAX
+    ``BatchNorm``'s formula). With ``update_running`` the running mean and
+    the unbiased running variance over the global count take the
+    momentum step. Computes in f32, returns ``x``'s dtype."""
+    from iic_tpu_torch.parallel.mesh import all_reduce_stats
+
+    xf = x.float()
+    dims = (0, 2, 3)
+    n = x.numel() // x.shape[1]
+    moments = torch.cat([xf.mean(dims), (xf * xf).mean(dims)])
+    if mesh is not None:
+        moments = all_reduce_stats(moments, mesh) / mesh.size
+        n *= mesh.size
+    mean, mean2 = moments.chunk(2)
+    var = mean2 - mean * mean
+    if update_running:
+        m = bn.momentum
+        with torch.no_grad():
+            bn.num_batches_tracked += 1
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1, 1)))
+    shape = (1, -1, 1, 1)
+    y = (xf - mean.view(shape)) * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.affine:
+        y = y * bn.weight.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
+
+
 class SyncBatchNorm2d(nn.BatchNorm2d):
     """``--bn_sync``'s BatchNorm (``iic_tpu/models/layers.py``'s
     ``BatchNorm`` with an ``axis_name``): in a training forward under
-    autograd, each rank's per-channel mean and mean of squares are averaged
-    over the ranks of ``mesh`` (one differentiable all-reduce), var = mean2
-    - mean^2, and the running variance is the unbiased one over the global
-    count. Without a mesh the same formula runs on the rank's own rows.
+    autograd, ``batch_norm_over`` the ranks of ``mesh``, the running
+    statistics updated. Without a mesh the same formula runs on the rank's
+    own rows.
 
     Other forwards (eval mode, or a train-mode eval forward under
-    ``no_grad``) are ``nn.BatchNorm2d``'s: every rank runs the whole eval
-    batch, so its own statistics are the batch's. Parameters and buffers
-    are ``nn.BatchNorm2d``'s, so checkpoints load either way.
+    ``no_grad``) are ``nn.BatchNorm2d``'s; the sharded eval
+    (``parallel.mesh.make_sharded_eval``) takes the batch statistics of
+    those over the ranks itself. Parameters and buffers are
+    ``nn.BatchNorm2d``'s, so checkpoints load either way.
     ``nn.SyncBatchNorm`` refuses CPU tensors, so the gloo ranks of the
     tests could not run it."""
 
@@ -99,29 +131,7 @@ class SyncBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not (self.training and torch.is_grad_enabled()):
             return super().forward(x)
-        from iic_tpu_torch.parallel.mesh import all_reduce_stats
-
-        xf = x.float()
-        dims = (0, 2, 3)
-        n = x.numel() // x.shape[1]
-        moments = torch.cat([xf.mean(dims), (xf * xf).mean(dims)])
-        if self.mesh is not None:
-            moments = all_reduce_stats(moments, self.mesh) / self.mesh.size
-            n *= self.mesh.size
-        mean, mean2 = moments.chunk(2)
-        var = mean2 - mean * mean
-        if self.track_running_stats:
-            m = self.momentum
-            with torch.no_grad():
-                self.num_batches_tracked += 1
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(
-                    m * var * (n / max(n - 1, 1)))
-        shape = (1, -1, 1, 1)
-        y = (xf - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
-        if self.affine:
-            y = y * self.weight.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return batch_norm_over(self, x, self.mesh, self.track_running_stats)
 
 
 def sync_batch_norm(module, mesh):

@@ -19,17 +19,24 @@ the process group) the pipelines are the single-process ones.
 ``spawn`` runs a function in N local ranks (``--n_devices N``);
 ``reduce_gradients``, ``average_buffers`` and ``broadcast_state`` are the
 JAX step's ``_reduce_grads``, ``_sync_batch_stats`` and
-``make_replicator``. The eval forward is not sharded: every rank runs the
-whole eval batch, which gives every rank the unsharded forward's output
-(``make_sharded_eval``'s contract) at the cost of the forward's share.
+``make_replicator``. ``make_sharded_eval`` shards the eval forward: every
+rank holds the whole eval batch (the mapping loaders load the whole set on
+each rank, the JAX package's multi-host contract), forwards its contiguous
+slice of it, and gets the whole output back by an all-gather, so the
+host-side matching downstream is the same on every rank. Forwards whose
+BatchNorm normalises by batch statistics take them over the ranks
+(``global_batch_stats``), as the JAX package's plain jit over the mesh
+does.
 """
 
 import dataclasses
+import functools
 import os
 import socket
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
@@ -224,6 +231,66 @@ def global_mean(value, mesh):
     value = value.detach().clone()
     dist.all_reduce(value)
     return value / mesh.size
+
+
+def _bn_forward_over(bn, mesh, x):
+    """``bn``'s forward inside ``global_batch_stats``: by batch statistics
+    over the ranks where the module normalises by batch statistics (train
+    mode, or no running statistics), its own forward otherwise."""
+    from iic_tpu_torch.models.layers import batch_norm_over
+
+    if bn.training or not bn.track_running_stats:
+        return batch_norm_over(bn, x, mesh)
+    return type(bn).forward(bn, x)
+
+
+@contextmanager
+def global_batch_stats(net, mesh):
+    """Inside the block, each BatchNorm of ``net`` that normalises by batch
+    statistics takes them over the ranks of ``mesh`` (``batch_norm_over``:
+    one all-reduce of the per-channel moments a layer, the formula of
+    ``SyncBatchNorm2d``), whether or not ``--bn_sync`` is set, and leaves
+    its running statistics alone; BatchNorm on running statistics runs as
+    it is, with no collective. Every rank must run the same forwards on
+    shards of one size. Identity without a mesh."""
+    if mesh is None:
+        yield
+        return
+    bns = [m for m in net.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.forward = functools.partial(_bn_forward_over, m, mesh)
+    try:
+        yield
+    finally:
+        for m in bns:
+            del m.forward
+
+
+def make_sharded_eval(apply_fn, net, mesh):
+    """The eval forward ``apply_fn(imgs) -> (H, b, k, ...)`` (a forward of
+    ``net``) sharded over the ranks of ``mesh``
+    (``iic_tpu/parallel/mesh.py``'s ``make_sharded_eval``). Every rank
+    passes the same whole batch: it is padded to a multiple of the ranks
+    with copies of its last image, as the JAX function pads, each rank
+    forwards its contiguous slice under ``global_batch_stats`` (so a
+    padded batch's BatchNorm statistics count the copies, as JAX's sharded
+    forward does), the slices' outputs are all-gathered along the batch
+    axis, and the padding is cut off: every rank returns the whole
+    (H, b, k, ...) output."""
+    def apply_sharded(imgs):
+        b = imgs.shape[0]
+        pad = (-b) % mesh.size
+        if pad:
+            imgs = torch.cat([imgs, imgs[-1:].expand(pad, *imgs.shape[1:])])
+        rows = imgs.shape[0] // mesh.size
+        with global_batch_stats(net, mesh):
+            out = apply_fn(imgs[mesh.rank * rows:(mesh.rank + 1) * rows])
+        parts = [torch.empty_like(out) for _ in range(mesh.size)]
+        dist.all_gather(parts, out.contiguous())
+        out = torch.cat(parts, dim=1)
+        return out[:, :b] if pad else out
+
+    return apply_sharded
 
 
 def _free_port():

@@ -36,8 +36,12 @@ the batch is rounded down to a multiple of the ranks
 global`` (the global joint; a ragged final batch padded and weighted 0) or
 ``parity`` (each rank's joint, the losses averaged; a ragged final batch
 dropped), ``--bn_sync`` syncs BatchNorm's batch statistics; ``--fused_loss``
-falls back to the plain loss (K3 computes one rank's joint). Every rank
-evaluates the whole eval set; rank 0 alone writes the run's files.
+falls back to the plain loss (K3 computes one rank's joint). The eval
+forwards (the double eval's too) and the sub-head pick's run sharded with
+BatchNorm's batch statistics taken over the ranks
+(``parallel.mesh.make_sharded_eval``, ``global_batch_stats``); every rank
+gets the whole eval output and matches it; rank 0 alone writes the run's
+files.
 """
 
 import sys
@@ -57,7 +61,8 @@ from iic_tpu_torch.evals.cluster_eval import (
     cluster_eval, get_subhead_using_loss)
 from iic_tpu_torch.models.layers import compute_dtype, sync_batch_norm
 from iic_tpu_torch.ops.iid_loss import IID_loss
-from iic_tpu_torch.parallel.mesh import broadcast_state, run_data_parallel
+from iic_tpu_torch.parallel.mesh import (
+    broadcast_state, global_batch_stats, make_sharded_eval, run_data_parallel)
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_cluster_train_step, make_optimizer, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -107,7 +112,9 @@ def head_order(config):
 
 def _select_sub_head_on_loss(config, net, pipe_b, mesh=None):
     """The sub-head of lowest IID loss over head B's epoch-0 batches, with
-    eval-mode BN. Sharded: each rank feeds its shard and each batch's
+    eval-mode BN. Sharded: each rank feeds its shard, BatchNorm on batch
+    statistics (``--batchnorm_track`` off) takes them over the ranks, as
+    the JAX pick's forward over the whole batch does, and each batch's
     weighted joint is summed over ranks (padded rows weigh 0), so every
     rank sums the same losses and picks the same sub-head."""
     apply_fn = make_apply_fn(net, head="B", sobel=config.sobel,
@@ -121,7 +128,7 @@ def _select_sub_head_on_loss(config, net, pipe_b, mesh=None):
         return get_subhead_using_loss(config, pairs(), lamb=config.lamb_B)
 
     loss_per_sub_head = np.zeros(config.num_sub_heads)
-    with torch.no_grad():
+    with torch.no_grad(), global_batch_stats(net, mesh):
         for (base, weights), gen in pipe_b.epoch(0):
             imgs, imgs_tf = pipe_b.augment_pair(base, gen)
             out, out_tf = apply_fn(imgs), apply_fn(imgs_tf)
@@ -215,11 +222,16 @@ def _train(config, device, mesh):
     apply_kw = dict(head=eval_head, sobel=config.sobel,
                     include_rgb=config.include_rgb)
 
+    def eval_apply(train_mode=False):
+        apply = make_apply_fn(net, train_mode=train_mode, **apply_kw)
+        return apply if shard_of(mesh) is None else make_sharded_eval(
+            apply, net, mesh)
+
     def evaluate(use_sub_head=None):
-        double = (make_apply_fn(net, train_mode=True, **apply_kw)
+        double = (eval_apply(train_mode=True)
                   if config.twohead and config.double_eval else None)
         is_best, _ = cluster_eval(
-            config, make_apply_fn(net, **apply_kw), map_assign, map_test,
+            config, eval_apply(), map_assign, map_test,
             history=history["eval"], double_eval_apply_fn=double,
             use_sub_head=use_sub_head)
         return is_best

@@ -24,8 +24,10 @@ Several ranks: each steps on its shard of the batch (``--joint_mode
 global``: the (k, k, T, T) or k x k joint summed over ranks, a ragged final
 batch padded with zeroed relevancy masks; ``parity``: each rank's joint,
 the ragged batch dropped), ``--bn_sync`` syncs BatchNorm's batch
-statistics, every rank evaluates the whole eval set and rank 0 alone
-writes the run's files.
+statistics, the eval forward runs sharded with BatchNorm's batch
+statistics taken over the ranks (``parallel.mesh.make_sharded_eval``),
+every rank matches the whole eval output and rank 0 alone writes the
+run's files.
 
 ``--profile_dir``: a ``torch.profiler`` chrome trace of the first epoch the
 run trains, its eval included (``<profile_dir>/trace_epoch_<e>.json``,
@@ -52,7 +54,8 @@ from iic_tpu_torch.device import resolve_device
 from iic_tpu_torch.evals.cluster_eval import EvalHistory
 from iic_tpu_torch.evals.segmentation_eval import segmentation_eval
 from iic_tpu_torch.models.layers import compute_dtype, sync_batch_norm
-from iic_tpu_torch.parallel.mesh import broadcast_state, run_data_parallel
+from iic_tpu_torch.parallel.mesh import (
+    broadcast_state, make_sharded_eval, run_data_parallel)
 from iic_tpu_torch.parallel.train_step import (
     make_apply_fn, make_optimizer, make_seg_train_step, set_lr_mult)
 from iic_tpu_torch.train import checkpoint as ckpt
@@ -266,6 +269,8 @@ def _train(config, device, mesh):
     apply_fn = make_apply_fn(net, head=eval_head, sobel=config.sobel,
                              include_rgb=config.include_rgb,
                              using_IR=config.using_IR)
+    if shard_of(mesh) is not None:
+        apply_fn = make_sharded_eval(apply_fn, net, mesh)
 
     def evaluate():
         return segmentation_eval(config, apply_fn, map_assign, map_test,

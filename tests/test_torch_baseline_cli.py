@@ -16,6 +16,18 @@ from iic_tpu_torch.cli import doersch, isola, triplets_greyscale
 from iic_tpu_torch.cli import triplets_sobel
 
 
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(request):
+    """Removes a test's temporary directory (its CLI runs' directories,
+    each a checkpoint or more) once the test is done: pytest keeps the
+    temporary directories of its last runs."""
+    root = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 TRIPLETS_CLI = ["--dataset", "Synthetic10x32x3x16", "--gt_k", "10",
                 "--lr", "0.0001", "--num_epochs", "3", "--batch_sz", "12",
                 "--num_dataloaders", "3", "--crop_orig", "--rand_crop_sz",

@@ -1,10 +1,13 @@
-"""The flag surface of this slice's CLIs: each port CLI's argparse parser
+"""The flag surface of the port's CLIs: each port CLI's argparse parser
 against its JAX counterpart's, built without running either (the parser
 is caught at its ``parse_args``). The port's option strings must equal the
 JAX ones, aliases included, but for the port's own additions in ``EXTRA``;
-the JAX package's own lock (tests/test_flag_surface.py) stays as it is."""
+the JAX package's own lock (tests/test_flag_surface.py) stays as it is.
+The training CLIs' parsers are generated from the config dataclasses, so
+those are held to JAX's too: the same fields with the same defaults."""
 
 import argparse
+import dataclasses
 import importlib
 
 import pytest
@@ -23,9 +26,17 @@ CLIS = [
         ("render_potsdam", []), ("clone_and_eval", []),
         ("count_classes", ["--model_inds", "1"]), ("count_classes", []),
         ("print_examples", []), ("colour_scheme_change", []))]
+# the training CLIs and the k-means + SIFT baseline
+CLIS += [(f"iic_tpu.cli.{name}", f"iic_tpu_torch.cli.{name}", [])
+         for name in ("cluster_greyscale", "cluster_greyscale_twohead",
+                      "cluster_sobel", "cluster_sobel_twohead",
+                      "segmentation", "segmentation_twohead",
+                      "triplets_greyscale", "triplets_sobel", "doersch",
+                      "isola", "IID_semisup_STL10", "kmeans_and_sift")]
 
 # port-only flags: import_torch reads net files as weights only, and
-# unpickles one in full (running the code it names) only when asked
+# unpickles one in full (running the code it names) only when asked; the
+# training CLIs and kmeans_and_sift have none
 EXTRA = {"iic_tpu_torch.cli.import_torch": {"--allow_pickle"}}
 
 
@@ -60,3 +71,24 @@ def test_port_cli_flags_equal_jax(jax_mod, port_mod, argv, monkeypatch):
     got -= extra
     assert got == want, (sorted(got - want), sorted(want - got))
     assert len(want) > 1
+
+
+def _defaults(cls):
+    """{field: its default} of a config dataclass."""
+    return {f.name: (f.default_factory() if f.default is dataclasses.MISSING
+                     else f.default) for f in dataclasses.fields(cls)}
+
+
+@pytest.mark.parametrize("name", ["ClusterConfig", "SegConfig",
+                                  "SemisupConfig"])
+def test_config_fields_and_defaults_equal_jax(name):
+    """The port's config dataclass has JAX's fields, in JAX's order, with
+    equal defaults of the same types."""
+    theirs = _defaults(getattr(
+        importlib.import_module("iic_tpu.train.config"), name))
+    ours = _defaults(getattr(
+        importlib.import_module("iic_tpu_torch.train.config"), name))
+    assert list(ours) == list(theirs)
+    for field, want in theirs.items():
+        got = ours[field]
+        assert got == want and type(got) is type(want), (field, got, want)

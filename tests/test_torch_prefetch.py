@@ -6,6 +6,7 @@ with and without the thread in bf16, the run directory's dtype and f32
 checkpoint, and an unknown dtype refused."""
 
 import pickle
+import shutil
 import threading
 from types import SimpleNamespace
 
@@ -20,6 +21,18 @@ from iic_tpu_torch.data.prefetch import (
 from iic_tpu_torch.data.seg_pipeline import SegTrainPipeline
 from test_torch_cluster_train import CLI as CLUSTER_CLI
 from test_torch_train import CLI as SEG_CLI
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(request):
+    """Removes a test's temporary directory (its CLI runs' directories,
+    each a checkpoint or more) once the test is done: pytest keeps the
+    temporary directories of its last runs."""
+    root = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def test_items_arrive_in_order():

@@ -10,6 +10,7 @@ the single-head CLI's run directory."""
 
 import copy
 import pickle
+import shutil
 from types import SimpleNamespace
 
 import numpy as np
@@ -53,6 +54,18 @@ FAMILIES = {"seg": (segmentation_twohead.main, SEG),
             "cluster": (cluster_sobel_twohead.main, CLUSTER)}
 LOSSES = ("epoch_loss_head_A", "epoch_loss_no_lamb_head_A",
           "epoch_loss_head_B", "epoch_loss_no_lamb_head_B")
+
+
+@pytest.fixture(autouse=True)
+def _drop_run_dirs(request):
+    """Removes a test's temporary directory (its CLI runs' directories,
+    each a checkpoint or more) once the test is done: pytest keeps the
+    temporary directories of its last runs."""
+    root = (request.getfixturevalue("tmp_path")
+            if "tmp_path" in request.fixturenames else None)
+    yield
+    if root is not None:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _run(family, out_root, epochs, extra=()):
