@@ -237,6 +237,27 @@ Phases, in order; any failure raises and the exit code is non-zero:
      f32 model-650 run; each rank's wall and device time a head-A step
      and its all-reduce (NCCL kernels) time by torch.profiler, beside the
      cards' names and power limits;
+ 10g. the paper-parity harness and the learning evidence
+     (``iic_tpu_torch/tools/paper_parity.py``, ``learning_evidence.py``),
+     after 10d on the MNIST and STL10 trees, with a Potsdam tree and a
+     CIFAR10 one (5 x 264 training images of the synthetic clusterable
+     set in pickle batches) written beside them: ``check`` of all 13
+     BASELINE.md rows (OK for the rows whose trees exist, MISSING for the
+     COCO rows and CIFAR20, rc 1) and of an empty root (rc 1); ``run`` on
+     cuda:0 of Potsdam-3 (model 545), MNIST (685, ``--fused_loss`` after
+     ``--``) and CIFAR10 (640), each ``-- --test_code --num_epochs 2`` at
+     its paper widths and batch, one call a row, each row's child wrapped
+     to print its K1, K2 and K3 launches and steps on its log's last line
+     (rc 0 each; K1 >= 4 and K2 >= 8 in Potsdam-3's, K3 one a step in
+     MNIST's, none in CIFAR10's; they add to the table's), the rows on a
+     thread while the learning evidence's twohead, semisup and
+     digits_baselines run whole in this process (finite numbers, no
+     kernel launch; each accuracy printed beside JAX's VALIDATION.md
+     figure, not gated; the digits k-means fits within 1.01x of float64
+     Lloyd's inertia from the same seeds and held to
+     ``replay_float64``); then ``report`` of the three (each a parsed
+     accuracy in [0, 1]); nuisance_probe's skip is printed with its
+     reason; the phase's seconds printed;
  11. run the port's experiment tool in-process at its default size (120 15
      128 10): the default run, ``ablate``, ``mmprobe``, ``v3``, ``v4``,
      ``v5``, ``v6``, ``kpad``, ``v8`` and ``v7``, counts set to 0 just
@@ -3912,6 +3933,261 @@ def phase_rates():
     return rates
 
 
+# ---------------------------------------------------- paper-parity harness
+
+# The harness's rows run on the card (``iic_tpu_torch/tools/paper_parity.py
+# run``), each in its child at the row's paper widths and batch, cut by
+# --test_code to two steps a head pass: Potsdam-3 runs K1 and K2 (k 24 on
+# the tensor cores, k 3 on the CUDA cores), MNIST with --fused_loss K3,
+# CIFAR10 the plain loss
+PARITY_ROWS = (("potsdam3", []), ("mnist", ["--fused_loss"]),
+               ("cifar10", []))
+PARITY_EXTRA = ["--test_code", "--num_epochs", "2"]
+# the rows whose trees the phase's root holds (Potsdam, MNIST, STL10 with
+# its unlabelled split, CIFAR10): ``check`` must say OK for exactly these
+PARITY_TREES = ("stl10", "stl10_b", "cifar10", "mnist", "stl10_abl_noaux",
+                "stl10_abl_1head", "stl10_abl_norep", "stl10_abl_nounlab",
+                "potsdam3", "potsdam6")
+# images in each CIFAR10 pickle batch: 5 x 264 training images, two of
+# model 640's batches of 660 (and 264 test images)
+CIFAR10_BATCH = 264
+# the child ``run`` starts, wrapped: the row's CLI, then the child's kernel
+# launches and its steps on the log's last line (the parent's counts do
+# not see a child's)
+PARITY_CHILD = (
+    "import json, sys\n"
+    "from iic_tpu_torch.ops.kernels import iid_loss, seg_joint\n"
+    "from iic_tpu_torch.tools.paper_parity import run_row\n"
+    "seg_joint.reset_launch_counts()\n"
+    "iid_loss.reset_launch_counts()\n"
+    "_, history = run_row(sys.argv[1], sys.argv[2], sys.argv[3:])\n"
+    "steps = sum(len(v) for k, v in history.items()\n"
+    "            if k.startswith('step_seconds_head_'))\n"
+    "print('LAUNCHES ' + json.dumps({**seg_joint.LAUNCHES,\n"
+    "                                **iid_loss.LAUNCHES, 'steps': steps}),\n"
+    "      flush=True)\n")
+# JAX's learning evidence on the TPU (VALIDATION.md:105-106, :260, :276),
+# printed beside the port's; one seed an experiment, so not a gate
+EVIDENCE_JAX = {"twohead": {"best_acc": 0.514},
+                "semisup": {"finetune_best_acc": 0.516},
+                "digits_baselines": {"kmeans_raw_pixels_acc": 0.792,
+                                     "kmeans_pca32_acc": 0.790}}
+EVIDENCE_INERTIA = 1.01  # a fit's inertia against float64 Lloyd's
+
+
+def _write_cifar10(root):
+    """A CIFAR10 tree under root/cifar-10-batches-py: five training pickle
+    batches and a test batch of CIFAR10_BATCH images each ("data" (n,
+    3072) uint8, channel planes in order, "labels"), the port's clusterable
+    synthetic images standing in for the photographs."""
+    import os
+    import pickle
+    from iic_tpu_torch.data.readers import make_synthetic
+
+    base = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(base, exist_ok=True)
+    names = [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]
+    for i, name in enumerate(names):
+        d = make_synthetic(CIFAR10_BATCH, 10, 32, 3, seed=i)
+        data = d["images"].transpose(0, 3, 1, 2).reshape(CIFAR10_BATCH, -1)
+        with open(os.path.join(base, name), "wb") as f:
+            pickle.dump({"data": data, "labels": d["labels"].tolist()}, f)
+
+
+def _write_parity_trees(root):
+    """The trees the harness's rows read beside the MNIST and STL10 trees
+    already in ``root``: Potsdam (``_write_potsdam``) and CIFAR10."""
+    _write_potsdam(root)
+    _write_cifar10(root)
+
+
+def _harness(pp, argv):
+    """The harness's ``main(argv)`` in-process, its output captured and
+    printed. Returns (rc, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = pp.main(argv)
+    _log(buf.getvalue().rstrip())
+    return rc, buf.getvalue()
+
+
+def _check_status(out):
+    """``check``'s output -> {row: OK or MISSING}."""
+    return dict(line.split()[:2] for line in out.splitlines()
+                if line and not line.startswith(" "))
+
+
+def _child_launches(log_path):
+    """The launches and steps a wrapped child printed last in its log."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if ln.startswith("LAUNCHES ")]
+    if not lines:
+        raise AssertionError(f"{log_path}: no LAUNCHES line")
+    return json.loads(lines[-1][len("LAUNCHES "):])
+
+
+def _finite_numbers(result):
+    vals = [v for v in result.values() if isinstance(v, (int, float))]
+    return all(math.isfinite(v) for v in vals)
+
+
+def _evidence(out_root):
+    """``learning_evidence``'s twohead, semisup and digits_baselines whole
+    on the card: each JSON line finite, printed beside JAX's figure, no
+    launch of K1-K3 (none is on these paths: the plain loss, IID+, the
+    finetune); the digits k-means fits held to float64: each fit's inertia
+    within EVIDENCE_INERTIA of Lloyd's in float64 on the host from the same
+    seeds, and its iterations to ``replay_float64``. Returns {experiment:
+    seconds}."""
+    from iic_tpu_torch.evals.kmeans_eval import lloyd, replay_float64
+    from iic_tpu_torch.tools import learning_evidence as le
+
+    seconds = {}
+    for name, run in (("twohead", lambda: le.run_twohead(out_root)),
+                      ("semisup", lambda: le.run_semisup(out_root)),
+                      ("digits_baselines", le.run_digits_baselines)):
+        _reset_counts()
+        t0 = time.perf_counter()
+        result = run()
+        seconds[name] = time.perf_counter() - t0
+        launches = _read_counts()
+        beside = "; ".join(
+            f"{k} {result[k]:.4f} (JAX on the TPU {v:.3f})"
+            for k, v in EVIDENCE_JAX[name].items())
+        _log(f"learning evidence {name}: {seconds[name]:.1f} s; {beside}; "
+             f"launches {launches}")
+        if not _finite_numbers(result):
+            raise AssertionError(f"learning evidence {name}: {result}")
+        _no_launches(f"learning evidence {name}", launches)
+    for name, (x, fit) in le.digits_fits().items():
+        xc = x.double().cpu()
+        xc = xc - xc.mean(0)
+        tol = float(xc.var(0, unbiased=False).mean()) * fit.tol
+        init = fit.init_centers_.double().cpu() - x.double().cpu().mean(0)
+        *_, inertia64, iters64 = lloyd(xc, init, fit.max_iter, tol)
+        rep = replay_float64(x, fit, tie_rel=KMEANS_TIE_REL)
+        ratio = fit.inertia_ / inertia64
+        _log(f"digits k-means {name} ({tuple(x.shape)} on {x.device}): "
+             f"inertia {fit.inertia_:.6g} in {fit.n_iter_} iterations, "
+             f"float64 Lloyd from the same seeds {inertia64:.6g} in "
+             f"{iters64} ({ratio:.6f}x); replay: {rep['mismatches']} labels "
+             f"off outside ties ({rep['ties']} within {KMEANS_TIE_REL:g}), "
+             f"centroids {rep['centre_err']:.3e} of max off")
+        if not (ratio <= EVIDENCE_INERTIA and math.isfinite(ratio)):
+            raise AssertionError(f"digits k-means {name}: inertia {ratio}x "
+                                 f"its float64 Lloyd's")
+        if rep["mismatches"] or rep["centre_err"] > KMEANS_CENTRE_REL:
+            raise AssertionError(f"digits k-means {name} off its float64 "
+                                 f"replay: {rep}")
+    try:
+        import cv2
+        why = (f"OpenCV {cv2.__version__} imports here, but the probe's 120 "
+               f"pretrain and 2 x 60 finetune epochs are left out of the "
+               f"phase (python -m iic_tpu_torch.tools.learning_evidence "
+               f"nuisance_probe runs it)")
+    except ImportError as e:
+        why = f"OpenCV does not import here ({e})"
+    _log(f"learning evidence nuisance_probe: not run: DigitsNuisance draws "
+         f"its nuisance with cv2.warpAffine (data/readers.py); {why}; the "
+         f"CPU tests run it shrunk (tests/test_torch_learning_evidence.py)")
+    return seconds
+
+
+def _parity_runs(pp, root, out_root):
+    """The harness's ``run`` of each of PARITY_ROWS, one call a row.
+    Returns {row: (rc, seconds)}."""
+    done = {}
+    for key, extra in PARITY_ROWS:
+        t0 = time.perf_counter()
+        rc = pp.main(["run", "--dataset_root", root, "--out_root", out_root,
+                      "--rows", key, "--", *PARITY_EXTRA, *extra])
+        done[key] = (rc, time.perf_counter() - t0)
+    return done
+
+
+def _check_parity_run(key, extra, row, rc, seconds, log_path):
+    """A row's run: rc 0, and its wrapped child's launches (K1 and K2 in
+    both heads of a segmentation row, none elsewhere; K3 one a step under
+    --fused_loss, else none). Returns the launches."""
+    if rc != 0:
+        raise AssertionError(f"parity run {key}: rc {rc}")
+    got = _child_launches(log_path)
+    _log(f"parity run {key} (model {row.model_ind}): rc {rc}, "
+         f"{seconds:.1f} s; the child's launches and steps {got}")
+    if "segmentation" in row.module:  # both heads: 2 steps each
+        ok = got["seg_joint_fwd"] >= 4 and got["seg_joint_dgrad"] >= 8
+    else:
+        ok = got["seg_joint_fwd"] == 0 == got["seg_joint_dgrad"]
+    fused = "--fused_loss" in extra
+    if not ok or got["iid_loss_fwd"] != (got["steps"] if fused else 0):
+        raise AssertionError(f"parity run {key}: launches {got}")
+    return got
+
+
+def phase_parity(root):
+    """The paper-parity harness (``tools/paper_parity.py``) and the
+    learning evidence (``tools/learning_evidence.py``) on the card, on the
+    trees in ``root`` (MNIST, STL10, Potsdam, CIFAR10): ``check`` of all
+    13 rows (OK for exactly ``PARITY_TREES``, rc 1 for the COCO rows and
+    CIFAR20) and of an empty root (rc 1, all MISSING); ``run`` of each of
+    ``PARITY_ROWS`` on cuda:0 (the default), one call a row, each child
+    wrapped to print its launches (``PARITY_CHILD``): rc 0, K1 >= 4 and
+    K2 >= 8 in Potsdam-3's child (2 steps a head, both heads), K3 one a
+    step in MNIST's, none in CIFAR10's; ``report`` of the three with a
+    parsed accuracy each. The runs go on a thread while ``_evidence`` runs
+    here (the children are separate processes: their start-up, about 8 s
+    each, overlaps the evidence's training), so their seconds are under
+    that load. Returns the children's {kernel: launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from iic_tpu_torch.tools import paper_parity as pp
+
+    torch.cuda.empty_cache()  # the children need the card's memory
+    t0 = time.perf_counter()
+    rc, out = _harness(pp, ["check", "--dataset_root", root])
+    status = _check_status(out)
+    want = {r.key: "OK" if r.key in PARITY_TREES else "MISSING"
+            for r in pp.ROWS}
+    if rc != 1 or status != want:
+        raise AssertionError(f"check: rc {rc}, {status} (want rc 1, {want})")
+    with tempfile.TemporaryDirectory() as empty:
+        rc, out = _harness(pp, ["check", "--dataset_root", empty])
+    if rc != 1 or set(_check_status(out).values()) != {"MISSING"}:
+        raise AssertionError(f"check of an empty root: rc {rc}")
+    out_root = os.path.join(root, "parity_runs")
+    child = pp.CHILD_CODE
+    pp.CHILD_CODE = PARITY_CHILD
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            runs = pool.submit(_parity_runs, pp, root, out_root)
+            evidence_s = _evidence(os.path.join(root, "evidence"))
+            done = runs.result()
+    finally:
+        pp.CHILD_CODE = child
+    launches = {"seg_joint_fwd": 0, "seg_joint_dgrad": 0, "iid_loss_fwd": 0}
+    for key, extra in PARITY_ROWS:
+        row = pp.ROW_MAP[key]
+        got = _check_parity_run(key, extra, row, *done[key], os.path.join(
+            out_root, f"{row.model_ind}.out"))
+        for k in launches:
+            launches[k] += got[k]
+    rc, out = _harness(pp, ["report", "--out_root", out_root, "--rows",
+                            *[k for k, _ in PARITY_ROWS]])
+    for key, _ in PARITY_ROWS:
+        (line,) = [ln for ln in out.splitlines() if ln.startswith(key + " ")]
+        best = float(line.split()[3])
+        if "no run at" in line or not 0.0 <= best <= 1.0:
+            raise AssertionError(f"report: {line}")
+    _log(f"parity: {time.perf_counter() - t0:.1f} s (the rows' runs "
+         f"{sum(s for _, s in done.values()):.1f} s beside the learning "
+         f"evidence's {sum(evidence_s.values()):.1f} s); launches in the "
+         f"children {launches}")
+    return launches
+
+
 # --------------------------------------------------------------- multi-GPU
 
 MULTIGPU_MAX = 4  # ranks: the cards the machine shows, at most 4
@@ -4503,7 +4779,8 @@ def main(argv=None):
                 launches[k] += (run or {}).get(k, 0)
     # the rest of clustering's paper workloads: K3's launches of the
     # two-head runs (and K1's and K2's of the profiled seg epoch) add to
-    # the table's
+    # the table's; then the paper-parity harness's rows, whose children's
+    # K1, K2 and K3 launches add to it too
     with tempfile.TemporaryDirectory() as data_root:
         for tag, write, phase in (
                 ("mnist", _write_mnist, phase_mnist),
@@ -4512,7 +4789,8 @@ def main(argv=None):
                 ("semisup", None, phase_semisup),
                 ("digits guard", None, lambda _: phase_digits_guard()),
                 ("semisup guard", None, lambda _: phase_semisup_guard()),
-                ("baselines", None, phase_baselines)):
+                ("baselines", None, phase_baselines),
+                ("parity", _write_parity_trees, phase_parity)):
             t0 = time.perf_counter()
             if write is not None:
                 write(data_root)
