@@ -250,7 +250,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      to print its K1, K2 and K3 launches and steps on its log's last line
      (rc 0 each; K1 >= 4 and K2 >= 8 in Potsdam-3's, K3 one a step in
      MNIST's, none in CIFAR10's; they add to the table's), the rows on a
-     thread while the learning evidence's twohead, semisup and
+     thread while the learning evidence's twohead (its entry point
+     ``run_twohead`` at seeds 0-2, a child each, all at once; the tool's
+     line held to the run's accuracies, each seed's accuracies and both
+     heads' epoch losses printed), semisup and
      digits_baselines run whole in this process (finite numbers, no
      kernel launch; each accuracy printed beside JAX's VALIDATION.md
      figure, not gated; the digits k-means fits within 1.01x of float64
@@ -3973,6 +3976,40 @@ EVIDENCE_JAX = {"twohead": {"best_acc": 0.514},
                 "digits_baselines": {"kmeans_raw_pixels_acc": 0.792,
                                      "kmeans_pca32_acc": 0.790}}
 EVIDENCE_INERTIA = 1.01  # a fit's inertia against float64 Lloyd's
+# the twohead evidence's seeds: its band on the card, printed by seed, not a
+# gate (the JAX package stalls there too off the TPU: ROADMAP queue 3)
+TWOHEAD_SEEDS = (0, 1, 2)
+# a seed's twohead run, in a child of its own (the runs are host-bound, so
+# the seeds run at once, one process each): the tool's entry point
+# ``run_twohead`` with the seed set on its config, its trainer wrapped only
+# to keep the epoch losses; prints the tool's JSON line, then the run's
+# accuracies, epoch losses, seconds and kernel launches on its last line
+TWOHEAD_CHILD = (
+    "import json, sys, time\n"
+    "from iic_tpu_torch.ops.kernels import iid_loss, seg_joint\n"
+    "from iic_tpu_torch.tools import learning_evidence as le\n"
+    "histories = []\n"
+    "train = le.train_cluster_twohead\n"
+    "def train_keeping(cfg, **kwargs):\n"
+    "    net, h = train(cfg, **kwargs)\n"
+    "    histories.append(h)\n"
+    "    return net, h\n"
+    "le.train_cluster_twohead = train_keeping\n"
+    "cfg = le.twohead_config(sys.argv[2])\n"
+    "cfg.seed = int(sys.argv[1])\n"
+    "seg_joint.reset_launch_counts()\n"
+    "iid_loss.reset_launch_counts()\n"
+    "t0 = time.perf_counter()\n"
+    "result = le.run_twohead(config=cfg)\n"
+    "h = histories[-1]\n"
+    "print('TWOHEAD ' + json.dumps({\n"
+    "    'result': result,\n"
+    "    'acc': [float(a) for a in h['eval'].epoch_acc],\n"
+    "    'A': [float(v) for v in h['epoch_loss_head_A']],\n"
+    "    'B': [float(v) for v in h['epoch_loss_head_B']],\n"
+    "    'epochs': cfg.num_epochs, 'seconds': time.perf_counter() - t0,\n"
+    "    'launches': {**seg_joint.LAUNCHES, **iid_loss.LAUNCHES}}),\n"
+    "    flush=True)\n")
 
 
 def _write_cifar10(root):
@@ -4034,20 +4071,95 @@ def _finite_numbers(result):
     return all(math.isfinite(v) for v in vals)
 
 
+def _start_twohead(out_root):
+    """``learning_evidence.run_twohead`` whole on cuda:0 at each of
+    TWOHEAD_SEEDS, a child each (``TWOHEAD_CHILD``, its output to
+    <out_root>/twohead_s<seed>.log), all started at once. Returns {seed:
+    (the child, its log's path)}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(out_root, exist_ok=True)
+    children = {}
+    for seed in TWOHEAD_SEEDS:
+        log = os.path.join(out_root, f"twohead_s{seed}.log")
+        with open(log, "w") as f:
+            children[seed] = (subprocess.Popen(
+                [sys.executable, "-c", TWOHEAD_CHILD, str(seed),
+                 os.path.join(out_root, f"twohead_s{seed}")],
+                cwd=here, stdout=f, stderr=subprocess.STDOUT), log)
+    return children
+
+
+def _finish_twohead(children):
+    """Each seed's run, waited for: rc 0, every number finite, the tool's
+    JSON line (pre, best and final accuracy, epochs) the run's own, no
+    launch of K1-K3 (the plain loss); the best and final accuracy and both
+    heads' epoch losses printed by seed, beside JAX's one run on the
+    TPU."""
+    bests = []
+    for seed, (child, log) in children.items():
+        child.wait(timeout=900)
+        with open(log) as f:
+            out = f.read()
+        lines = [ln for ln in out.splitlines() if ln.startswith("TWOHEAD ")]
+        if child.returncode != 0 or not lines:
+            raise AssertionError(f"twohead seed {seed}: rc "
+                                 f"{child.returncode}\n{out[-4000:]}")
+        run = json.loads(lines[-1][len("TWOHEAD "):])
+        result, accs = run["result"], run["acc"]
+        losses = {h: run[h] for h in "AB"}
+        if len(accs) != run["epochs"] or not all(
+                math.isfinite(v) for v in accs + losses["A"] + losses["B"]):
+            raise AssertionError(f"twohead seed {seed}: {run}")
+        # the tool's JSON line: its numbers finite and the run's own
+        if not _finite_numbers(result) or (
+                result["pre_acc"], result["best_acc"], result["final_acc"],
+                result["epochs"]) != (accs[0], max(accs), accs[-1],
+                                      len(accs) - 1):
+            raise AssertionError(f"twohead seed {seed}: the tool's line "
+                                 f"{result} is not the run's {accs}")
+        _no_launches(f"twohead seed {seed}", run["launches"])
+        bests.append(max(accs))
+        _log(f"learning evidence twohead seed {seed}: "
+             f"{run['seconds']:.1f} s; best_acc {max(accs):.4f}, final "
+             f"{accs[-1]:.4f} (JAX on the TPU, one run: "
+             f"{EVIDENCE_JAX['twohead']['best_acc']:.3f}); losses A "
+             f"{' '.join(f'{v:.4f}' for v in losses['A'])}; B "
+             f"{' '.join(f'{v:.4f}' for v in losses['B'])}")
+    _log(f"learning evidence twohead: best_acc {min(bests):.4f}-"
+         f"{max(bests):.4f} over seeds {list(TWOHEAD_SEEDS)} (not a gate: "
+         f"the JAX package stalls on the CPU too, ROADMAP queue 3)")
+
+
 def _evidence(out_root):
-    """``learning_evidence``'s twohead, semisup and digits_baselines whole
-    on the card: each JSON line finite, printed beside JAX's figure, no
-    launch of K1-K3 (none is on these paths: the plain loss, IID+, the
-    finetune); the digits k-means fits held to float64: each fit's inertia
-    within EVIDENCE_INERTIA of Lloyd's in float64 on the host from the same
-    seeds, and its iterations to ``replay_float64``. Returns {experiment:
-    seconds}."""
+    """``learning_evidence``'s twohead config by seed (in children,
+    ``_start_twohead`` / ``_finish_twohead``, while the rest runs here),
+    semisup and digits_baselines whole on the card: each JSON line finite,
+    printed beside JAX's figure, no launch of K1-K3 (none is on these
+    paths: the plain loss, IID+, the finetune); the digits k-means fits
+    held to float64: each fit's inertia within EVIDENCE_INERTIA of Lloyd's
+    in float64 on the host from the same seeds, and its iterations to
+    ``replay_float64``. Returns {experiment: seconds}."""
     from iic_tpu_torch.evals.kmeans_eval import lloyd, replay_float64
     from iic_tpu_torch.tools import learning_evidence as le
 
+    t_twohead = time.perf_counter()
+    children = _start_twohead(out_root)
+    try:
+        seconds = _evidence_here(le, lloyd, replay_float64, out_root)
+        _finish_twohead(children)
+    finally:
+        for child, _ in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+    seconds["twohead"] = time.perf_counter() - t_twohead
+    return seconds
+
+
+def _evidence_here(le, lloyd, replay_float64, out_root):
+    """semisup and digits_baselines in this process (``_evidence``)."""
     seconds = {}
-    for name, run in (("twohead", lambda: le.run_twohead(out_root)),
-                      ("semisup", lambda: le.run_semisup(out_root)),
+    for name, run in (("semisup", lambda: le.run_semisup(out_root)),
                       ("digits_baselines", le.run_digits_baselines)):
         _reset_counts()
         t0 = time.perf_counter()

@@ -144,7 +144,8 @@ class ClusterNet5gTrunk(nn.Module):
         x = self.layer3(self.layer2(self.layer1(x)))
         if penultimate_features:
             return x.flatten(1)  # (B, 256 * s * s), s = input_sz // 8 + 1
-        return self.layer4(x).float().mean(dim=(2, 3))
+        # the mean in the parameters' dtype (f32) whatever the compute dtype
+        return self.layer4(x).to(self.bn1.weight.dtype).mean(dim=(2, 3))
 
 
 class ClusterNet5g(nn.Module):

@@ -203,9 +203,9 @@ class MultiDenseHead(nn.Module):
     ``heads`` ModuleList of ``Sequential(Linear, Softmax)``; the JAX
     package's one einsum with a leading sub-head axis.
 
-    Input (B, D), cast to f32 -> output (num_sub_heads, B, K). The
-    trainers keep cuBLAS out of TF32, so the heads run in full f32 as in
-    the JAX package.
+    Input (B, D), cast to the parameters' dtype (f32) -> output
+    (num_sub_heads, B, K). The trainers keep cuBLAS out of TF32, so the
+    heads run in full f32 as in the JAX package.
     """
 
     def __init__(self, in_features, output_k, num_sub_heads):
@@ -216,5 +216,5 @@ class MultiDenseHead(nn.Module):
             for _ in range(num_sub_heads)])
 
     def forward(self, x):
-        x = x.float()
+        x = x.to(self.heads[0][0].weight.dtype)
         return torch.stack([head(x) for head in self.heads])

@@ -15,9 +15,10 @@ _SOBEL_KERNEL = torch.tensor(
 
 
 def sobel_filter(grey_imgs):
-    """(N, 1, H, W) grey images -> (N, 2, H, W) [dx, dy]."""
-    x = grey_imgs.float()
-    return F.conv2d(x, _SOBEL_KERNEL.to(x.device), padding=1)
+    """(N, 1, H, W) grey images -> (N, 2, H, W) [dx, dy], in f32 (or
+    the images' wider dtype)."""
+    x = grey_imgs.to(torch.promote_types(grey_imgs.dtype, torch.float32))
+    return F.conv2d(x, _SOBEL_KERNEL.to(x.device, x.dtype), padding=1)
 
 
 def sobel_process(imgs, include_rgb, using_IR=False):

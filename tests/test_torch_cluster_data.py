@@ -22,6 +22,7 @@ from iic_tpu.train.config import ClusterConfig as JaxClusterConfig
 from iic_tpu_torch.data import pipeline as tpipe
 from iic_tpu_torch.data import readers as treaders
 from iic_tpu_torch.data import transforms as tt
+from iic_tpu_torch.ops.sobel import sobel_filter
 from iic_tpu_torch.train.config import ClusterConfig
 
 ATOL = 1e-5
@@ -239,3 +240,53 @@ def test_demean_options_match_jax():
     ref = jax.vmap(jt.make_sobel_pair_transforms(jcfg)[2])(jnp.asarray(img))
     got = tt.make_sobel_pair_transforms(tcfg)[2](torch.from_numpy(img))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def _pair_statistics(imgs, imgs_tf, b):
+    """Per-image statistics of a sobel pair batch (NCHW, rgb + grey; tf1
+    tiled block-wise, so its first ``b`` rows are the images): for tf1 and
+    for tf2, each channel's mean and variance and the grey channel's mean
+    sobel magnitude; and each tf2 row's mean |tf1 - tf2|."""
+    imgs, imgs_tf = (torch.from_numpy(np.array(x)) for x in (imgs, imgs_tf))
+    out = {}
+    for name, x in (("tf1", imgs[:b]), ("tf2", imgs_tf)):
+        for c in range(x.shape[1]):
+            out[f"{name} channel {c} mean"] = x[:, c].mean((1, 2))
+            out[f"{name} channel {c} var"] = x[:, c].var((1, 2))
+        d = sobel_filter(x[:, 3:4])
+        out[f"{name} sobel magnitude"] = d.square().sum(1).sqrt().mean((1, 2))
+    out["|tf1 - tf2|"] = (imgs - imgs_tf).abs().mean((1, 2, 3))
+    return {k: v.numpy() for k, v in out.items()}
+
+
+@pytest.mark.parametrize("tf2_jitter", [True, False])
+def test_sobel_pair_statistics_match_jax(tf2_jitter, monkeypatch):
+    """The learning evidence's pair (crop 28 -> 32, ``--include_rgb``, 2
+    dataloaders) from the port's ``augment_pair`` and from JAX's on the
+    same 600 synthetic uint8 images, each drawing its own: a two-sample
+    Kolmogorov-Smirnov test on each per-image statistic of
+    ``_pair_statistics`` (19 of them), the method of
+    tests/test_transform_parity.py (p floor 1e-4). Without tf2's colour
+    jitter in the port (the mutant, ``tf2_jitter=False``) some statistic
+    must fall under the floor."""
+    n = 600
+    tcfg, jcfg = _cfgs(num_dataloaders=2, batch_sz=2 * n, rand_crop_sz=28,
+                       include_rgb=True)
+    base = treaders.load_dataset("Synthetic10x32x3x2048", "", True)[
+        "images"][:n]
+    if not tf2_jitter:
+        monkeypatch.setattr(tt, "color_jitter_with", lambda img, f, o: img)
+    pipe = tpipe.ClusterTrainPipeline(tcfg, [True], preloaded=(base, None))
+    got = _pair_statistics(*pipe.augment_pair(
+        torch.from_numpy(base), torch.Generator().manual_seed(0)), n)
+    jpipe_ = jpipe.ClusterTrainPipeline(jcfg, [True],
+                                        preloaded=(base, np.zeros(n)))
+    ref = _pair_statistics(*jax.jit(jpipe_.augment_pair)(
+        jnp.asarray(base), jax.random.PRNGKey(0)), n)
+    assert len(got) == 19
+    p = {k: stats.ks_2samp(got[k], ref[k]).pvalue for k in got}
+    low = {k: v for k, v in p.items() if v <= 1e-4}
+    if tf2_jitter:
+        assert not low, low
+    else:
+        assert low, p
