@@ -118,8 +118,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      60; 128^2 / 200^2 / 200^2; T 21 / 21 / 11; k 45 and 15, 24 and 3, 36
      and 6) within the JAX contract, K2 bit-equal to X8 where it runs X8's
      kernel, K1's error against its bf16 function in float64 and its
-     split-K chunk depth printed at each shape, at 545's k=24 required
-     within K1_F64, with each one's CUDA-event ms beside the bf16 F.conv2d
+     split-K chunk depth printed at each shape, each required within
+     K1_F64 (tensor-core form) or K1_F64_FMA (CUDA-core form) of max,
+     with each one's CUDA-event ms beside the bf16 F.conv2d
      and its bound; run model 545's two-head CLI (--test_code, bf16) through
      the native host prep, then --restart into the same run directory
      (it must resume at epoch 2), then the single-head IID+ CLI on the same
@@ -268,6 +269,20 @@ Phases, in order; any failure raises and the exit code is non-zero:
      report, none FAILED, finite times and errors, the exact ablations
      exact, X9 within 1e-5 mean of its float64 plain version, and at least
      one launch of X1-X9;
+ 11a. run the port's four measurement tools in-process at their default
+     shapes (``iic_tpu_torch/tools/``: ``joint_kernel_bench`` 120 15 128
+     10, ``fused_loss_bench``, ``eval_cost_bench`` all,
+     ``e2e_gap_trace`` at bench.py's config, its trace under --trace_dir
+     when given), counts set to 0 just before each and printed just after:
+     K1 and K2 required in the joint bench and the gap trace, K3 in the
+     fused-loss bench, none in the eval bench (they add to the table's);
+     then the joint bench's kernel within K1_F64 of max of its bf16
+     function in float64 and its P and both input gradients against the
+     plain conv's within the JAX contract; the fused-loss bench's fused
+     loss against xla's, and both gradients, within K3's contract, with
+     K3's host ms a call and device ms printed; finite eval numbers; each
+     gap-trace run's split adding up to its wall, with one wait and one
+     host prep a batch;
  12. profile steady head-A and head-B steps of both paths in f32 and in
      bf16: step time, device busy share and device time by kernel, and
      the kernels' share (chrome traces go to --trace_dir when it is
@@ -1939,10 +1954,11 @@ def phase_seg_shapes():
     """K1, and K2 for dx1 and dx2, at the six joint shapes of the other
     three published segmentation configurations (SEG_SHAPES): each against
     its plain version within the JAX contract, K2 bit-equal to X8 where it
-    runs X8's kernel, K1's error against its bf16 function in float64 and
-    its split-K chunk depth at every shape, at 545's head A required within
-    K1_F64 of max; CUDA-event ms of each beside the bf16 F.conv2d library
-    call and its bound, and the form taken."""
+    runs X8's kernel, K1's error against its bf16 function in float64 with
+    its split-K chunk depth at every shape, each required within K1_F64
+    (tensor-core form) or K1_F64_FMA (CUDA-core form) of max; CUDA-event ms
+    of each beside the bf16 F.conv2d library call and its bound, and the
+    form taken."""
     import torch
     import torch.nn.functional as F
     from iic_tpu_torch.ops.kernels import joint_exp as jx
@@ -1965,9 +1981,8 @@ def phase_seg_shapes():
             ref = sj.displacement_joint_dense(x1, x2, half_t)
             _compare("K1 joint", got, ref)
             # K1's f32 sums against its bf16 function in float64, with the
-            # depth of its split-K chunks, at every shape; only 545 A's is
-            # a check, the others are logged (a shape over the bound is a
-            # fault to record)
+            # depth of its split-K chunks, a check at every shape (a shape
+            # over the bound is a fault to record, not a bound to raise)
             ref64 = sj.joint_fwd_bf16_plain(x1.double(), x2.double(), half_t)
             tol = K1_F64 if k1f == "wgmma" else K1_F64_FMA
             e64 = (float((got.double() - ref64).abs().max())
@@ -1981,10 +1996,11 @@ def phase_seg_shapes():
                 depth = f"{per} rows a chunk, {splits} chunks"
             _log(f"  K1 vs float64 of its bf16 operands ({k1f}, {depth}): "
                  f"max err / max|ref| {e64:.3e} (bound {tol:g}: "
-                 f"{'within' if e64 <= tol else 'OVER'}"
-                 f"{', checked' if (model, head) == ('545', 'A') else ''})")
-            if (model, head) == ("545", "A") and e64 > tol:
-                raise AssertionError("K1 is off its bf16 function")
+                 f"{'within' if e64 <= tol else 'OVER'}, checked)")
+            if not e64 <= tol:
+                raise AssertionError(f"K1 at model {model} head {head} is "
+                                     f"{e64:.3e} of max off its bf16 "
+                                     f"function in float64 (bound {tol:g})")
             del got, ref, ref64
             got1 = sj.joint_dgrad(g2d, x2, half_t)
             _compare("K2 dx1", got1, sj.dgrad_plain(g2d, x2, half_t))
@@ -3678,6 +3694,166 @@ def phase_tool():
     return launches
 
 
+MEASURED_KERNELS = ("seg_joint_fwd", "seg_joint_dgrad", "iid_loss_fwd")
+# The port's four measurement tools, run at their default shapes, each
+# with the launches it must show: (module, kernels required, kernels
+# refused)
+MEASURE_TOOLS = (
+    ("joint_kernel_bench", ("seg_joint_fwd", "seg_joint_dgrad"), ()),
+    ("fused_loss_bench", ("iid_loss_fwd",), ()),
+    ("eval_cost_bench", (), MEASURED_KERNELS),
+    ("e2e_gap_trace", ("seg_joint_fwd", "seg_joint_dgrad"), ()))
+# A gap-trace run's wall is at least this share of the device-step-only
+# time of its pairs (measured beside it in the same call): the card runs
+# the same steps one after another in both
+GAP_WALL_FLOOR = 0.8
+
+
+def _check_joint_bench(records):
+    """The joint bench's records: fft not ported, finite times and
+    errors, the kernel within K1_F64 (K1_F64_FMA in its CUDA-core form) of
+    max of its bf16 function in float64. Then, on the bench's own inputs
+    (launches not counted: the counts were read), the kernel's P and both
+    input gradients against the plain conv's within the JAX contract."""
+    import torch
+    from iic_tpu_torch.ops.kernels import seg_joint as sj
+    from iic_tpu_torch.tools import joint_kernel_bench as jkb
+
+    by_name = {r["name"]: r for r in records}
+    if by_name["fft"]["ported"]:
+        raise AssertionError("joint bench: fft reported as ported")
+    for rec in (by_name["pallas"], by_name["conv"]):
+        nums = [rec["fwd_ms"], rec["grad_ms"], rec["err"]]
+        if not all(math.isfinite(v) for v in nums):
+            raise AssertionError(f"joint bench: not finite: {rec}")
+    kern = by_name["pallas"]
+    tol = K1_F64 if kern["form"] == "wgmma" else K1_F64_FMA
+    _log(f"  joint bench kernel vs its bf16 function in float64 "
+         f"({kern['form']}): {kern['err_bf16_f64']:.3e} of max (bound "
+         f"{tol:g})")
+    if not kern["err_bf16_f64"] <= tol:
+        raise AssertionError("joint bench: K1 off its bf16 function")
+    n, k, h, half_t = jkb.DEFAULT_SIZE
+    x1, x2 = jkb.inputs(n, k, h, "cuda")
+    got = jkb.outputs(sj.displacement_joint_dense_kernel, x1, x2, half_t)
+    ref = jkb.outputs(sj.displacement_joint_dense, x1, x2, half_t)
+    for tag, a, b in zip(("P", "dx1", "dx2"), got, ref):
+        _compare(f"joint bench {tag}, kernel vs conv", a, b)
+    del x1, x2, got, ref
+    torch.cuda.empty_cache()
+
+
+def _check_fused_loss_bench(result):
+    """The fused-loss bench's loss-only losses, fused against xla within
+    K3's contract, and (launches not counted) both impls' gradients on
+    the bench's inputs; finite full-step times and losses.
+    Logs K3's reading: host ms a call beside the profiler's device ms."""
+    import torch
+    from iic_tpu_torch.tools import fused_loss_bench as flb
+
+    lo, fs = result["loss_only"], result["full_step"]
+    _check("fused-loss bench loss-only loss, fused vs xla",
+           torch.tensor(lo["fused"]["loss"]), torch.tensor(lo["xla"]["loss"]),
+           K3_RTOL, K3_ATOL)
+    z, zt = flb.loss_inputs(device="cuda")
+    (_, g_f), (_, g_x) = (flb.loss_and_grads(impl, z, zt)
+                          for impl in ("fused", "xla"))
+    for tag, a, b in zip(("dz", "dzt"), g_f, g_x):
+        _check(f"fused-loss bench {tag}, fused vs xla", a, b, K3_GRAD_RTOL,
+               K3_GRAD_ATOL)
+    for impl in ("xla", "fused"):
+        r = lo[impl]
+        _log(f"  K3 reading, loss-only {impl}: host {r['ms']:.4f} ms a "
+             f"call (fwd+bwd), device {r['device_ms']:.4f} ms a call, K3's "
+             f"kernel {r['k3_device_ms']:.4f}")
+        if not all(math.isfinite(v) for v in (
+                r["ms"], r["device_ms"], fs[impl]["ms"], fs[impl]["loss"])):
+            raise AssertionError(f"fused-loss bench {impl}: not finite")
+
+
+def _check_eval_bench(records):
+    """Each eval's wall finite and positive, its accuracy in [0, 1]."""
+    for rec in records:
+        if not (math.isfinite(rec["wall_s"]) and rec["wall_s"] > 0
+                and 0.0 <= rec["best_acc_sanity"] <= 1.0):
+            raise AssertionError(f"eval bench: {rec}")
+
+
+def _check_gap_trace(result):
+    """Each run's wall covers the card's work: at least
+    ``GAP_WALL_FLOOR`` of the device-step-only time of the same pairs (a
+    clock stopped before the drain reads less), with one wait and one
+    host prep a batch; its timed parts tile the wall (each part is its own
+    intervals, so a dropped or twice-counted one shows); finite rates."""
+    from iic_tpu_torch.tools.e2e_gap_trace import BATCH_SZ
+
+    rates = result["device_step_only"]
+    if not all(math.isfinite(v) and v > 0 for v in rates.values()):
+        raise AssertionError(f"gap trace: rates {rates}")
+    for rec in result["runs"]:
+        parts = (rec["wait_data"] + rec["dispatch"] + rec["fetch"]
+                 + rec["other"])
+        batches = len(rec["waits"])
+        step_only = rec["n_pairs"] / rates["mix"]
+        _log(f"  gap trace depth {rec['depth']}: wall {rec['wall']} s = "
+             f"wait_data {rec['wait_data']} + dispatch {rec['dispatch']} + "
+             f"fetch {rec['fetch']} + other {rec['other']} over "
+             f"{rec['n_pairs']} pairs, {batches} batches; device-step-only "
+             f"{rates}, {step_only} s for these pairs")
+        if (abs(parts - rec["wall"]) > 1e-6
+                or rec["wall"] < GAP_WALL_FLOOR * step_only
+                or len(rec["prep"]) != batches
+                or rec["n_pairs"] != batches * BATCH_SZ):
+            raise AssertionError(
+                f"gap trace: split {parts} of wall {rec['wall']} "
+                f"(device-step-only {step_only}), {len(rec['prep'])} "
+                f"preps for {batches} batches, {rec['n_pairs']} pairs")
+    for rec in result["continuous"]:
+        step_only = rec["n_pairs"] / rates["mix"]
+        _log(f"  gap trace continuous depth {rec['depth']}: wall "
+             f"{rec['wall']} s, {rec['n_pairs']} pairs, wait_data "
+             f"{rec['wait_data']} s; device-step-only {step_only} s")
+        if rec["wall"] < GAP_WALL_FLOOR * step_only:
+            raise AssertionError(f"gap trace continuous: wall {rec['wall']}"
+                                 f" under device-step-only {step_only}")
+
+
+def phase_measure_tools(trace_dir=""):
+    """The port's four measurement tools in-process on the card at their
+    default shapes (``MEASURE_TOOLS``), counts set to 0 just before each
+    and read just after: each must launch the kernels of its path and
+    none it does not run. Then their results are checked (``_check_*``;
+    the launches of those checks are not counted). Returns {kernel:
+    launches of the four}."""
+    import importlib
+
+    results, total = {}, {}
+    for name, needs, refused in MEASURE_TOOLS:
+        tool = importlib.import_module(f"iic_tpu_torch.tools.{name}")
+        argv = (["--profile_dir", os.path.join(trace_dir, name)]
+                if name == "e2e_gap_trace" and trace_dir else [])
+        _log(f"--- {name} {' '.join(argv)}")
+        _reset_counts()
+        t0 = time.perf_counter()
+        results[name] = tool.main(argv)
+        sys.stdout.flush()
+        launches = {k: v for k, v in _read_counts().items()
+                    if k in MEASURED_KERNELS}
+        _log(f"{name}: {time.perf_counter() - t0:.1f} s; LAUNCHES "
+             f"{launches}")
+        if (any(launches[k] < 1 for k in needs)
+                or any(launches[k] for k in refused)):
+            raise AssertionError(f"{name}: launches {launches}, needs "
+                                 f"{needs}, refuses {refused}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    _check_joint_bench(results["joint_kernel_bench"])
+    _check_fused_loss_bench(results["fused_loss_bench"])
+    _check_eval_bench(results["eval_cost_bench"])
+    _check_gap_trace(results["e2e_gap_trace"])
+    return total
+
+
 def _f64_errors(k, x1, x2, g2d):
     """Max error over max |ref| of K1, K2 and their f32 plain versions
     against the plain version run in float64 on the f32 inputs (both
@@ -4929,6 +5105,13 @@ def main(argv=None):
     _clocks("the tool runs")
     launches.update({k: v for k, v in phase_tool().items()
                      if k in TOOL_KERNELS})
+    # the measurement tools: their K1, K2 and K3 launches add to the
+    # table's
+    _clocks("phase measure tools")
+    t0 = time.perf_counter()
+    for k, v in phase_measure_tools(args.trace_dir).items():
+        launches[k] += v
+    _log(f"phase measure tools: {time.perf_counter() - t0:.1f} s")
     _clocks("the profiles")
     profiles = {}
     for dtype in ("float32", "bfloat16"):

@@ -519,22 +519,24 @@ def make_greyscale_pair_transforms(config):
     and the same for tf2 split each into its per-sample draws and their
     deterministic application.
     """
-    crop_orig = config.crop_orig
-    crop_other = config.crop_other
-    tf1_crop = config.tf1_crop
-    tf1_crop_sz = config.tf1_crop_sz
-    tf2_crop = config.tf2_crop
-    tf2_crop_szs = tuple(config.tf2_crop_szs)
-    tf3_sz = config.tf3_crop_sz if config.tf3_crop_diff else tf1_crop_sz
+    # a field the config lacks takes the JAX transforms' default
+    crop_orig = getattr(config, "crop_orig", True)
+    crop_other = getattr(config, "crop_other", True)
+    tf1_crop = getattr(config, "tf1_crop", "centre_half")
+    tf1_crop_sz = getattr(config, "tf1_crop_sz", 20)
+    tf2_crop = getattr(config, "tf2_crop", "random")
+    tf2_crop_szs = tuple(getattr(config, "tf2_crop_szs", (16, 20, 24)))
+    tf3_sz = (getattr(config, "tf3_crop_sz", tf1_crop_sz)
+              if getattr(config, "tf3_crop_diff", False) else tf1_crop_sz)
     input_sz = config.input_sz
-    rot_val = config.rot_val
-    always_rot = config.always_rot
-    no_flip = config.no_flip
-    no_jitter = config.no_jitter
-    demean = config.demean
-    data_mean = tuple(config.data_mean or ())
-    data_std = tuple(config.data_std or ())
-    do_per_img_demean = config.per_img_demean
+    rot_val = getattr(config, "rot_val", 25.0)
+    always_rot = getattr(config, "always_rot", False)
+    no_flip = getattr(config, "no_flip", True)
+    no_jitter = getattr(config, "no_jitter", False)
+    demean = getattr(config, "demean", False)
+    data_mean = tuple(getattr(config, "data_mean", ()) or ())
+    data_std = tuple(getattr(config, "data_std", ()) or ())
+    do_per_img_demean = getattr(config, "per_img_demean", False)
 
     def finish(img):
         if demean and data_mean:

@@ -54,7 +54,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from iic_tpu_torch.device import resolve_device
+from iic_tpu_torch.device import pop_device, resolve_device
 from iic_tpu_torch.ops.kernels import joint_exp as jx
 from iic_tpu_torch.ops.kernels import seg_joint as sj
 
@@ -113,12 +113,7 @@ def bwd_k2(x1, x2, g, half_t):
 
 
 def _parse(argv):
-    argv = list(argv)
-    device = None
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    argv, device = pop_device(argv)
     only = None
     if argv and not argv[0].isdigit():
         only, argv = argv[0], argv[1:]
